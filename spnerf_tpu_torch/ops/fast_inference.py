@@ -1,0 +1,147 @@
+"""Keypoint detection from cell probabilities and descriptor sampling.
+
+Counterpart of ``spnerf_tpu/ops/fast_inference.py``: candidates from one
+top-k over the cell probabilities, a (C, C) pairwise candidate NMS with
+the box-IoU topology of ``box_nms``, and bicubic descriptor sampling at
+the keypoints as one product with a (K, Hc*Wc) interpolation matrix.
+``torch.topk`` is exact where the reference's ``lax.approx_max_k`` has a
+recall target; ``build_inference`` is the serving path ``bench.py`` times.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spnerf_tpu_torch.ops.serving import ServingSuperPoint
+
+
+def detect_from_probs_padded(probs, grid_size: int = 8,
+                             min_prob: float = 0.015, size: int = 4,
+                             iou: float = 0.1, num_candidates: int = 1024,
+                             top_k: int = 1000, compact: bool = True):
+    """Keypoints from (B, Hc, Wc, L) cell probabilities, L >= 64 (lanes
+    past grid_size**2, if any, are ignored).
+
+    Returns pts (B, K, 2) float32 (y, x), scores (B, K) and valid (B, K).
+    ``compact=False`` returns all C candidates in rank order with
+    suppressed / sub-threshold ones masked by ``valid``.
+    """
+    B, Hc, Wc, _ = probs.shape
+    g2 = grid_size * grid_size
+    flat = probs[..., :g2].reshape(B, -1)  # ranked in the serving dtype
+    C = min(num_candidates, flat.shape[1])
+    scores, idx = torch.topk(flat, C, dim=1)
+    scores = scores.float()
+    cell = idx // g2
+    within = idx % g2
+    ys = (cell // Wc * grid_size + within // grid_size).float()
+    xs = (cell % Wc * grid_size + within % grid_size).float()
+    if not compact:
+        return _suppress_only(ys, xs, scores, min_prob, size, iou)
+    return _suppress_and_select(ys, xs, scores, min_prob, size, iou, top_k)
+
+
+def _candidate_keep(ys, xs, scores, min_prob, size, iou):
+    """(B, C) keep mask: a candidate survives iff above threshold and no
+    strictly higher-scored candidate overlaps it past the IoU bound."""
+    cand_valid = scores >= min_prob
+    dy = (ys[:, :, None] - ys[:, None, :]).abs()
+    dx = (xs[:, :, None] - xs[:, None, :]).abs()
+    inter = torch.clamp_min(size - dy, 0.0) * torch.clamp_min(size - dx, 0.0)
+    union = 2.0 * size * size - inter
+    overlap = inter / union > iou
+    stronger = scores[:, None, :] > scores[:, :, None]
+    suppressed = (overlap & stronger & cand_valid[:, None, :]).any(dim=-1)
+    return cand_valid & ~suppressed
+
+
+def _suppress_only(ys, xs, scores, min_prob, size, iou):
+    keep = _candidate_keep(ys, xs, scores, min_prob, size, iou)
+    pts = torch.stack([ys, xs], dim=-1)
+    return pts, torch.where(keep, scores, 0.0), keep
+
+
+def _suppress_and_select(ys, xs, scores, min_prob, size, iou, top_k):
+    C = scores.shape[1]
+    keep = _candidate_keep(ys, xs, scores, min_prob, size, iou)
+    kept = torch.where(keep, scores, -torch.inf)
+    final, sel = torch.topk(kept, min(top_k, C), dim=1)
+    pts = torch.stack([ys.gather(1, sel), xs.gather(1, sel)], dim=-1)
+    valid = torch.isfinite(final) & (final >= min_prob)
+    return pts, torch.where(valid, final, 0.0), valid
+
+
+def _cubic_weights(t, a: float = -0.75):
+    t2 = t * t
+    t3 = t2 * t
+    w0 = a * (t3 - 2 * t2 + t)
+    w1 = (a + 2) * t3 - (a + 3) * t2 + 1
+    w2 = -(a + 2) * t3 + (2 * a + 3) * t2 - a * t
+    w3 = a * (-t3 + t2)
+    return torch.stack([w0, w1, w2, w3], dim=-1)  # (..., K, 4)
+
+
+def _axis_weight_matrix(coord, n: int, grid_size: int):
+    """(..., K) pixel coordinates -> (..., K, n) cubic interpolation
+    weights with border clamping (Keys a = -0.75)."""
+    src = (coord + 0.5) / grid_size - 0.5
+    base = torch.floor(src)
+    t = src - base
+    w = _cubic_weights(t)
+    taps = torch.arange(-1, 3, device=coord.device)
+    idx = torch.clamp(base.to(torch.int64)[..., None] + taps, 0, n - 1)
+    grid = torch.arange(n, device=coord.device)
+    onehot = (idx[..., None] == grid).to(w.dtype)  # (..., K, 4, n)
+    return torch.einsum("...kt,...ktn->...kn", w, onehot)
+
+
+def sample_descriptors_onehot(desc_raw, points, grid_size: int = 8,
+                              normalize: bool = True):
+    """Bicubic descriptor interpolation at keypoints as one product.
+
+    desc_raw (B, Hc, Wc, C), points (B, K, 2) (y, x) pixels -> (B, K, C)
+    float32. The y/x weights combine into a (B, K, Hc*Wc) matrix (16
+    taps per row), contracted in bf16 with float32 accumulation against
+    the descriptor map.
+    """
+    B, Hc, Wc, C = desc_raw.shape
+    Wy = _axis_weight_matrix(points[..., 0], Hc, grid_size)
+    Wx = _axis_weight_matrix(points[..., 1], Wc, grid_size)
+    W2 = (Wy[..., :, None] * Wx[..., None, :]).reshape(B, -1, Hc * Wc)
+    out = torch.bmm(W2.to(torch.bfloat16).float(),
+                    desc_raw.reshape(B, Hc * Wc, C).to(torch.bfloat16).float())
+    if normalize:
+        out = out / (torch.linalg.norm(out, dim=-1, keepdim=True) + 1e-12)
+    return out
+
+
+def build_inference(config, state, calib, device="cuda", top_k: int = 1024):
+    """The serving path ``bench.py`` times: int8 ``ServingSuperPoint`` with
+    the in-kernel softmax, candidate NMS without compaction
+    (top_k == num_candidates) and descriptor sampling at the keypoints.
+
+    ``state``: the ``use_bn=True`` SuperPoint (or its folded dict);
+    ``calib``: (N, H, W, 1) calibration images. Returns ``infer(images)
+    -> (pts, scores, valid, desc)``; ``infer.serving`` is the graph.
+    """
+    sp = ServingSuperPoint.build(config, state, calib_images=calib,
+                                 device=device)
+    return make_infer(sp, config, top_k)
+
+
+def make_infer(sp: ServingSuperPoint, config, top_k: int = 1024):
+    """``infer(images) -> (pts, scores, valid, desc)`` over a built graph."""
+    cfg = config
+
+    @torch.no_grad()
+    def infer(images):
+        out = sp(images, softmax=True)
+        # top_k == num_candidates: compaction would only permute the set
+        pts, scores, valid = detect_from_probs_padded(
+            out["probs"], cfg.grid_size, min_prob=cfg.det_thresh,
+            size=cfg.nms, top_k=top_k, num_candidates=top_k, compact=False)
+        desc = sample_descriptors_onehot(out["desc_raw"], pts, cfg.grid_size)
+        return pts, scores, valid, desc
+
+    infer.serving = sp
+    return infer

@@ -1,0 +1,66 @@
+"""Carry weights of the flax SuperPoint (as numpy trees) into the port.
+
+The flax tree nests ``params/<head>/<block>/Conv_0/{kernel, bias}`` with
+HWIO kernels, and ``BatchNorm_0/{scale, bias}`` beside running stats in
+``batch_stats``. The torch module keeps the same paths with OIHW
+kernels. Nothing here imports JAX: callers hand over numpy arrays
+(``jax.tree.map(np.asarray, variables)``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from spnerf_tpu_torch.models.superpoint import SuperPoint, conv_blocks
+from spnerf_tpu_torch.ops.serving import ServingSuperPoint
+
+
+def _node(tree: dict, path: str) -> dict:
+    for part in path.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+@torch.no_grad()
+def load_flax_variables(model: SuperPoint, variables: dict) -> SuperPoint:
+    """Copy a flax ``{'params', 'batch_stats'}`` numpy tree into ``model``
+    (in place) and return it."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    for path, block in conv_blocks(model).items():
+        node = _node(params, path)
+        conv = block.Conv_0
+        conv.weight.copy_(_t(node["Conv_0"]["kernel"]).permute(3, 2, 0, 1))
+        conv.bias.copy_(_t(node["Conv_0"]["bias"]))
+        if block.BatchNorm_0 is not None:
+            bn, st = block.BatchNorm_0, _node(stats, path)["BatchNorm_0"]
+            bn.weight.copy_(_t(node["BatchNorm_0"]["scale"]))
+            bn.bias.copy_(_t(node["BatchNorm_0"]["bias"]))
+            bn.running_mean.copy_(_t(st["mean"]))
+            bn.running_var.copy_(_t(st["var"]))
+    return model
+
+
+def folded_from_flax(folded: dict, has_descriptor: bool = True) -> dict:
+    """The flax ``fold_batch_norm`` output (numpy tree ``{'params': ...}``)
+    -> the port's folded dict {path: {"kernel" HWIO, "bias"}}."""
+    names = ServingSuperPoint.conv_names(has_descriptor)
+    out = {}
+    for path in names:
+        node = _node(folded["params"], path)["Conv_0"]
+        out[path] = {"kernel": _t(node["kernel"]), "bias": _t(node["bias"])}
+    return out
+
+
+def serving_from_folded(folded: dict, act_scales: dict,
+                        has_descriptor: bool = True, device="cuda", **kw):
+    """A ``ServingSuperPoint`` built from flax-folded weights and flax
+    activation scales, so that a comparison with the JAX serving graph
+    sees only the kernels' arithmetic."""
+    scales = {k: torch.tensor(np.float32(v)) for k, v in act_scales.items()}
+    return ServingSuperPoint(folded_from_flax(folded, has_descriptor), scales,
+                             has_descriptor, device=device, **kw)

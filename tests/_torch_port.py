@@ -1,0 +1,47 @@
+"""Shared helpers of the ``test_torch_*`` files: seeded flax SuperPoint
+weights with non-trivial BatchNorm statistics, and bf16 comparisons.
+Imports JAX only inside ``flax_superpoint``: the on-card tests use this
+module where JAX is not installed."""
+
+import numpy as np
+import torch
+
+
+def flax_superpoint(cfg, shape, seed=0):
+    """(flax model, variables as a numpy tree). The flax init leaves BN
+    at identity; random BN parameters and running stats make folding
+    and weight-transfer bugs visible."""
+    import jax
+
+    from spnerf_tpu.models.superpoint import init_superpoint
+
+    model, variables = init_superpoint(jax.random.PRNGKey(seed), cfg, shape)
+    variables = jax.tree.map(lambda a: np.array(a, np.float32), variables)
+    rng = np.random.default_rng(seed + 100)
+
+    def perturb(params, stats):
+        for key, node in params.items():
+            if "BatchNorm_0" in node:
+                bn, st = node["BatchNorm_0"], stats[key]["BatchNorm_0"]
+                c = bn["scale"].shape[0]
+                bn["scale"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+                bn["bias"] = rng.uniform(-0.2, 0.2, c).astype(np.float32)
+                st["mean"] = rng.uniform(-0.1, 0.1, c).astype(np.float32)
+                st["var"] = rng.uniform(0.5, 2.0, c).astype(np.float32)
+            else:
+                perturb(node, stats[key])
+
+    perturb(variables["params"], variables["batch_stats"])
+    return model, variables
+
+
+def bf16_ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in bf16 ulps between two bf16 tensors."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits >= 0, bits, -(bits & 0x7FFF))
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def jax_bf16_to_torch(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x).view(np.int16)).view(torch.bfloat16)

@@ -1,0 +1,94 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Needs a CUDA device and skips without one (the kernels have no CPU
+mode). Imports no JAX, so that it runs where only PyTorch is installed:
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+
+Shapes are small, with edges that are not multiples of the kernels'
+tiles. Tolerances: int8 results exactly equal, bf16 within 1 ulp (the
+softmax's exp and sum order differ from PyTorch's).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import bf16_ulp_diff
+from spnerf_tpu_torch.kernels.conv12_fused import (
+    conv12_fused,
+    conv12_fused_plain,
+)
+from spnerf_tpu_torch.kernels.mid_fused import (
+    double_conv3x3,
+    double_conv3x3_plain,
+)
+from spnerf_tpu_torch.kernels.tail_fused import head, head_plain
+
+
+def _int8(rng, shape, lo=-127, hi=128):
+    return rng.integers(lo, hi, shape).astype(np.int8)
+
+
+def _mb(rng, C, lo, hi):
+    """Per-channel multiplier and bias, float32."""
+    return (rng.uniform(lo, hi, C).astype(np.float32),
+            rng.uniform(-20, 20, C).astype(np.float32))
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _card_case(kind, rng):
+    """(wrapper, plain, args, kwargs) at shapes whose edges are not
+    multiples of the kernels' 16 x 16 (or 8 x 16) tiles."""
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    if kind.startswith("conv12"):
+        s1 = np.float32(0.02)
+        args = (rng.uniform(0, 1, (2, 40, 56, 1)).astype(np.float32),
+                (rng.standard_normal((3, 3, 1, 64)) * 0.3).astype(np.float32),
+                np.full((64,), np.float32(1.0) / (np.float32(127.0) * s1)),
+                (rng.standard_normal(64) * 0.1 / s1).astype(np.float32),
+                _int8(rng, (3, 3, 64, 64)), *_mb(rng, 64, 1e-4, 6e-4))
+        return (conv12_fused, conv12_fused_plain, [t(a) for a in args],
+                {"pool": kind == "conv12_pool"})
+    if kind.startswith("double"):
+        cin, cm, pool = {"double_64_64": (64, 64, True),
+                         "double_64_128": (64, 128, True),
+                         "double_128_128": (128, 128, False)}[kind]
+        args = (_int8(rng, (2, 20, 36, cin), 0, 128),
+                _int8(rng, (3, 3, cin, cm)), *_mb(rng, cm, 5e-5, 4e-4),
+                _int8(rng, (3, 3, cm, cm)), *_mb(rng, cm, 3e-5, 3e-4))
+        return (double_conv3x3, double_conv3x3_plain, [t(a) for a in args],
+                {"pool": pool})
+    cout = 65 if kind.startswith("head_65") else 256
+    args = (_int8(rng, (2, 12, 20, 128), 0, 128), _int8(rng, (3, 3, 128, 256)),
+            *_mb(rng, 256, 5e-5, 4e-4), _int8(rng, (256, cout)),
+            rng.uniform(2e-5, 1e-4, cout).astype(np.float32),
+            rng.uniform(-1, 1, cout).astype(np.float32))
+    kw = {"softmax_lanes": 65} if kind == "head_65_softmax" else {}
+    return head, head_plain, [t(a) for a in args], kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [
+    "conv12_pool", "conv12", "double_64_64", "double_64_128",
+    "double_128_128", "head_65_softmax", "head_65", "head_256"])
+def test_kernel_matches_plain_on_card(card, kind):
+    from spnerf_tpu_torch.kernels import _build
+
+    kernel, plain, args, kw = _card_case(kind, np.random.default_rng(16))
+    before = sum(_build.launch_counts.values())
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert sum(_build.launch_counts.values()) == before + 1
+    want = plain(*args, **kw)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        assert bf16_ulp_diff(got.cpu(), want.cpu()) <= 1

@@ -1,0 +1,47 @@
+"""The port stands alone: importing every module of ``spnerf_tpu_torch``
+and loading ``chip_smoke.py`` (without running it) loads no JAX, no flax
+and nothing of ``spnerf_tpu``. Runs in a fresh interpreter, since this
+test process has JAX loaded already."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+PROBE = """
+import importlib, importlib.util, pkgutil, sys
+import spnerf_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(spnerf_tpu_torch.__path__,
+                                               "spnerf_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+assert callable(smoke.main)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "spnerf_tpu"))
+print(len(names), "modules;", "forbidden:", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_no_jax():
+    proc = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 12, proc.stdout
+
+
+def test_chip_smoke_needs_a_card():
+    """Without CUDA the script exits non-zero and prints no result."""
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, torch, runpy; torch.cuda.is_available = lambda: False;"
+         " sys.argv = ['chip_smoke.py']; runpy.run_path('chip_smoke.py',"
+         " run_name='__main__')"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
