@@ -18,7 +18,23 @@ Phases, each of which raises on failure (nothing is caught):
    before, check the outputs and that every kernel launched 5 times,
    then time the serving graph apart from detection + sampling;
 5. hold the CUDA graph against the plain path on the CPU on a small
-   input.
+   input;
+6. export homographic-adaptation pseudo-labels with
+   ``tasks.export.export_pseudo_labels`` at the configuration of
+   ``spnerf_tpu/configs/magicpoint_coco_export.yaml`` (full-width seeded
+   MagicPoint, 240 x 320, batch 8, 100 views in chunks of 10) for 20
+   synthetic images, by three routes, each with the launch counters at 0
+   before: (a) the default BN-folded bf16 forward, (b) ``export.serving:
+   int8`` on the int8 kernels, (c) one batch with int8 warps; check one
+   int64 (N, 2) label file per image and the launch counts, print
+   images/s and split one batch into its parts by CUDA events;
+7. hold the warp kernel against its plain version on the operands HA
+   gives it (image warp and probability unwarp, bf16 and int8), and the
+   int8 kernels on the shapes route (b) gives them, with times, bounds
+   and ``F.grid_sample`` as the warp's yardstick;
+8. run HA on 2 images of 64 x 80 by the int8 route on the card and on
+   the CPU plain path (same weights, scales and homographies): heatmaps
+   within 1e-6, keypoint sets equal.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -27,21 +43,34 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import copy
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from spnerf_tpu_torch.data.loader import DataLoader
 from spnerf_tpu_torch.kernels import _build
 from spnerf_tpu_torch.kernels.conv12_fused import conv12_fused_plain
 from spnerf_tpu_torch.kernels.mid_fused import double_conv3x3_plain
 from spnerf_tpu_torch.kernels.tail_fused import head_plain
+from spnerf_tpu_torch.kernels.warp import (
+    invert_homographies,
+    source_coords,
+    warp_by_inverse,
+    warp_by_inverse_plain,
+)
 from spnerf_tpu_torch.models.superpoint import SuperPointConfig, init_superpoint
+from spnerf_tpu_torch.ops import homography_adaptation as ha_mod
 from spnerf_tpu_torch.ops import serving
 from spnerf_tpu_torch.ops.fast_inference import (
     build_inference,
@@ -49,6 +78,14 @@ from spnerf_tpu_torch.ops.fast_inference import (
     make_infer,
     sample_descriptors_onehot,
 )
+from spnerf_tpu_torch.ops.homography_adaptation import (
+    HAConfig,
+    homography_adaptation,
+    image_homographies,
+)
+from spnerf_tpu_torch.ops.image_warp import valid_mask_from_inverse
+from spnerf_tpu_torch.ops.nms import box_nms
+from spnerf_tpu_torch.tasks import export
 
 H, W = 480, 640
 BATCH = 64
@@ -56,14 +93,45 @@ REQUESTS = 5
 TOP_K = 1024
 SEED = 0
 
-# (dense int8 operations/s, memory bytes/s) from NVIDIA's data sheets;
-# the first name found in the card's name applies
+# (dense int8 operations/s, memory bytes/s, float32 operations/s outside
+# the tensor cores) from NVIDIA's data sheets; the first name found in
+# the card's name applies
 PEAKS = {
-    "H100 PCIe": (1513e12, 2.0e12),
-    "H100 NVL": (1671e12, 3.9e12),
-    "H100": (1979e12, 3.35e12),
-    "H200": (1979e12, 4.8e12),
+    "H100 PCIe": (1513e12, 2.0e12, 51.2e12),
+    "H100 NVL": (1671e12, 3.9e12, 60e12),
+    "H100": (1979e12, 3.35e12, 67e12),
+    "H200": (1979e12, 4.8e12, 67e12),
 }
+
+# spnerf_tpu/configs/magicpoint_coco_export.yaml as a dict (the card's
+# machine has no YAML reader)
+EXPORT_CONFIG = {
+    "data": {"experiment_name": "coco_export_v1_HA", "batch_size": 8},
+    "homography_adaptation": {
+        "num": 100, "aggregation": "sum", "filter_counts": 0,
+        "valid_border_margin": 3, "chunk": 10,
+        "params": {"translation": True, "rotation": True, "scaling": True,
+                   "perspective": True, "scaling_amplitude": 0.2,
+                   "perspective_amplitude_x": 0.2,
+                   "perspective_amplitude_y": 0.2, "allow_artifacts": True,
+                   "patch_ratio": 0.85, "max_angle": 1.57}},
+    "model": {"model_name": "magicpoint",
+              "vgg_cn": [64, 64, 64, 64, 128, 128, 128, 128],
+              "detector_head": {"detector_dim": [128, 256], "grid_size": 8,
+                                "nms": 4, "det_thresh": 0.015, "top_k": 0}},
+}
+HA_H, HA_W = 240, 320
+HA_IMAGES = 20  # batches of 8, 8 and a padded 4
+# gain on the seeded detector's last conv: a random MagicPoint's
+# probabilities all sit within 1e-3 of 1/65, right at det_thresh; the gain
+# spreads them as a trained detector's are spread
+DET_GAIN = 10.0
+# float operations per output pixel of csrc/warp.cu (bf16 mode): source
+# coordinates 14, four hat weights 16, roundings 6, taps and sums 10
+WARP_FLOPS_PER_PIXEL = 46
+# card against CPU: the same inverse bits and int8 kernels; the logits'
+# softmax (expf) may differ by float32 ulps (measured 5.6e-9)
+HA_SMALL_TOL = 1e-6
 
 # serving-module name of each wrapper -> (plain version, CUDA source,
 # TPU kernel it replaces)
@@ -176,14 +244,16 @@ def compare(name, got, want):
     return err, float((got != want).float().mean())
 
 
-def synthetic_images(n: int, gen: torch.Generator) -> torch.Tensor:
+def synthetic_images(n: int, gen: torch.Generator,
+                     size=(H, W)) -> torch.Tensor:
     """(n, H, W, 1) float32 in [0, 1] on the card: smooth blobs from
     upsampled coarse noise plus fine grain, so that the backbone sees
     edges and corners rather than white noise."""
-    coarse = torch.rand((n, 1, H // 16, W // 16), generator=gen, device="cuda")
-    img = F.interpolate(coarse, size=(H, W), mode="bilinear",
+    h, w = size
+    coarse = torch.rand((n, 1, h // 16, w // 16), generator=gen, device="cuda")
+    img = F.interpolate(coarse, size=(h, w), mode="bilinear",
                         align_corners=False)
-    img = img + 0.05 * torch.rand((n, 1, H, W), generator=gen, device="cuda")
+    img = img + 0.05 * torch.rand((n, 1, h, w), generator=gen, device="cuda")
     return img.clamp(0, 1).permute(0, 2, 3, 1).contiguous()
 
 
@@ -210,7 +280,7 @@ def phase_card() -> str:
 def phase_kernels(calls, peaks):
     """Each recorded call: kernel against plain version on the same
     operands, with times and the bound."""
-    int8_rate, mem_rate = peaks
+    int8_rate, mem_rate = peaks[:2]
     rows = []
     for name, args, kw in calls:
         plain, source, replaces = WRAPPERS[name]
@@ -344,6 +414,273 @@ def phase_small_reference(sp_cuda, cfg):
         f"cosine {cos:.6f}")
 
 
+def export_config(serving=False, **ha) -> dict:
+    config = copy.deepcopy(EXPORT_CONFIG)
+    config["homography_adaptation"].update(ha)
+    config["export"] = {"serving": serving}
+    return config
+
+
+def ha_model():
+    """Seeded full-width MagicPoint, the detector's last conv times
+    ``DET_GAIN``."""
+    model = init_superpoint(SEED + 3,
+                            SuperPointConfig.from_dict(EXPORT_CONFIG["model"]),
+                            device="cuda")
+    with torch.no_grad():
+        model.detector["convPb"].Conv_0.weight.mul_(DET_GAIN)
+    return model
+
+
+def ha_prob_fn(model, config, calib):
+    """The forward ``export_pseudo_labels`` builds for ``config``."""
+    if config["export"]["serving"]:
+        sp = serving.ServingSuperPoint.build(model.config, model, calib,
+                                             device="cuda")
+        return export.make_prob_fn(model, serving=sp)
+    return export.make_prob_fn(model, fast=True)
+
+
+@contextlib.contextmanager
+def recorded_warps(calls: list, keep: int):
+    """Record the operands (image, H^-1, dtype) of the first ``keep``
+    warp calls HA makes."""
+    saved = ha_mod.warp_by_inverse
+
+    def call(image, hinv, compute_dtype):
+        if len(calls) < keep:
+            calls.append((image, hinv, compute_dtype))
+        return saved(image, hinv, compute_dtype)
+
+    ha_mod.warp_by_inverse = call
+    try:
+        yield
+    finally:
+        ha_mod.warp_by_inverse = saved
+
+
+def run_export(model, images, config, root: Path):
+    """export_pseudo_labels over ``images`` (n, H, W, 1) numpy into
+    ``root``; (label directory, seconds until the last file is written)."""
+    data = [{"image": im, "name": f"img{i:04d}"} for i, im in enumerate(images)]
+    loader = DataLoader(data, config["data"]["batch_size"], drop_last=False)
+    export.EXPER_PATH = root
+    t0 = time.perf_counter()
+    out_dir = export.export_pseudo_labels(config, model, loader)
+    torch.cuda.synchronize()
+    return out_dir, time.perf_counter() - t0
+
+
+def check_labels(out_dir: Path, n: int):
+    files = sorted(out_dir.glob("*.npy"))
+    if len(files) != n:
+        raise AssertionError(f"{len(files)} label files for {n} images")
+    counts = []
+    for f in files:
+        pts = np.load(f)
+        if pts.dtype != np.int64 or pts.ndim != 2 or pts.shape[1] != 2:
+            raise AssertionError(f"{f.name}: {pts.dtype} {pts.shape}")
+        if len(pts) == 0:
+            raise AssertionError(f"{f.name}: no keypoint")
+        if pts.min() < 0 or (pts >= [HA_H, HA_W]).any():
+            raise AssertionError(f"{f.name}: keypoint outside the image")
+        counts.append(len(pts))
+    return counts
+
+
+def phase_ha_export(model, images, route, config):
+    """Drive export_pseudo_labels once (after a warm-up batch) with the
+    launch counters at 0 before; check files and launches."""
+    ha = config["homography_adaptation"]
+    n_chunks = -(-(ha["num"] - 1) // ha["chunk"])
+    n_batches = -(-len(images) // config["data"]["batch_size"])
+    with tempfile.TemporaryDirectory() as tmp:
+        run_export(model, images[:8], config, Path(tmp, "warm-up"))
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        out_dir, secs = run_export(model, images, config, Path(tmp, "run"))
+        counts = dict(_build.launch_counts)
+        n_pts = check_labels(out_dir, len(images))
+        # the same export again, for the spread of the time
+        _, again = run_export(model, images, config, Path(tmp, "again"))
+    warp_key = "warp[int8]" if ha.get("compute_dtype") == "int8" else "warp[bf16]"
+    expect = {warp_key: 2 * n_chunks}
+    if config["export"]["serving"]:
+        fwd = n_chunks + 1  # the identity view and one forward per chunk
+        expect.update({"conv12_fused": fwd, "double_conv3x3": 3 * fwd,
+                       "head": fwd})
+    for family, per_batch in expect.items():
+        n = sum(v for k, v in counts.items() if k.startswith(family))
+        if n != per_batch * n_batches:
+            raise AssertionError(f"{route}: {family} launched {n} times, "
+                                 f"expected {per_batch} per batch")
+    log(f"[ha] {route}: {len(images)} images of {HA_H}x{HA_W} in "
+        f"{n_batches} batches, {secs:.4f} s, {len(images) / secs:.2f} "
+        f"images/s, {secs / n_batches * 1e3:.3f} ms per batch (run again: "
+        f"{again:.4f} s, {len(images) / again:.2f} images/s); keypoints "
+        f"per image min {min(n_pts)} median {statistics.median(n_pts)} max "
+        f"{max(n_pts)}")
+    log(f"[ha] {route} launches: {json.dumps(counts, sort_keys=True)}")
+    return counts
+
+
+def phase_ha_split(model, images, route, config, serving_calls=None):
+    """One batch of 8 split into its parts, each timed apart by CUDA
+    events (medians of 5): forwards, warps, masks with their inverses,
+    NMS + top-k; homography sampling and file writes by the host clock.
+    Returns the operands of its first image warp and probability
+    unwarp."""
+    cfg = HAConfig.from_dict(config["homography_adaptation"])
+    det = config["model"]["detector_head"]
+    x = torch.from_numpy(images[:8]).cuda()
+    prob_fn = ha_prob_fn(model, config, x)
+    B = x.shape[0]
+    n_extra = cfg.num - 1
+    t0 = time.perf_counter()
+    homs = image_homographies(SEED, range(B), n_extra, (HA_H, HA_W),
+                              cfg.params)
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    homs = homs.cuda()
+    ha_ms = cuda_ms(lambda: homography_adaptation(prob_fn, x, homs, cfg),
+                    reps=3)
+    calls = []  # image warp and unwarp of each chunk
+    with recorded_warps(calls, keep=2 * -(-n_extra // cfg.chunk)):
+        prob = homography_adaptation(prob_fn, x, homs, cfg)
+    torch.cuda.synchronize()
+    warp_ms = sum(cuda_ms(lambda c=c: warp_by_inverse(*c), reps=5)
+                  for c in calls)
+    fwd_ms = cuda_ms(lambda: prob_fn(x), reps=5)
+    invs = invert_homographies(homs.transpose(0, 1))
+    inv_invs = invert_homographies(invs)
+    mask_ms = cuda_ms(lambda: invert_homographies(invert_homographies(
+        homs.transpose(0, 1))), reps=5)
+    for c0 in range(0, n_extra, cfg.chunk):
+        h_inv, h_inv_inv = (t[c0:c0 + cfg.chunk].reshape(-1, 3, 3)
+                            for t in (invs, inv_invs))
+        warped = warp_by_inverse(*calls[2 * (c0 // cfg.chunk)])
+        fwd_ms += cuda_ms(lambda: prob_fn(warped), reps=5)
+        if serving_calls is not None and c0 == 0:
+            with recorded_calls(serving_calls):  # the int8 kernels at k * B
+                prob_fn(warped)
+
+        def masks():
+            for h in (h_inv, h_inv_inv):
+                valid_mask_from_inverse((HA_H, HA_W), h,
+                                        cfg.valid_border_margin)
+        mask_ms += cuda_ms(masks, reps=5)
+
+    def nms_topk():
+        pn = box_nms(prob, size=det["nms"], iou=0.1,
+                     min_prob=det["det_thresh"])
+        return torch.topk(pn.reshape(B, -1), 4096, dim=1)
+    nms_ms = cuda_ms(nms_topk, reps=5)
+    scores, idx = nms_topk()
+    scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for i in range(B):
+            keep = scores[i] >= det["det_thresh"]
+            pts = np.stack([idx[i][keep] // HA_W, idx[i][keep] % HA_W], -1)
+            np.save(Path(tmp, f"{i}.npy"), pts.astype(np.int64))
+        write_ms = (time.perf_counter() - t0) * 1e3
+    other = ha_ms - fwd_ms - warp_ms - mask_ms
+    log(f"[ha-split] {route}, one batch of {B} at {HA_H}x{HA_W}: adaptation "
+        f"{ha_ms:.3f} ms (median of 3) = forwards {fwd_ms:.3f} + warps "
+        f"{warp_ms:.3f} ({len(calls)} launches) + masks {mask_ms:.3f} + "
+        f"rest {other:.3f}; homography sampling on the host {sample_ms:.3f} "
+        f"ms; NMS + top-k {nms_ms:.3f} ms; host writes {write_ms:.3f} ms")
+    return calls[:2]
+
+
+def phase_warp_kernels(calls, peaks):
+    """The warp kernel against its plain version on HA's operands, with
+    times, the bound and F.grid_sample on the same images."""
+    _, mem_rate, f32_rate = peaks
+    rows = []
+    for label, (image, hinv, dtype) in calls:
+        before = _build.launch_counts.copy()
+        got = warp_by_inverse(image, hinv, dtype)
+        key, = (_build.launch_counts - before).keys()
+        want = warp_by_inverse_plain(image, hinv, dtype)
+        err = float((got - want).abs().max())
+        share = float((got != want).float().mean())
+        if not err <= 1e-6:
+            raise AssertionError(f"{key} {label}: max |err| {err} > 1e-6")
+        ms = cuda_ms(lambda: warp_by_inverse(image, hinv, dtype), reps=20,
+                     warmup=3)
+        plain_ms = cuda_ms(lambda: warp_by_inverse_plain(image, hinv, dtype),
+                           reps=3)
+        N, B = hinv.shape[0], image.shape[0]
+        src = image.permute(0, 3, 1, 2).repeat(N // B, 1, 1, 1)
+        sx, sy = source_coords(hinv, (HA_H, HA_W))
+        grid = torch.stack([sx * (2.0 / (HA_W - 1)) - 1.0,
+                            sy * (2.0 / (HA_H - 1)) - 1.0], -1)
+        grid = torch.where(torch.isfinite(grid), grid, -2.0)
+        lib_ms = cuda_ms(lambda: F.grid_sample(
+            src, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True), reps=20, warmup=3)
+        moved = nbytes(image, got) + N * 9 * 4  # and H^-1, read once
+        ops = N * HA_H * HA_W * WARP_FLOPS_PER_PIXEL
+        t_ops, t_bytes = ops / f32_rate * 1e3, moved / mem_rate * 1e3
+        rows.append({
+            "name": key, "route": "cuda",
+            "source": "spnerf_tpu_torch/kernels/csrc/warp.cu",
+            "replaces": "spnerf_tpu/kernels/warp_pallas.py:74",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_ms,
+        })
+        log(f"[kernel] {key} {label}: {B} images -> {N} warps "
+            f"{HA_H}x{HA_W}, max_abs_err {err} ({share:.3e} of values "
+            f"differ), kernel {ms:.4f} ms (median of 20), plain "
+            f"{plain_ms:.4f} ms, grid_sample {lib_ms:.4f} ms, bound "
+            f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}, "
+            f"{moved / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)")
+        del got, want, src, grid
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_ha_small(model):
+    """HA by the int8 route on 2 images of 64 x 80 (num 5, chunk 2) on the
+    card and on the CPU plain path, same weights, scales and
+    homographies: heatmaps within HA_SMALL_TOL, keypoint sets equal."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = synthetic_images(2, gen, (64, 80))
+    cfg = HAConfig.from_dict({**EXPORT_CONFIG["homography_adaptation"],
+                              "num": 5, "chunk": 2})
+    det = EXPORT_CONFIG["model"]["detector_head"]
+    sp = serving.ServingSuperPoint.build(model.config, model, x,
+                                         device="cuda")
+    sp_cpu = serving.ServingSuperPoint(
+        {k: {n: t.cpu() for n, t in v.items()} for k, v in sp.params.items()},
+        {k: v.cpu() for k, v in sp.act_scales.items()},
+        sp.has_descriptor, device="cpu")
+    homs = image_homographies(SEED, [0, 1], cfg.num - 1, (64, 80), cfg.params)
+    probs, sets = [], []
+    for spx, dev in ((sp, "cuda"), (sp_cpu, "cpu")):
+        prob = homography_adaptation(export.make_prob_fn(model, serving=spx),
+                                     x.to(dev), homs.to(dev), cfg)
+        nms = box_nms(prob, size=det["nms"], iou=0.1,
+                      min_prob=det["det_thresh"])
+        sets.append({tuple(p) for p in nms.nonzero().cpu().tolist()})
+        probs.append(prob.cpu())
+    err = float((probs[0] - probs[1]).abs().max())
+    if not err <= HA_SMALL_TOL:
+        raise AssertionError(f"HA small: heatmaps differ by {err}")
+    if not sets[0]:
+        raise AssertionError("HA small: no keypoint")
+    if sets[0] != sets[1]:
+        diff = sorted(sets[0] ^ sets[1])
+        raise AssertionError(
+            f"HA small: keypoint sets differ at {diff[:10]} (card "
+            f"{len(sets[0])}, CPU {len(sets[1])})")
+    log(f"[ha-small] 2x64x80, num 5: heatmaps within {err:.3e} of the CPU "
+        f"plain path ({float((probs[0] != probs[1]).float().mean()):.3e} "
+        f"of values differ), {len(sets[0])} keypoints, equal sets")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -377,6 +714,37 @@ def main() -> int:
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} never launched on the path")
     phase_small_reference(infer.serving, cfg)
+    del infer, requests
+    torch.cuda.empty_cache()
+
+    # homographic-adaptation export: each route is a drive of the main
+    # path with the counters at 0 before it
+    ha = ha_model()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    images = synthetic_images(HA_IMAGES, gen, (HA_H, HA_W)).cpu().numpy()
+    ha_counts = collections.Counter()
+    warp_calls, serving_calls = [], []
+    for route, config in (
+            ("(a) bf16 forward", export_config()),
+            ("(b) int8 serving", export_config(serving="int8")),
+            ("(c) int8 warps", export_config(compute_dtype="int8"))):
+        n = 8 if route.startswith("(c)") else HA_IMAGES  # (c): one batch
+        ha_counts.update(phase_ha_export(ha, images[:n], route, config))
+        image_warp, unwarp = phase_ha_split(
+            ha, images, route, config,
+            serving_calls if config["export"]["serving"] else None)
+        if not config["export"]["serving"]:
+            warp_calls += [("image warp", image_warp),
+                           ("probability unwarp", unwarp)]
+    ha_rows = (phase_warp_kernels(warp_calls, peaks)
+               + phase_kernels(serving_calls, peaks))
+    for row in ha_rows:
+        row["launches"] = ha_counts.get(row["name"], 0)
+        if row["launches"] == 0:
+            raise AssertionError(f"{row['name']} never launched on the "
+                                 "HA export path")
+    phase_ha_small(ha)
+    rows += ha_rows
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -142,6 +142,21 @@ def fold_batch_norm(model: SuperPoint, eps: float = 1e-5) -> dict:
     return folded
 
 
+@torch.no_grad()
+def folded_superpoint(folded: dict, config: SuperPointConfig,
+                      dtype=torch.bfloat16) -> SuperPoint:
+    """The ``use_bn=False`` SuperPoint holding ``fold_batch_norm``'s
+    weights, cast to ``dtype``, in eval mode on the weights' device: the
+    reference's BN-folded bf16 export forward (its ``make_prob_fn(...,
+    fast=True)``)."""
+    device = next(iter(folded.values()))["kernel"].device
+    model = SuperPoint(dataclasses.replace(config, use_bn=False))
+    for path, block in conv_blocks(model).items():
+        block.Conv_0.weight.copy_(folded[path]["kernel"].permute(3, 2, 0, 1))
+        block.Conv_0.bias.copy_(folded[path]["bias"])
+    return model.to(device, dtype).eval()
+
+
 def init_superpoint(seed: int, config: SuperPointConfig = SuperPointConfig(),
                     device="cuda") -> SuperPoint:
     """A SuperPoint in eval mode with weights drawn from ``seed``.

@@ -1,0 +1,19 @@
+"""Depth-to-space for NHWC tensors.
+
+Channel order is ``torch.pixel_shuffle``'s: input channel
+``c * r * r + i * r + j`` goes to offset (i, j) of its r x r cell, as in
+``spnerf_tpu/ops/space_ops.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def depth_to_space(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(B, H, W, r*r*C) -> (B, H*r, W*r, C)."""
+    B, H, W, C = x.shape
+    c = C // (r * r)
+    x = x.reshape(B, H, W, c, r, r).permute(0, 1, 4, 2, 5, 3)  # B H i W j c
+    return x.reshape(B, H * r, W * r, c)
+

@@ -1,0 +1,192 @@
+"""Homographic-adaptation pseudo-label export (``spnerf_tpu/tasks/export.py``).
+
+Artifact layout as in the reference: EXPER_PATH/outputs/<experiment>/
+<split>/<name>.npy holds int64 (N, 2) (y, x) keypoints. The export is
+resumable: images that already have a file are skipped.
+
+Each image batch goes to the card as uint8, is padded to one fixed batch
+shape, adapted over its random views, NMS'd and cut to its top ``k_cap``
+points on the card; only those points come back. A 1-deep pipeline
+overlaps the host's file writes of batch i-1 with the card's work on
+batch i: batch i-1's points are copied into pinned host buffers without
+blocking and an event is recorded right after, and the host waits on
+that event, not on the stream (which by then holds batch i as well).
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from spnerf_tpu_torch.device import resolve_device
+from spnerf_tpu_torch.models.superpoint import (
+    SuperPoint,
+    fold_batch_norm,
+    folded_superpoint,
+)
+from spnerf_tpu_torch.ops.detector_decode import decode_detector_logits
+from spnerf_tpu_torch.ops.homography_adaptation import (
+    HAConfig,
+    homography_adaptation,
+    image_homographies,
+)
+from spnerf_tpu_torch.ops.nms import box_nms
+from spnerf_tpu_torch.ops.serving import ServingSuperPoint
+from spnerf_tpu_torch.settings import EXPER_PATH
+
+
+def make_prob_fn(model: SuperPoint, fast: bool = False, serving=None):
+    """(B, H, W, 1) -> (B, H, W) decoded probability heatmap.
+
+    ``fast=False``: the float32 model, with cuDNN's TF32 off. ``fast=True``:
+    BatchNorm folded into the convs, the forward in bf16 (the export
+    default); the decode stays float32. ``serving``: a built int8
+    ``ServingSuperPoint``, whose detector head returns logits (no
+    in-kernel softmax).
+    """
+    grid = model.config.grid_size
+    if serving is not None:
+        @torch.no_grad()
+        def prob_fn(image):
+            logits = serving(image)["logits"]
+            return decode_detector_logits(logits.float(), grid)
+        return prob_fn
+
+    if not fast:
+        @torch.no_grad()
+        def prob_fn(image):
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                logits = model(image)["logits"]
+            return decode_detector_logits(logits, grid)
+        return prob_fn
+
+    infer = folded_superpoint(fold_batch_norm(model), model.config)
+
+    @torch.no_grad()
+    def prob_fn(image):
+        logits = infer(image.to(torch.bfloat16))["logits"]
+        return decode_detector_logits(logits.float(), grid)
+    return prob_fn
+
+
+@torch.no_grad()
+def export_pseudo_labels(config: dict, model: SuperPoint, loader,
+                         split: str = "training", enable_ha: bool = True,
+                         seed: int = 0, fast: bool = True,
+                         device="cuda") -> Path:
+    """Write one keypoint file per image of ``loader`` (an iterable of
+    {"image": (B, H, W, 1) float in [0, 1], "name": [...]} batches).
+
+    ``config`` is the reference's export config as a dict: ``data``
+    (experiment_name, batch_size), ``model.detector_head`` (nms,
+    det_thresh, top_k), ``homography_adaptation`` (see ``HAConfig``) and
+    ``export`` (serving: false | true | "int8"; "bf16" and "mixed" raise
+    NotImplementedError; topk_cap, default 4096). Image i of the dataset
+    draws its views from (seed, i), counted from the loader dataset's
+    ``shard_offset`` if it has one: the labels depend on neither batch
+    size, padding nor resumes.
+    """
+    device = resolve_device(device)
+    exper = config["data"]["experiment_name"]
+    out_dir = Path(EXPER_PATH, "outputs", exper, split)
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    det_cfg = config["model"]["detector_head"]
+    exp_cfg = config.get("export", {}) or {}
+    ha_cfg = HAConfig.from_dict(config.get("homography_adaptation", {}))
+    det_thresh = float(det_cfg["det_thresh"])
+    top_k = int(det_cfg.get("top_k", 0) or 0)
+    # point cap when top_k is unlimited: NMS'd 240 x 320 heatmaps keep a
+    # few hundred points, so 4096 is "all" in practice
+    k_cap = top_k if top_k > 0 else int(exp_cfg.get("topk_cap", 4096))
+
+    model = model.to(device).eval()
+    serving = None
+    serving_mode = exp_cfg.get("serving", False)
+    if serving_mode:
+        mode = serving_mode if isinstance(serving_mode, str) else "int8"
+        # calibrate on the first batch; close the iterator so that its
+        # prefetch thread ends
+        cal_it = iter(loader)
+        first = next(cal_it)
+        if hasattr(cal_it, "close"):
+            cal_it.close()
+        calib = torch.from_numpy(np.asarray(first["image"])[:8]).to(device)
+        serving = ServingSuperPoint.build(model.config, model, calib,
+                                          mode=mode, device=device)
+    prob_fn = make_prob_fn(model, fast=fast, serving=serving)
+    b_fixed = int(config["data"].get("batch_size", 1))
+
+    def ha_points(image_u8, homs):
+        """uint8 batch -> (scores, ys, xs), each (B, k) on the device."""
+        image = image_u8.float() * (1.0 / 255.0)
+        if enable_ha:
+            prob = homography_adaptation(prob_fn, image, homs, ha_cfg)
+        else:
+            prob = prob_fn(image)
+        pn = box_nms(prob, size=det_cfg["nms"], iou=0.1,
+                     min_prob=det_thresh, keep_top_k=top_k)
+        Bp, H, W = pn.shape
+        scores, idx = torch.topk(pn.reshape(Bp, -1), min(k_cap, H * W),
+                                 dim=1)
+        return scores, idx // W, idx % W
+
+    def to_device(a):
+        t = torch.as_tensor(a)
+        if device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
+
+    def flush(pending):
+        todo, (scores, ys, xs), done = pending
+        if done is not None:
+            done.synchronize()
+        scores, ys, xs = scores.numpy(), ys.numpy(), xs.numpy()
+        for i, name in todo:
+            keep = scores[i] >= det_thresh
+            pred = np.stack([ys[i][keep], xs[i][keep]], -1).astype(np.int64)
+            np.save(out_dir / f"{name}.npy", pred)
+
+    pending = None  # 1-deep pipeline: host writes overlap the card's work
+    img_seen = int(getattr(getattr(loader, "dataset", None),
+                           "shard_offset", 0) or 0)
+    for batch in loader:
+        names = batch["name"]
+        img = np.asarray(batch["image"])
+        n_real = img.shape[0]
+        todo = [(i, n) for i, n in enumerate(names)
+                if not (out_dir / f"{n}.npy").exists()]
+        idx0, img_seen = img_seen, img_seen + n_real
+        if not todo:
+            continue
+        homs = None
+        if enable_ha:
+            homs = image_homographies(seed, range(idx0, idx0 + n_real),
+                                      ha_cfg.num - 1, img.shape[1:3],
+                                      ha_cfg.params)
+        image_u8 = np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8)
+        pad = max(b_fixed, n_real) - n_real
+        if pad:  # padded rows are dropped on flush
+            image_u8 = np.concatenate(
+                [image_u8, np.repeat(image_u8[-1:], pad, axis=0)])
+            if homs is not None:
+                homs = torch.cat([homs, homs[-1:].expand(pad, -1, -1, -1)])
+        res = ha_points(to_device(image_u8),
+                        None if homs is None else to_device(homs))
+        done = None
+        if device.type == "cuda":
+            host = tuple(torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
+                         for r in res)
+            for h, r in zip(host, res):
+                h.copy_(r, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            res = host
+        if pending is not None:
+            flush(pending)  # batch i-1, while the card runs batch i
+        pending = (todo, res, done)
+    if pending is not None:
+        flush(pending)
+    return out_dir

@@ -7,7 +7,7 @@ mode). Imports no JAX, so that it runs where only PyTorch is installed:
 
 Shapes are small, with edges that are not multiples of the kernels'
 tiles. Tolerances: int8 results exactly equal, bf16 within 1 ulp (the
-softmax's exp and sum order differ from PyTorch's).
+softmax's exp and sum order differ from PyTorch's), warps within 1e-6.
 """
 
 import numpy as np
@@ -92,3 +92,43 @@ def test_kernel_matches_plain_on_card(card, kind):
         assert torch.equal(got, want)
     else:
         assert bf16_ulp_diff(got.cpu(), want.cpu()) <= 1
+
+
+def _warp_case(kind, rng):
+    """(image, homographies, compute dtype): ragged 37 x 53 images, three
+    homographies per image (n % B tiling), one with a zero denominator
+    on the column x = 16."""
+    B, H, W = 2, 37, 53
+    img = rng.uniform(0, 1, (B, H, W, 1)).astype(np.float32)
+    Hs = np.tile(np.eye(3, dtype=np.float32), (3 * B, 1, 1))
+    Hs[:, :2] += rng.normal(0, 0.1, (3 * B, 2, 3)).astype(np.float32)
+    Hs[:, :2, 2] *= 20
+    Hs[:, 2, :2] = rng.normal(0, 1e-3, (3 * B, 2)).astype(np.float32)
+    if kind == "zero_denominator":
+        Hs[0] = [[1, 0, 0], [0, 1, 0], [1 / 16, 0, 1]]
+    dtype = torch.int8 if kind == "int8" else torch.bfloat16
+    return torch.from_numpy(img).cuda(), torch.from_numpy(Hs).cuda(), dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "zero_denominator"])
+def test_warp_matches_plain_on_card(card, kind):
+    """The warp kernel against its plain version on the card: the same
+    explicitly rounded float32 operations in the same order, so within
+    1e-6 (equal in practice)."""
+    from spnerf_tpu_torch.kernels import _build
+    from spnerf_tpu_torch.kernels.warp import (
+        warp_image_fused,
+        warp_image_fused_plain,
+    )
+
+    img, Hs, dtype = _warp_case(kind, np.random.default_rng(17))
+    before = sum(_build.launch_counts.values())
+    got = warp_image_fused(img, Hs, dtype)
+    torch.cuda.synchronize()
+    assert sum(_build.launch_counts.values()) == before + 1
+    want = warp_image_fused_plain(img, Hs, dtype)
+    assert got.shape == want.shape == (Hs.shape[0],) + img.shape[1:]
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-6
+    assert float((want > 0).float().mean()) > 0.3
