@@ -34,7 +34,26 @@ Phases, each of which raises on failure (nothing is caught):
    and ``F.grid_sample`` as the warp's yardstick;
 8. run HA on 2 images of 64 x 80 by the int8 route on the card and on
    the CPU plain path (same weights, scales and homographies): heatmaps
-   within 1e-6, keypoint sets equal.
+   within 1e-6, keypoint sets equal;
+9. train the full-width SuperPoint of ``spnerf_tpu/configs/
+   superpoint_coco_train.yaml`` (240 x 320, batch 2, photometric and
+   pair-homography augmentation on the card, blockwise descriptor loss)
+   with ``tasks.train_task.train`` for 20 steps on synthetic images with
+   256 seeded keypoints each, from seeded weights, with the launch
+   counters at 0 before; then validation of 2 batches and a checkpoint,
+   and one more step resumed from that checkpoint. The loss must be
+   finite and fall, and the three descriptor-loss kernels must have
+   launched once per step (the forward once more per validation batch);
+   print steps/s and one step split into its parts by CUDA events;
+10. hold the three descriptor-loss kernels against their plain version
+   on the operands the training step gives them (B 2, N 1,200, C 256)
+   and at N 4,800 (480 x 640): sums within 1e-5, gradients within 1e-4
+   of their largest entry outside the few rows where a dot lies within
+   rounding of a margin, two runs bit-equal; times, bounds, and the dense
+   ``descriptor_loss_from_cells`` with autograd as a yardstick;
+11. take two steps of a small SuperPoint on the card and on the CPU
+   plain path from the same state, draws and batch: augmented images,
+   losses and parameters within the stated tolerances.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -58,8 +77,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from spnerf_tpu_torch import settings
 from spnerf_tpu_torch.data.loader import DataLoader
+from spnerf_tpu_torch.geometry.homography import (
+    HomographyConfig,
+    sample_homographies,
+    warp_points,
+)
 from spnerf_tpu_torch.kernels import _build
+from spnerf_tpu_torch.kernels import descriptor_loss as dl
 from spnerf_tpu_torch.kernels.conv12_fused import conv12_fused_plain
 from spnerf_tpu_torch.kernels.mid_fused import double_conv3x3_plain
 from spnerf_tpu_torch.kernels.tail_fused import head_plain
@@ -83,9 +109,26 @@ from spnerf_tpu_torch.ops.homography_adaptation import (
     homography_adaptation,
     image_homographies,
 )
-from spnerf_tpu_torch.ops.image_warp import valid_mask_from_inverse
+from spnerf_tpu_torch.ops.image_warp import (
+    compute_valid_mask,
+    valid_mask_from_inverse,
+)
 from spnerf_tpu_torch.ops.nms import box_nms
-from spnerf_tpu_torch.tasks import export
+from spnerf_tpu_torch.ops.photometric_device import (
+    draw_photometric_randoms,
+    photometric_from_draws,
+)
+from spnerf_tpu_torch.tasks import export, train_task
+from spnerf_tpu_torch.train import loop
+from spnerf_tpu_torch.train.losses import (
+    DescriptorLossConfig,
+    _cell_mask,
+    cell_grid_coords,
+    descriptor_loss_from_cells,
+    detector_loss,
+    detector_noise,
+)
+from spnerf_tpu_torch.train.pipeline import prepare_superpoint_batch
 
 H, W = 480, 640
 BATCH = 64
@@ -132,6 +175,82 @@ WARP_FLOPS_PER_PIXEL = 46
 # card against CPU: the same inverse bits and int8 kernels; the logits'
 # softmax (expf) may differ by float32 ulps (measured 5.6e-9)
 HA_SMALL_TOL = 1e-6
+
+# spnerf_tpu/configs/superpoint_coco_train.yaml as a dict, with the cuts of
+# TRAIN_CUTS applied by train_config()
+TRAIN_CONFIG = {
+    "data": {
+        "name": "COCO", "class_name": "COCO",
+        "has_labels": "outputs/coco_export_v1_HA",
+        "preprocessing": {"resize": [240, 320]},
+        "batch_size": 2, "truncate": False, "warped_pair": True,
+        "augmentation": {
+            "photometric": {
+                "enable": True, "on_device": True,
+                "primitives": ["random_brightness", "random_contrast",
+                               "additive_speckle_noise",
+                               "additive_gaussian_noise", "additive_shade",
+                               "motion_blur"],
+                "params": {
+                    "random_brightness": {"max_abs_change": 50},
+                    "random_contrast": {"strength_range": [0.5, 1.5]},
+                    "additive_gaussian_noise": {"stddev_range": [0, 10]},
+                    "additive_speckle_noise": {"prob_range": [0, 0.0035]},
+                    "additive_shade": {"transparency_range": [-0.5, 0.5],
+                                       "kernel_size_range": [100, 150],
+                                       "nb_ellipses": 20},
+                    "motion_blur": {"max_kernel_size": 3}}},
+            "homographic": {"enable": False},
+            "pair_homography": {
+                "params": {"translation": True, "rotation": True,
+                           "scaling": True, "perspective": True,
+                           "scaling_amplitude": 0.2, "n_scales": 5,
+                           "n_angles": 25, "perspective_amplitude_x": 0.2,
+                           "perspective_amplitude_y": 0.2,
+                           "patch_ratio": 0.85, "max_angle": 1.57,
+                           "allow_artifacts": True,
+                           "translation_overflow": 0.0},
+                "valid_border_margin": 3}}},
+    "model": {
+        "script": "SuperPoint", "class_name": "SuperPoint",
+        "model_name": "superpoint",
+        "vgg_cn": [64, 64, 64, 64, 128, 128, 128, 128],
+        "detector_head": {"detector_dim": [128, 256], "grid_size": 8,
+                          "nms": 4, "det_thresh": 0.001, "top_k": 0},
+        "descriptor_head": {"descriptor_dim": [128, 256], "grid_size": 8,
+                            "positive_margin": 1.0, "negative_margin": 0.2,
+                            "lambda_d": 250, "lambda_loss": 0.0001,
+                            "normalise_descriptors": False}},
+    "train": {"num_iters": 450000, "learning_rate": 0.001,
+              "pallas_desc_loss": True},
+    "save_or_validation_interval": 5000,
+    "ckpt_name": "Superpoint_Baseline",
+    "pretrained": "magicpoint_COCO_v1_HA/magicpoint_COCO_v1_HA_25000.ckpt",
+    "continue_training": False,
+}
+# what the smoke run changes in that file: 20 steps, then validation of 2
+# batches and a checkpoint; seeded weights (no MagicPoint checkpoint is in
+# the repository); the loss read from the card every 5 steps. The data
+# are cut too: synthetic images with 256 seeded keypoints each in place
+# of COCO and its exported labels.
+TRAIN_CUTS = {"train.num_iters": 20, "save_or_validation_interval": 20,
+              "pretrained": None, "train.val_batches": 2, "log_every": 5}
+TRAIN_H, TRAIN_W = 240, 320
+DEV = "cuda"  # the training phases' device
+TRAIN_KPTS = 256
+# kernel against plain version: the sums are float32 sums over N x N pairs
+# in another order; a gradient row differs only where a dot lies within
+# float32 rounding of a margin and takes the other side of the step
+DESC_SUM_RTOL = 1e-5
+DESC_GRAD_TOL = 1e-4  # of the gradient's largest entry
+DESC_FLIPPED_ROWS = 1e-3  # share of rows allowed beyond DESC_GRAD_TOL
+# float operations per cell pair besides the 2 * C of the dot: distance 5,
+# hinge and weights 8 (forward); step and weights 4 (backward)
+DESC_PAIR_FLOPS_FWD, DESC_PAIR_FLOPS_BWD = 13, 9
+# card against CPU over two small steps: float32 convs (no TF32) and sums
+# in another order; see phase_train_small
+SMALL_LOSS_RTOL = 2e-4
+SMALL_IMAGE_ATOL = 1e-5
 
 # serving-module name of each wrapper -> (plain version, CUDA source,
 # TPU kernel it replaces)
@@ -681,6 +800,464 @@ def phase_ha_small(model):
         f"of values differ), {len(sets[0])} keypoints, equal sets")
 
 
+def train_config() -> dict:
+    """TRAIN_CONFIG with TRAIN_CUTS applied."""
+    config = copy.deepcopy(TRAIN_CONFIG)
+    for dotted, value in TRAIN_CUTS.items():
+        *path, leaf = dotted.split(".")
+        node = config
+        for part in path:
+            node = node[part]
+        node[leaf] = value
+    return config
+
+
+def train_dataset(n: int, seed: int, size=(TRAIN_H, TRAIN_W)) -> list:
+    """``n`` samples {"image": (H, W, 1) float32 synthetic image, "kpts":
+    (256, 2) seeded (y, x) keypoints, "kpts_mask": all true}."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    images = synthetic_images(n, gen, size).cpu().numpy()
+    rng = np.random.default_rng(seed)
+    kpts = rng.uniform(0, size, (n, TRAIN_KPTS, 2)).astype(np.float32)
+    return [{"image": images[i], "kpts": kpts[i],
+             "kpts_mask": np.ones(TRAIN_KPTS, bool)} for i in range(n)]
+
+
+def read_metrics(ckpt_name: str) -> dict:
+    """{tag: [(step, value), ...]} of a run's metrics.jsonl."""
+    path = Path(settings.CKPT_PATH, ckpt_name, "logs", "metrics.jsonl")
+    out = collections.defaultdict(list)
+    for line in path.read_text().splitlines():
+        row = json.loads(line)
+        out[row["tag"]].append((row["step"], row["value"]))
+    return out
+
+
+@contextlib.contextmanager
+def recorded_hinge_calls(calls: list):
+    """Record the operands of every ``descriptor_hinge_sums`` call."""
+    saved = dl.descriptor_hinge_sums
+
+    def call(*args):
+        calls.append(tuple(a.detach() if torch.is_tensor(a) else a
+                           for a in args))
+        return saved(*args)
+
+    dl.descriptor_hinge_sums = call
+    try:
+        yield
+    finally:
+        dl.descriptor_hinge_sums = saved
+
+
+def phase_train(root: Path):
+    """Drive tasks.train_task.train: 20 steps of the full-width config on
+    a repeated batch, validation, a checkpoint, and a resumed step.
+    Returns (launch counts of the 20-step run, the trained state, its
+    loader, the operands of its last step's descriptor-loss call)."""
+    settings.CKPT_PATH = root
+    config = train_config()
+    batch = config["data"]["batch_size"]
+    # one batch, repeated: the loss must fall on it; validation on 2 others
+    loader = DataLoader(train_dataset(batch, SEED + 6), batch)
+    val_loader = DataLoader(train_dataset(2 * batch, SEED + 7), batch)
+
+    warm = dict(config, ckpt_name="warm_up",
+                train=dict(config["train"], num_iters=3))
+    train_task.train(warm, loader, seed=SEED, device=DEV)  # cuDNN plans, allocator pools
+    torch.cuda.synchronize()
+
+    hinge_calls = []
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    with recorded_hinge_calls(hinge_calls):
+        state = train_task.train(config, loader, val_loader=val_loader,
+                                 validate_training=True, seed=SEED,
+                                 device=DEV)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+
+    steps = config["train"]["num_iters"]
+    n_val = config["train"]["val_batches"]
+    name = config["ckpt_name"]
+    if state.iteration != steps:
+        raise AssertionError(f"train: {state.iteration} steps of {steps}")
+    expect = {"desc_loss[fwd]": steps + n_val, "desc_loss[dA]": steps,
+              "desc_loss[dB]": steps}
+    got = {k: v for k, v in counts.items() if k.startswith("desc_loss")}
+    if got != expect:
+        raise AssertionError(f"train: launches {got}, expected {expect}")
+    metrics = read_metrics(name)
+    for tag, rows in metrics.items():
+        if not all(np.isfinite(v) for _, v in rows):
+            raise AssertionError(f"train: {tag} is not finite: {rows}")
+    losses = metrics["iter_loss/loss"]
+    if [s for s, _ in losses] != [5, 10, 15, 20]:
+        raise AssertionError(f"train: loss logged at {losses}")
+    if not losses[-1][1] < losses[0][1]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    for tag in ("val/val_loss", "val/precision", "val/recall"):
+        if len(metrics[tag]) != 1:
+            raise AssertionError(f"train: {tag} logged {metrics[tag]}")
+    ckpt = Path(root, name, f"{name}_{steps}.ckpt")
+    saved = loop.load_checkpoint(ckpt)
+    if saved["iteration"] != steps or not all(
+            torch.isfinite(t).all() for t in saved["params"].values()):
+        raise AssertionError("train: bad checkpoint")
+    rates = [v for _, v in metrics["perf/steps_per_sec"]]
+    log(f"[train] {steps} steps of batch {batch} at {TRAIN_H}x{TRAIN_W} "
+        f"(cuts: {json.dumps(TRAIN_CUTS)}; synthetic images, "
+        f"{TRAIN_KPTS} seeded keypoints each, seeded weights) + validation "
+        f"of {n_val} batches + checkpoint in {secs:.4f} s; steps/s per "
+        f"window of 5 steps: {', '.join(f'{r:.2f}' for r in rates)}; loss "
+        f"{', '.join(f'{s}: {v:.4f}' for s, v in losses)}; descriptor "
+        f"loss {metrics['iter_loss/descriptor_loss'][-1][1]:.6f}; val loss "
+        f"{metrics['val/val_loss'][0][1]:.4f} precision "
+        f"{metrics['val/precision'][0][1]:.4f} recall "
+        f"{metrics['val/recall'][0][1]:.4f}; checkpoint "
+        f"{ckpt.stat().st_size / 1e6:.1f} MB")
+    log(f"[train] launches: {json.dumps(counts, sort_keys=True)}")
+
+    # one more step, resumed from the checkpoint
+    before = _build.launch_counts.copy()
+    resume = dict(config, ckpt_name="resumed", continue_training=True,
+                  pretrained=f"{name}/{name}_{steps}.ckpt",
+                  train=dict(config["train"], num_iters=steps + 1))
+    resumed = train_task.train(resume, loader, seed=SEED, device=DEV)
+    torch.cuda.synchronize()
+    delta = _build.launch_counts - before
+    loss = read_metrics("resumed")["iter_loss/loss"]
+    if (resumed.iteration != steps + 1 or len(loss) != 1
+            or not np.isfinite(loss[0][1])
+            or delta != {k: 1 for k in expect}):
+        raise AssertionError(f"train: resumed step: iteration "
+                             f"{resumed.iteration}, loss {loss}, launches "
+                             f"{dict(delta)}")
+    log(f"[train] resumed from step {steps}: step {loss[0][0]} loss "
+        f"{loss[0][1]:.4f}, launches {json.dumps(dict(delta), sort_keys=True)}")
+    # the 20th step's call, not validation's
+    return counts, state, loader, hinge_calls[steps - 1]
+
+
+def phase_train_split(state, loader, reps: int = 5):
+    """One training step split into its parts by CUDA events (medians of
+    ``reps`` steps; each step is a real one, on the trained state):
+    augmentation and batch preparation, the two forwards, the three
+    losses, the backward, Adam."""
+    cfg = train_task.build_step_config(train_config(), include_mask=True)
+    gens = loop.StepGenerators(SEED, DEV)
+    batch = train_task._to_device(next(iter(loader)), DEV)
+    model, opt = state.model, state.optimizer
+    names = ("augmentation", "forwards", "losses", "backward", "adam")
+    times = {n: [] for n in names}
+    whole = []
+    for rep in range(reps + 1):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        gens.reseed(2, rep)
+        marks[0].record()
+        with torch.no_grad():
+            b = dict(batch)
+            b["image"] = loop.photometric_augment(
+                gens.cpu, batch["image"], cfg.photometric, gens.device)
+            b["image_warp_src"] = loop.photometric_augment(
+                gens.cpu, batch["image"], cfg.photometric, gens.device)
+            data = loop._prepare(b, cfg, gens)
+            noise = [loop._noise(gens, data[v]["image"], cfg.grid_size)
+                     for v in ("raw", "warp")]
+        marks[1].record()
+        opt.zero_grad(set_to_none=True)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            model.train()
+            out = model(data["raw"]["image"])
+            warped_out = model(data["warp"]["image"])
+            marks[2].record()
+            det = detector_loss(noise[0], out["logits"],
+                                data["raw"]["kpts_heatmap"],
+                                data["raw"]["valid_mask"], cfg.grid_size)
+            det_w = detector_loss(noise[1], warped_out["logits"],
+                                  data["warp"]["kpts_heatmap"],
+                                  data["warp"]["valid_mask"], cfg.grid_size)
+            _, Hc, Wc, _ = out["desc_raw"].shape
+            cells = cell_grid_coords(Hc, Wc, cfg.grid_size, device=DEV)
+            desc, _, _ = dl.descriptor_loss_blockwise(
+                out["desc_raw"], warped_out["desc_raw"],
+                warp_points(cells, data["homography"]), cfg.desc_cfg,
+                data["warp"]["valid_mask"])
+            loss = det + det_w + desc
+            marks[3].record()
+            loss.backward()
+        marks[4].record()
+        opt.step()
+        marks[5].record()
+        marks[5].synchronize()
+        if rep == 0:
+            continue  # warm-up
+        for n, a, z in zip(names, marks[:-1], marks[1:]):
+            times[n].append(a.elapsed_time(z))
+        whole.append(marks[0].elapsed_time(marks[5]))
+    med = {n: statistics.median(v) for n, v in times.items()}
+    log(f"[train-split] one step of batch 2 at {TRAIN_H}x{TRAIN_W}: "
+        f"{statistics.median(whole):.3f} ms (median of {reps}) = "
+        + " + ".join(f"{n} {med[n]:.3f}" for n in names)
+        + f"; last loss {float(loss.detach()):.4f}")
+    return med
+
+
+def hinge_operands(B, Hc, Wc, C, seed):
+    """Operands of ``descriptor_hinge_sums`` as a training step at
+    (Hc * 8) x (Wc * 8) makes them, from seeded descriptors (scaled like
+    the trained head's raw output, so that dots straddle both margins)
+    and sampled pair homographies."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    N = Hc * Wc
+    A, Bm = (0.08 * torch.randn((B, N, C), generator=gen, device=DEV)
+             for _ in range(2))
+    aug = HomographyConfig.from_dict(
+        TRAIN_CONFIG["data"]["augmentation"]["pair_homography"]["params"])
+    homs = sample_homographies(torch.Generator().manual_seed(seed), B,
+                               (Hc * 8, Wc * 8), aug).to(DEV)
+    cells = cell_grid_coords(Hc, Wc, 8, device=DEV)
+    mask = _cell_mask(compute_valid_mask((Hc * 8, Wc * 8), homs, 3),
+                      8).reshape(B, N)
+    return (A, Bm, warp_points(cells, homs), cells, mask, 250.0, 1.0, 0.2,
+            8.0)
+
+
+def phase_desc_loss_kernels(cases, peaks):
+    """The three descriptor-loss kernels against the plain version, with
+    times, bounds and the dense loss with autograd as a yardstick.
+    Returns the rows of the first case (the training step's operands)."""
+    _, mem_rate, f32_rate = peaks
+    source = "spnerf_tpu_torch/kernels/csrc/descriptor_loss.cu"
+    replaces = {
+        "desc_loss[fwd]": "spnerf_tpu/kernels/descriptor_loss_pallas.py:172",
+        "desc_loss[dA]": "spnerf_tpu/kernels/descriptor_loss_pallas.py:223",
+        "desc_loss[dB]": "spnerf_tpu/kernels/descriptor_loss_pallas.py:247"}
+    first = None
+    for label, args in cases:
+        A, Bm, wcells, cells, mask = (t.detach().clone() for t in args[:5])
+        params = args[5:]
+        B, N, C = A.shape
+        M = Bm.shape[1]
+        A.requires_grad_()
+        Bm.requires_grad_()
+        g = torch.linspace(0.5, 1.5, B, device=DEV)  # S_pair's cotangent
+
+        def run(fn):
+            sums = fn(A, Bm, wcells, cells, mask, *params)
+            dA, dB = torch.autograd.grad((sums[0] * g).sum(), (A, Bm))
+            return torch.stack([s.detach() for s in sums]), dA, dB
+
+        before = _build.launch_counts.copy()
+        got, again, want = (run(dl.descriptor_hinge_sums),
+                            run(dl.descriptor_hinge_sums),
+                            run(dl.hinge_sums_plain))
+        torch.cuda.synchronize()
+        launched = _build.launch_counts - before
+        if launched != {"desc_loss[fwd]": 2, "desc_loss[dA]": 2,
+                        "desc_loss[dB]": 2}:
+            raise AssertionError(f"desc_loss {label}: launches "
+                                 f"{dict(launched)}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"desc_loss {label}: two runs differ")
+        errs = {"desc_loss[fwd]": float((got[0] - want[0]).abs().max())}
+        rel = float(((got[0] - want[0]).abs()
+                     / want[0].abs().clamp_min(1e-30)).max())
+        if not rel <= DESC_SUM_RTOL:
+            raise AssertionError(f"desc_loss[fwd] {label}: sums differ by "
+                                 f"{rel:.3e} relative")
+        flipped = {}
+        for key, k, p in (("desc_loss[dA]", got[1], want[1]),
+                          ("desc_loss[dB]", got[2], want[2])):
+            row_err = (k - p).abs().amax(-1)
+            tol = DESC_GRAD_TOL * float(p.abs().max())
+            bad = row_err > tol
+            flipped[key] = int(bad.sum())
+            if flipped[key] > DESC_FLIPPED_ROWS * bad.numel():
+                raise AssertionError(
+                    f"{key} {label}: {flipped[key]} of {bad.numel()} rows "
+                    f"differ by more than {tol:.3e}")
+            errs[key] = float(row_err[~bad].max())
+
+        def grad_of(fn, a, b, wrt):
+            # only the side that requires a gradient gets its kernel
+            s_pair = fn(a, b, wcells, cells, mask, *params)[0]
+            return lambda: torch.autograd.grad((s_pair * g).sum(), wrt,
+                                               retain_graph=True)
+
+        hinge, plain = dl.descriptor_hinge_sums, dl.hinge_sums_plain
+        timed = {
+            "desc_loss[fwd]": (
+                lambda: hinge(A, Bm, wcells, cells, mask, *params),
+                lambda: plain(A, Bm, wcells, cells, mask, *params)),
+            "desc_loss[dA]": (grad_of(hinge, A, Bm.detach(), A),
+                              grad_of(plain, A, Bm.detach(), A)),
+            "desc_loss[dB]": (grad_of(hinge, A.detach(), Bm, Bm),
+                              grad_of(plain, A.detach(), Bm, Bm)),
+        }
+        # yardstick: the dense loss the trainer takes without the kernels,
+        # forward and backward; no single PyTorch call computes the function
+        cfg = DescriptorLossConfig.from_dict(
+            TRAIN_CONFIG["model"]["descriptor_head"])
+        Hc = int(cells[:, 0].max().item() // 8) + 1
+        shape4 = (B, Hc, N // Hc, C)
+        valid = mask.reshape(B, Hc, N // Hc).repeat_interleave(
+            8, 1).repeat_interleave(8, 2)
+
+        def dense_fwd():
+            return descriptor_loss_from_cells(
+                A.reshape(shape4), Bm.reshape(shape4), wcells, cfg, valid)[0]
+
+        dense_ms = cuda_ms(dense_fwd, reps=5)
+        dense_loss = dense_fwd()
+        dense_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            dense_loss, (A, Bm), retain_graph=True), reps=5)
+        del dense_loss
+        pairs = B * N * M
+        coords = nbytes(wcells, cells, mask)
+        work = {
+            "desc_loss[fwd]": (pairs * (2 * C + DESC_PAIR_FLOPS_FWD),
+                               nbytes(A, Bm) + coords + B * 3 * 4),
+            "desc_loss[dA]": (pairs * (4 * C + DESC_PAIR_FLOPS_BWD),
+                              nbytes(A, Bm, A) + coords + B * 4),
+            "desc_loss[dB]": (pairs * (4 * C + DESC_PAIR_FLOPS_BWD),
+                              nbytes(A, Bm, Bm) + coords + B * 4),
+        }
+        rows = []
+        for key, (run_kernel, run_plain) in timed.items():
+            ms = cuda_ms(run_kernel, reps=20, warmup=3)
+            plain_ms = cuda_ms(run_plain, reps=5)
+            ops, moved = work[key]
+            t_ops, t_bytes = ops / f32_rate * 1e3, moved / mem_rate * 1e3
+            rows.append({
+                "name": key, "route": "cuda", "source": source,
+                "replaces": replaces[key], "launches": None,
+                "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": None,
+            })
+            extra = (f"sums within {rel:.3e} relative" if key.endswith("fwd]")
+                     else f"{flipped[key]} of {B * N} rows beyond "
+                          f"{DESC_GRAD_TOL} of the largest entry")
+            log(f"[kernel] {key} {label}: B {B}, N {N}, C {C}, max_abs_err "
+                f"{errs[key]:.3e} ({extra}), two runs bit-equal, kernel "
+                f"{ms:.4f} ms (median of 20), plain {plain_ms:.4f} ms, bound "
+                f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}, "
+                f"{ops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB)")
+        total = sum(r["ms"] for r in rows)
+        log(f"[kernel] desc_loss {label}: forward + dA + dB {total:.4f} ms "
+            f"against the dense descriptor_loss_from_cells with autograd "
+            f"{dense_ms:.4f} + {dense_bwd_ms:.4f} = "
+            f"{dense_ms + dense_bwd_ms:.4f} ms")
+        if first is None:
+            first = rows
+        del timed, got, again, want
+        torch.cuda.empty_cache()
+    return first
+
+
+def phase_train_small():
+    """Two SuperPoint steps at a small size (vgg 8,8,16,16,32,32,32,32,
+    heads 32, 2 images of 64 x 80) on the card, with the descriptor-loss
+    kernels, and on the CPU plain path, from the same weights, the same
+    draws (made on the CPU, copied to the card) and the same batch:
+    augmented images within SMALL_IMAGE_ATOL, every loss of both steps
+    within SMALL_LOSS_RTOL; parameters after the first step within lr / 20
+    wherever the gradient is above 1e-3 of its tensor's largest (a first
+    Adam step is lr * g / (|g| + 1e-8): where g is rounding noise, so is
+    its direction, on both devices; the second step's losses hold the
+    parameters as far as they matter)."""
+    config = train_config()
+    config["model"].update(vgg_cn=[8, 8, 16, 16, 32, 32, 32, 32])
+    config["model"]["detector_head"]["detector_dim"] = [32, 32]
+    config["model"]["descriptor_head"]["descriptor_dim"] = [32, 32]
+    config["data"]["augmentation"]["photometric"]["params"][
+        "additive_shade"]["kernel_size_range"] = [9, 15]
+    cfg = train_task.build_step_config(config, include_mask=True)
+    mcfg = SuperPointConfig.from_dict(config["model"])
+    lr = config["train"]["learning_rate"]
+    H, W, B = 64, 80, 2
+    sample = train_dataset(B, SEED + 8, (H, W))
+    host = {k: torch.from_numpy(np.stack([s[k] for s in sample]))
+            for k in sample[0]}
+    states = {}
+    for dev in ("cpu", DEV):
+        model = init_superpoint(SEED + 9, mcfg, device=dev)
+        states[dev] = loop.create_train_state(model, lr)
+    before = _build.launch_counts.copy()
+    gen = torch.Generator().manual_seed(SEED + 10)
+    worst = {"image": 0.0, "loss": 0.0, "param": 0.0}
+    for step in range(2):
+        draws = [draw_photometric_randoms(gen, B, H, W, cfg.photometric)
+                 for _ in range(2)]
+        homs = sample_homographies(gen, B, (H, W), cfg.aug)
+        noise = [detector_noise(gen, (B, H // 8, W // 8, 65))
+                 for _ in range(2)]
+        out = {}
+        for dev, state in states.items():
+            to = lambda t: t.to(dev)  # noqa: E731
+            batch = {k: to(v) for k, v in host.items()}
+            moved = [{k: ({f: to(t) for f, t in v.items()}
+                          if isinstance(v, dict) else v)
+                      for k, v in d.items()} for d in draws]
+            with torch.no_grad():
+                batch["image_warp_src"] = photometric_from_draws(
+                    batch["image"], moved[1], cfg.photometric)
+                batch["image"] = photometric_from_draws(
+                    batch["image"], moved[0], cfg.photometric)
+                data = prepare_superpoint_batch(to(homs), batch, cfg.erosion)
+            state.optimizer.zero_grad(set_to_none=True)
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                loss, metrics = loop.superpoint_loss_fn(
+                    state.model, data, [to(n) for n in noise], cfg.grid_size,
+                    True, cfg.desc_cfg, False, True, True)
+                loss.backward()
+            state.optimizer.step()
+            out[dev] = (data, {k: float(v.detach()) for k, v in metrics.items()})
+        for view in ("raw", "warp"):
+            err = float((out[DEV][0][view]["image"].cpu()
+                         - out["cpu"][0][view]["image"]).abs().max())
+            worst["image"] = max(worst["image"], err)
+            for key in ("kpts_heatmap", "valid_mask"):
+                if not torch.equal(out[DEV][0][view][key].cpu(),
+                                   out["cpu"][0][view][key]):
+                    raise AssertionError(f"train-small: {view} {key} differ")
+        if worst["image"] > SMALL_IMAGE_ATOL:
+            raise AssertionError(f"train-small: images differ by "
+                                 f"{worst['image']}")
+        for key, want in out["cpu"][1].items():
+            rel = abs(out[DEV][1][key] - want) / abs(want)
+            worst["loss"] = max(worst["loss"], rel)
+            if not rel <= SMALL_LOSS_RTOL:
+                raise AssertionError(
+                    f"train-small: step {step} {key} {out[DEV][1][key]} "
+                    f"on the card, {want} on the CPU")
+        if step > 0:
+            continue  # the second step's losses have held the parameters
+        for (name, pc), pg in zip(states["cpu"].model.named_parameters(),
+                                  states[DEV].model.parameters()):
+            if name.endswith("Conv_0.bias"):
+                continue  # gradient 0 through a training-mode BatchNorm
+            g = pc.grad.abs()
+            clear = g > 1e-3 * g.max()
+            diff = (pg.detach().cpu() - pc.detach()).abs()[clear].max()
+            worst["param"] = max(worst["param"], float(diff))
+        if worst["param"] > lr / 20:
+            raise AssertionError(f"train-small: parameters differ by "
+                                 f"{worst['param']} after the first step")
+    launched = _build.launch_counts - before
+    if launched != {"desc_loss[fwd]": 2, "desc_loss[dA]": 2,
+                    "desc_loss[dB]": 2}:
+        raise AssertionError(f"train-small: launches {dict(launched)}")
+    log(f"[train-small] 2 steps of 2x{H}x{W}, card against the CPU plain "
+        f"path: augmented images within {worst['image']:.3e}, heatmaps and "
+        f"masks equal, losses within {worst['loss']:.3e} relative, "
+        f"parameters after the first step within {worst['param']:.3e} (lr "
+        f"{lr}) where the gradient is clear; last loss {out[DEV][1]['loss']:.4f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -745,6 +1322,25 @@ def main() -> int:
                                  "HA export path")
     phase_ha_small(ha)
     rows += ha_rows
+    del ha, images, warp_calls, serving_calls
+    torch.cuda.empty_cache()
+
+    # joint training: the 20-step run is the drive of the main path
+    with tempfile.TemporaryDirectory() as tmp:
+        train_counts, state, loader, step_call = phase_train(Path(tmp))
+    phase_train_split(state, loader)
+    del state
+    torch.cuda.empty_cache()
+    desc_rows = phase_desc_loss_kernels(
+        [("training step", step_call),
+         ("480x640", hinge_operands(2, 60, 80, 256, SEED + 11))], peaks)
+    for row in desc_rows:
+        row["launches"] = train_counts.get(row["name"], 0)
+        if row["launches"] == 0:
+            raise AssertionError(f"{row['name']} never launched on the "
+                                 "training path")
+    phase_train_small()
+    rows += desc_rows
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

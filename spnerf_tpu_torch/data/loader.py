@@ -27,27 +27,39 @@ def collate(samples: list[dict]) -> dict:
 
 
 class DataLoader:
-    """Batches of the dataset in order, with thread prefetch. The
-    reference's shuffling, infinite cycling and worker pool wait for the
-    training slice that needs them."""
+    """Batches of the dataset with thread prefetch: in order, or with
+    ``shuffle`` in an order drawn anew for every epoch from
+    ``np.random.default_rng(seed)``; with ``infinite`` the epochs never
+    end. The reference's worker pool is not ported."""
 
-    def __init__(self, dataset, batch_size: int, drop_last: bool = True,
-                 prefetch: int = 2):
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = True, seed: int = 0, prefetch: int = 2,
+                 infinite: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
         self.drop_last = drop_last
+        self.seed = seed
         self.prefetch = prefetch
+        self.infinite = infinite
 
     def __len__(self):
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _batches(self):
+        rng = np.random.default_rng(self.seed)
         n = len(self.dataset)
         stop = n - self.batch_size + 1 if self.drop_last else n
-        for s in range(0, max(stop, 0), self.batch_size):
-            yield collate([self.dataset[i]
-                           for i in range(s, min(s + self.batch_size, n))])
+        while True:
+            idx = np.arange(n)
+            if self.shuffle:
+                rng.shuffle(idx)
+            for s in range(0, max(stop, 0), self.batch_size):
+                yield collate([self.dataset[int(i)]
+                               for i in idx[s:s + self.batch_size]])
+            if not self.infinite:
+                return
 
     def __iter__(self):
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)

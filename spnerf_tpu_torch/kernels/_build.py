@@ -27,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spnerf_tpu_torch"
-SOURCES = ("conv12_fused", "double_conv3x3", "head", "warp")
+SOURCES = ("conv12_fused", "double_conv3x3", "head", "warp",
+           "descriptor_loss")
 
 # launches per kernel, counted by the wrappers where they launch
 launch_counts: collections.Counter = collections.Counter()

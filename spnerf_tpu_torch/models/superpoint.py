@@ -51,6 +51,28 @@ class SuperPointConfig:
         )
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training forward is flax's
+    ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``: the batch variance is
+    E[x^2] - E[x]^2 clamped at 0, and the running variance takes that
+    biased variance (``nn.BatchNorm2d`` would take the unbiased one, n /
+    (n - 1) times larger). The running statistics are updated in place, once
+    per training forward. The eval forward is ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(self.momentum * mean)
+            self.running_var.mul_(keep).add_(self.momentum * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[:, None, None]) * mul[:, None, None]
+                + self.bias[:, None, None])
+
+
 class VGGBlock(nn.Module):
     """conv -> BatchNorm -> (ReLU), NCHW inside the model."""
 
@@ -60,7 +82,7 @@ class VGGBlock(nn.Module):
         self.activation = activation
         self.Conv_0 = nn.Conv2d(cin, cout, kernel, padding=kernel // 2)
         # flax momentum 0.9 on the running average == torch momentum 0.1
-        self.BatchNorm_0 = (nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
+        self.BatchNorm_0 = (BatchNorm(cout, eps=1e-5, momentum=0.1)
                             if use_bn else None)
 
     def forward(self, x):

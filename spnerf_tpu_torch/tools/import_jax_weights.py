@@ -14,6 +14,7 @@ import torch
 
 from spnerf_tpu_torch.models.superpoint import SuperPoint, conv_blocks
 from spnerf_tpu_torch.ops.serving import ServingSuperPoint
+from spnerf_tpu_torch.train.loop import TrainState, create_train_state
 
 
 def _node(tree: dict, path: str) -> dict:
@@ -43,6 +44,47 @@ def load_flax_variables(model: SuperPoint, variables: dict) -> SuperPoint:
             bn.running_mean.copy_(_t(st["mean"]))
             bn.running_var.copy_(_t(st["var"]))
     return model
+
+
+def flax_params_to_torch(model: SuperPoint, params: dict) -> dict:
+    """A flax ``params``-shaped numpy tree (the parameters, their
+    gradients or an Adam moment) -> {torch parameter path: float32 tensor
+    in the torch layout} for ``model``'s parameters."""
+    out = {}
+    for path, block in conv_blocks(model).items():
+        node = _node(params, path)
+        prefix = path.replace("/", ".")
+        out[f"{prefix}.Conv_0.weight"] = _t(
+            node["Conv_0"]["kernel"]).permute(3, 2, 0, 1).contiguous()
+        out[f"{prefix}.Conv_0.bias"] = _t(node["Conv_0"]["bias"])
+        if block.BatchNorm_0 is not None:
+            out[f"{prefix}.BatchNorm_0.weight"] = _t(
+                node["BatchNorm_0"]["scale"])
+            out[f"{prefix}.BatchNorm_0.bias"] = _t(node["BatchNorm_0"]["bias"])
+    return out
+
+
+def train_state_from_flax(model: SuperPoint, variables: dict, mu: dict,
+                          nu: dict, count: int, iteration: int,
+                          learning_rate: float) -> TrainState:
+    """The port's ``TrainState`` holding a flax training state: the
+    ``{'params', 'batch_stats'}`` numpy tree goes into ``model`` (in
+    place), and ``optax.adam``'s state (first moments ``mu``, second
+    moments ``nu``, both shaped like the parameters, and its step
+    ``count``) into a fresh Adam, so that both sides take the same step
+    from the same state."""
+    load_flax_variables(model, variables)
+    state = create_train_state(model, learning_rate)
+    state.iteration = int(iteration)
+    exp_avg = flax_params_to_torch(model, mu)
+    exp_avg_sq = flax_params_to_torch(model, nu)
+    for name, p in model.named_parameters():
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": exp_avg[name].to(p.device),
+            "exp_avg_sq": exp_avg_sq[name].to(p.device),
+        }
+    return state
 
 
 def folded_from_flax(folded: dict, has_descriptor: bool = True) -> dict:

@@ -1,6 +1,7 @@
 """Shared helpers of the ``test_torch_*`` files: seeded flax SuperPoint
 weights with non-trivial BatchNorm statistics, and bf16 comparisons.
-Imports JAX only inside ``flax_superpoint``: the on-card tests use this
+Imports JAX only inside ``flax_superpoint`` and
+``jax_homography_draws``: the on-card tests use this
 module where JAX is not installed."""
 
 import numpy as np
@@ -45,3 +46,25 @@ def bf16_ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def jax_bf16_to_torch(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x).view(np.int16)).view(torch.bfloat16)
+
+
+def jax_homography_draws(key, cfg):
+    """The random numbers jax's sample_homography draws from ``key``, in
+    the layout of ``draw_homography_randoms``."""
+    import jax
+    import jax.numpy as jnp
+
+    k_persp, k_scale_v, k_scale_p, k_trans, k_rot = jax.random.split(key, 5)
+    tn = lambda k, shape: jax.random.truncated_normal(k, -2.0, 2.0, shape)  # noqa: E731
+    persp = [tn(k, ()) for k in jax.random.split(k_persp, 3)]
+    _, kr2 = jax.random.split(k_rot)
+    draws = {
+        "persp": jnp.stack(persp),
+        "scales": tn(k_scale_v, (cfg.n_scales,)),
+        "scale_gumbel": jax.random.gumbel(k_scale_p, (cfg.n_scales + 1,),
+                                          jnp.float32),
+        "shift": jax.random.uniform(k_trans, (2,)),
+        "angle_gumbel": jax.random.gumbel(kr2, (cfg.n_angles + 1,),
+                                          jnp.float32),
+    }
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in draws.items()}

@@ -7,7 +7,11 @@ mode). Imports no JAX, so that it runs where only PyTorch is installed:
 
 Shapes are small, with edges that are not multiples of the kernels'
 tiles. Tolerances: int8 results exactly equal, bf16 within 1 ulp (the
-softmax's exp and sum order differ from PyTorch's), warps within 1e-6.
+softmax's exp and sum order differ from PyTorch's), warps within 1e-6,
+the descriptor-loss sums within 1e-5 relative and its gradients within
+1e-4 of their largest entry (float32 sums in another order; the inputs
+keep every dot away from both margins, and the warped cells sit on a
+quarter-pixel grid, so no pair takes the other side of a step).
 """
 
 import numpy as np
@@ -132,3 +136,86 @@ def test_warp_matches_plain_on_card(card, kind):
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 1e-6
     assert float((want > 0).float().mean()) > 0.3
+
+
+def _hinge_case(kind, rng):
+    """(A, Bm, wcells, cells, mask) on the card: N not a multiple of the
+    kernels' 64 and 32 tiles, C below and at the kernels' 256, warped
+    cells exactly on the radius for some pairs."""
+    from spnerf_tpu_torch.train.losses import cell_grid_coords
+
+    B, Hc, Wc, C = {"small": (2, 6, 8, 32), "ragged": (3, 11, 15, 64),
+                    "full_c": (2, 9, 13, 256), "no_mask": (1, 7, 9, 16)}[kind]
+    N = Hc * Wc
+    scale = (0.16 / C) ** 0.25  # dots of standard deviation 0.4
+    while True:  # every dot at least 2e-6 from both margins
+        A = (rng.standard_normal((B, N, C)) * scale).astype(np.float32)
+        Bm = (rng.standard_normal((B, N, C)) * scale).astype(np.float32)
+        dot = np.einsum("bnc,bmc->bnm", A.astype(np.float64), Bm.astype(np.float64))
+        if min(np.abs(dot - 1.0).min(), np.abs(dot - 0.2).min()) > 2e-6:
+            break
+    cells = cell_grid_coords(Hc, Wc, 8)
+    wcells = (rng.integers(0, 32 * max(Hc, Wc), (B, N, 2)) / 4.0).astype(np.float32)
+    wcells[:, :N // 3] = cells[:N // 3].numpy() + np.float32([8, 0])
+    mask = np.ones((B, N), np.float32)
+    if kind != "no_mask":
+        mask = (rng.uniform(size=(B, N)) > 0.2).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    return t(A), t(Bm), t(wcells), cells.cuda(), t(mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["small", "ragged", "full_c", "no_mask"])
+def test_hinge_kernels_match_plain_on_card(card, kind):
+    """Forward sums, dA and dB against the plain version, and two runs
+    bit-equal."""
+    from spnerf_tpu_torch.kernels import _build
+    from spnerf_tpu_torch.kernels.descriptor_loss import (
+        descriptor_hinge_sums,
+        hinge_sums_plain,
+    )
+
+    A, Bm, wcells, cells, mask = _hinge_case(kind, np.random.default_rng(18))
+    A.requires_grad_()
+    Bm.requires_grad_()
+    g = torch.linspace(0.5, 2.0, A.shape[0], device="cuda")
+
+    def run(fn):
+        sums = fn(A, Bm, wcells, cells, mask, 250.0, 1.0, 0.2, 8.0)
+        assert not sums[1].requires_grad and not sums[2].requires_grad
+        dA, dB = torch.autograd.grad((sums[0] * g).sum(), (A, Bm))
+        return torch.stack([s.detach() for s in sums]), dA, dB
+
+    before = _build.launch_counts.copy()
+    got, again, want = (run(descriptor_hinge_sums),
+                        run(descriptor_hinge_sums), run(hinge_sums_plain))
+    torch.cuda.synchronize()
+    assert _build.launch_counts - before == {
+        "desc_loss[fwd]": 2, "desc_loss[dA]": 2, "desc_loss[dB]": 2}
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert float(want[0][1].min()) > 0 and float(want[0][2].min()) > 0
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    for k, p in zip(got[1:], want[1:]):
+        assert float(p.abs().max()) > 0
+        assert float((k - p).abs().max()) <= 1e-4 * float(p.abs().max())
+
+
+@pytest.mark.cuda
+def test_hinge_wrapper_launches_only_the_gradient_asked_for(card):
+    from spnerf_tpu_torch.kernels import _build
+    from spnerf_tpu_torch.kernels.descriptor_loss import descriptor_hinge_sums
+
+    A, Bm, wcells, cells, mask = _hinge_case("small", np.random.default_rng(19))
+    A.requires_grad_()
+    before = _build.launch_counts.copy()
+    s_pair = descriptor_hinge_sums(A, Bm, wcells, cells, mask, 250.0, 1.0,
+                                   0.2, 8.0)[0]
+    s_pair.sum().backward()
+    torch.cuda.synchronize()
+    assert _build.launch_counts - before == {"desc_loss[fwd]": 1,
+                                             "desc_loss[dA]": 1}
+    assert torch.isfinite(A.grad).all() and float(A.grad.abs().max()) > 0
+    with pytest.raises(ValueError, match="multiple of 4"):
+        descriptor_hinge_sums(A[..., :30], Bm[..., :30], wcells, cells, mask,
+                              250.0, 1.0, 0.2, 8.0)

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import jax_homography_draws
 from spnerf_tpu.geometry import homography as jh
 from spnerf_tpu_torch.geometry import homography as th
 from spnerf_tpu_torch.ops.homography_adaptation import image_homographies
@@ -22,25 +23,6 @@ from spnerf_tpu_torch.ops.homography_adaptation import image_homographies
 EXPORT_PARAMS = dict(scaling_amplitude=0.2, perspective_amplitude_x=0.2,
                      perspective_amplitude_y=0.2, allow_artifacts=True,
                      patch_ratio=0.85, max_angle=1.57)
-
-
-def _jax_draws(key, cfg):
-    """The random numbers jax's sample_homography draws from ``key``, in
-    the layout of ``draw_homography_randoms``."""
-    k_persp, k_scale_v, k_scale_p, k_trans, k_rot = jax.random.split(key, 5)
-    tn = lambda k, shape: jax.random.truncated_normal(k, -2.0, 2.0, shape)  # noqa: E731
-    persp = [tn(k, ()) for k in jax.random.split(k_persp, 3)]
-    _, kr2 = jax.random.split(k_rot)
-    draws = {
-        "persp": jnp.stack(persp),
-        "scales": tn(k_scale_v, (cfg.n_scales,)),
-        "scale_gumbel": jax.random.gumbel(k_scale_p, (cfg.n_scales + 1,),
-                                          jnp.float32),
-        "shift": jax.random.uniform(k_trans, (2,)),
-        "angle_gumbel": jax.random.gumbel(kr2, (cfg.n_angles + 1,),
-                                          jnp.float32),
-    }
-    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in draws.items()}
 
 
 @pytest.mark.parametrize("params", [
@@ -54,7 +36,7 @@ def test_homography_from_jax_draws_matches_jax(params):
     keys = jax.random.split(jax.random.PRNGKey(3), 12)
     want = np.stack([np.asarray(jh.sample_homography(k, shape, jcfg))
                      for k in keys])
-    draws = [_jax_draws(k, jcfg) for k in keys]
+    draws = [jax_homography_draws(k, jcfg) for k in keys]
     batched = {k: torch.stack([d[k] for d in draws]) for k in draws[0]}
     got = th.homography_from_draws(batched, shape, tcfg).numpy()
     assert got.shape == (12, 3, 3) and got.dtype == np.float32
