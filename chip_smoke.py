@@ -53,7 +53,31 @@ Phases, each of which raises on failure (nothing is caught):
    ``descriptor_loss_from_cells`` with autograd as a yardstick;
 11. take two steps of a small SuperPoint on the card and on the CPU
    plain path from the same state, draws and batch: augmented images,
-   losses and parameters within the stated tolerances.
+   losses and parameters within the stated tolerances;
+12. render the committed tiny NeRF sphere fields
+   (``benchmarks/data/sphere_field*.npz``, bf16 weights) as
+   ``bench_nerf.py`` does: 131,072 rays of an orbit camera (362 x 362
+   pixels, padded), 32 samples, near 2, far 6. Build the integral
+   occupancy volume once, then with the launch counters at 0 render 10
+   times by every variant: dense, early stop, occupancy flags (built inside
+   the timed region) + early stop through ``render_fused_rays`` (block
+   1,024, chunks of 16 samples), cached flags + early stop through
+   ``render_fused``, the width-64 and width-32 fields through
+   ``render_fused_rays_packed`` (blocks 512 and 2,048, 16 and 8 packed
+   rows), and ``render_fused_int8`` with early stop after
+   ``quantize_field`` on the first 4,096 rays. One launch per render,
+   finite outputs, depth in [0, far]; print rays/s;
+13. render 65,536 held-out rays of the analytic sphere scene (unit sphere
+   coloured by its normal, cameras on a shell of radius 4) through each
+   kernel and its plain version: every float kernel reaches 38.5 dB and
+   lies within 0.3 dB of its plain version, occupancy skipping within 0.3
+   dB of dense, int8 within 0.3 dB of its plain version;
+14. hold each render kernel against its plain version on the operands the
+   drive gives it: rgb and depth within the stated tolerances, two runs
+   bit-equal; times, the bound, and the three products alone through
+   ``torch.matmul`` in bf16 as a yardstick;
+15. render a few hundred rays on the card and by the plain path on the
+   CPU, same weights and flags, at every width and operand type.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -71,6 +95,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -79,6 +104,7 @@ import torch.nn.functional as F
 
 from spnerf_tpu_torch import settings
 from spnerf_tpu_torch.data.loader import DataLoader
+from spnerf_tpu_torch.data.nerf_dataset import camera_intrinsics
 from spnerf_tpu_torch.geometry.homography import (
     HomographyConfig,
     sample_homographies,
@@ -86,6 +112,7 @@ from spnerf_tpu_torch.geometry.homography import (
 )
 from spnerf_tpu_torch.kernels import _build
 from spnerf_tpu_torch.kernels import descriptor_loss as dl
+from spnerf_tpu_torch.kernels import render as rk
 from spnerf_tpu_torch.kernels.conv12_fused import conv12_fused_plain
 from spnerf_tpu_torch.kernels.mid_fused import double_conv3x3_plain
 from spnerf_tpu_torch.kernels.tail_fused import head_plain
@@ -95,6 +122,15 @@ from spnerf_tpu_torch.kernels.warp import (
     warp_by_inverse,
     warp_by_inverse_plain,
 )
+from spnerf_tpu_torch.models.fused_tiny_nerf import (
+    TinyFieldConfig,
+    direction_features,
+    encode_rays,
+    make_encoding,
+    render_fused_rays,
+    render_fused_rays_packed,
+)
+from spnerf_tpu_torch.models.nerf import camera_rays
 from spnerf_tpu_torch.models.superpoint import SuperPointConfig, init_superpoint
 from spnerf_tpu_torch.ops import homography_adaptation as ha_mod
 from spnerf_tpu_torch.ops import serving
@@ -114,11 +150,14 @@ from spnerf_tpu_torch.ops.image_warp import (
     valid_mask_from_inverse,
 )
 from spnerf_tpu_torch.ops.nms import box_nms
+from spnerf_tpu_torch.ops.occupancy import chunk_flags, field_integral_volume
 from spnerf_tpu_torch.ops.photometric_device import (
     draw_photometric_randoms,
     photometric_from_draws,
 )
 from spnerf_tpu_torch.tasks import export, train_task
+from spnerf_tpu_torch.tasks.nerf_task import pose_orbit
+from spnerf_tpu_torch.tools.import_jax_weights import tiny_field_from_jax
 from spnerf_tpu_torch.train import loop
 from spnerf_tpu_torch.train.losses import (
     DescriptorLossConfig,
@@ -137,13 +176,13 @@ TOP_K = 1024
 SEED = 0
 
 # (dense int8 operations/s, memory bytes/s, float32 operations/s outside
-# the tensor cores) from NVIDIA's data sheets; the first name found in
-# the card's name applies
+# the tensor cores, dense bf16 tensor-core operations/s) from NVIDIA's
+# data sheets; the first name found in the card's name applies
 PEAKS = {
-    "H100 PCIe": (1513e12, 2.0e12, 51.2e12),
-    "H100 NVL": (1671e12, 3.9e12, 60e12),
-    "H100": (1979e12, 3.35e12, 67e12),
-    "H200": (1979e12, 4.8e12, 67e12),
+    "H100 PCIe": (1513e12, 2.0e12, 51.2e12, 756e12),
+    "H100 NVL": (1671e12, 3.9e12, 60e12, 835e12),
+    "H100": (1979e12, 3.35e12, 67e12, 989e12),
+    "H200": (1979e12, 4.8e12, 67e12, 989e12),
 }
 
 # spnerf_tpu/configs/magicpoint_coco_export.yaml as a dict (the card's
@@ -251,6 +290,41 @@ DESC_PAIR_FLOPS_FWD, DESC_PAIR_FLOPS_BWD = 13, 9
 # in another order; see phase_train_small
 SMALL_LOSS_RTOL = 2e-4
 SMALL_IMAGE_ATOL = 1e-5
+
+# the tiny NeRF sphere fields as bench_nerf.py renders them: width ->
+# (file, block, s_chunk); an orbit camera of 362 x 362 pixels padded to
+# 131,072 rays, 32 samples, bf16 weights, 10 renders per variant
+FIELD_DIR = Path(__file__).resolve().parent / "benchmarks" / "data"
+RENDER_FIELDS = {128: ("sphere_field.npz", 1024, 16),
+                 64: ("sphere_field_w64.npz", 512, 16),
+                 32: ("sphere_field_w32.npz", 2048, 8)}
+RENDER_RAYS = 131072
+RENDER_ITERS = 10
+RENDER_EPS = 1e-3
+INT8_CALIB_RAYS = 4096
+RENDER_SOURCE = "spnerf_tpu_torch/kernels/csrc/render.cu"
+RENDER_REPLACES = {
+    "render[bf16]": "spnerf_tpu/kernels/render_pallas.py:150",
+    "render[int8]": "spnerf_tpu/kernels/render_pallas.py:425",
+    "render[w64]": "spnerf_tpu/kernels/render_pallas.py:726",
+    "render[w32]": "spnerf_tpu/kernels/render_pallas.py:726"}
+# kernel against plain version on the card: the same roundings and skips;
+# where the library's dots sum in another order, a sum on the other side of
+# a bf16 rounding moves one hidden activation by one ulp, some 1e-5 of rgb
+# (measured on an H100: equal at these shapes, 1.4e-6 at small ones)
+RENDER_RGB_TOL = 1e-4
+RENDER_DEPTH_TOL = 1e-3
+# held-out rays of the analytic sphere: the reference package's renderer
+# gives 39.2-39.8 dB on such rays on the CPU
+QUALITY_RAYS = 65536
+QUALITY_MIN_DB = 38.5
+QUALITY_GAP_DB = 0.3
+# card against the CPU plain path on a few hundred rays, (rgb, depth): the
+# two libraries' sines, exponentials and dot orders differ in the last bit
+# (measured 3.0e-7, 9.5e-7), which a bf16 or int8 rounding can turn into
+# one step of a hidden activation (measured 1.6e-5, 2.8e-5 with bf16)
+SMALL_RENDER_TOL = {"f32": (5e-6, 2e-5), "bf16": (2e-4, 5e-4),
+                    "int8": (5e-4, 2e-3)}
 
 # serving-module name of each wrapper -> (plain version, CUDA source,
 # TPU kernel it replaces)
@@ -714,7 +788,7 @@ def phase_ha_split(model, images, route, config, serving_calls=None):
 def phase_warp_kernels(calls, peaks):
     """The warp kernel against its plain version on HA's operands, with
     times, the bound and F.grid_sample on the same images."""
-    _, mem_rate, f32_rate = peaks
+    _, mem_rate, f32_rate = peaks[:3]
     rows = []
     for label, (image, hinv, dtype) in calls:
         before = _build.launch_counts.copy()
@@ -1028,7 +1102,7 @@ def phase_desc_loss_kernels(cases, peaks):
     """The three descriptor-loss kernels against the plain version, with
     times, bounds and the dense loss with autograd as a yardstick.
     Returns the rows of the first case (the training step's operands)."""
-    _, mem_rate, f32_rate = peaks
+    _, mem_rate, f32_rate = peaks[:3]
     source = "spnerf_tpu_torch/kernels/csrc/descriptor_loss.cu"
     replaces = {
         "desc_loss[fwd]": "spnerf_tpu/kernels/descriptor_loss_pallas.py:172",
@@ -1258,6 +1332,421 @@ def phase_train_small():
         f"{lr}) where the gradient is clear; last loss {out[DEV][1]['loss']:.4f}")
 
 
+def orbit_rays(n_rays: int):
+    """A camera's ray bundle, as bench_nerf.py makes it: an orbit pose at
+    radius 4 looking at the origin, 60 degrees, int(sqrt(n)) pixels a side,
+    padded to ``n_rays`` with its first rays. (origins, directions) on the
+    card."""
+    side = int(np.sqrt(n_rays))
+    K = torch.from_numpy(camera_intrinsics((side, side), 60.0)).cuda()
+    pose = torch.from_numpy(pose_orbit(8, radius=4.0, height=0.4)[0]).cuda()
+    o, d = camera_rays((side, side), K, pose)
+    pad = n_rays - side * side
+    return (torch.cat([o, o[:pad]]).contiguous(),
+            torch.cat([d, d[:pad]]).contiguous())
+
+
+def sphere_scene(seed: int, n: int, near=2.0, far=6.0):
+    """Rays from a shell of radius 4 toward the unit sphere, coloured by
+    its normal on a black background (the analytic scene the committed
+    fields were fitted to, benchmarks/nerf_quality_sphere.py); draws from a
+    numpy seed. (origins, directions, rgb, depth, hit) float32 on the
+    card."""
+    rng = np.random.default_rng(seed)
+    o = rng.standard_normal((n, 3)).astype(np.float32)
+    o = 4.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    aim = 0.25 * rng.standard_normal((n, 3)).astype(np.float32)
+    d = aim - o
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    b = np.sum(o * d, axis=-1)
+    disc = b * b - (np.sum(o * o, axis=-1) - 1.0)
+    t = -b - np.sqrt(np.maximum(disc, 0.0))
+    t = np.where((disc > 0) & (t > near) & (t < far), t, far)
+    hit = t < far
+    p = o + t[:, None] * d
+    rgb = np.where(hit[:, None], 0.5 * p + 0.5, 0.0)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in
+                 (o.astype(np.float32), d.astype(np.float32),
+                  rgb.astype(np.float32), t.astype(np.float32), hit))
+
+
+def load_field(width: int):
+    """A committed sphere field in bf16 with its configuration, encoding
+    matrix on the card and bench_nerf.py's block and s_chunk."""
+    name, block, s_chunk = RENDER_FIELDS[width]
+    with np.load(FIELD_DIR / name) as data:
+        params = tiny_field_from_jax({k: data[k] for k in data.files},
+                                     "cuda", torch.bfloat16)
+    cfg = TinyFieldConfig(n_samples=32, width=width)
+    A, c = (torch.from_numpy(t).cuda() for t in make_encoding(cfg))
+    return types.SimpleNamespace(width=width, params=params, cfg=cfg, A=A,
+                                 c=c, block=block, s_chunk=s_chunk)
+
+
+def encoded(field, o, d):
+    oe, de = encode_rays(o, d, field.A, field.c)
+    return oe, de, direction_features(field.params, d, field.A, field.c)
+
+
+def calibrated_int8(field, oe, de, df):
+    """``quantize_field`` of the float32 values of ``field``'s weights,
+    calibrated on the first rays given, as tensors on the card."""
+    n = INT8_CALIB_RAYS
+    qf = rk.quantize_field(
+        {k: v.float().cpu().numpy() for k, v in field.params.items()},
+        oe[:n].cpu().numpy(), de[:n].cpu().numpy(), df[:n].cpu().numpy(),
+        n_samples=field.cfg.n_samples, near=field.cfg.near, far=field.cfg.far)
+    return rk.qfield_to(qf, "cuda")
+
+
+def render_kw(field, **kw):
+    """Keywords of the render kernels' wrappers for ``field``."""
+    cfg = field.cfg
+    return dict(jitter=0.5, n_samples=cfg.n_samples, near=cfg.near,
+                far=cfg.far, block=field.block, s_chunk=field.s_chunk, **kw)
+
+
+def check_render(name, rgb, depth, n, far):
+    if tuple(rgb.shape) != (n, 3) or tuple(depth.shape) != (n,):
+        raise AssertionError(f"{name}: shapes {tuple(rgb.shape)} "
+                             f"{tuple(depth.shape)}")
+    if not (torch.isfinite(rgb).all() and torch.isfinite(depth).all()):
+        raise AssertionError(f"{name}: non-finite outputs")
+    lo, hi = float(depth.min()), float(depth.max())
+    if lo < 0.0 or hi > far + 1e-3:
+        raise AssertionError(f"{name}: depth in [{lo}, {hi}]")
+    if float(rgb.min()) < 0.0 or float(rgb.max()) > 1.0 + 1e-5:
+        raise AssertionError(f"{name}: rgb outside [0, 1]")
+
+
+def phase_render(fields, o, d):
+    """The drive of the render path: every variant bench_nerf.py times, 10
+    renders each, with the launch counters at 0 before. Returns (launch
+    counts, the operands the kernels were given)."""
+    f128 = fields[128]
+    cfg = f128.cfg
+    n = o.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # field-dependent, camera-independent: built once per field
+    ivol = field_integral_volume(
+        {k: v.float() for k, v in f128.params.items()}, cfg)
+    torch.cuda.synchronize()
+    ivol_s = time.perf_counter() - t0
+    flag_kw = dict(block=f128.block, n_samples=cfg.n_samples,
+                   s_chunk=f128.s_chunk, near=cfg.near, far=cfg.far,
+                   extent=float(cfg.far))
+    cached = chunk_flags(o, d, ivol, **flag_kw)
+    res = ivol.shape[0] - 1
+    log(f"[render] integral occupancy volume ({res}^3 cells, 2x probes, 32 "
+        f"directions) built in {ivol_s:.4f} s: {int(ivol[-1, -1, -1]) / res**3:.4f} "
+        f"of the volume occupied; live chunk share of the orbit rays at block "
+        f"{f128.block} x {f128.s_chunk} samples: {float(cached.float().mean()):.4f}")
+    oe, de, df = encoded(f128, o, d)
+    t0 = time.perf_counter()
+    qf = calibrated_int8(f128, oe, de, df)
+    log(f"[render] quantize_field on the first {INT8_CALIB_RAYS} rays (numpy "
+        f"on the host): {time.perf_counter() - t0:.4f} s")
+    w128 = [f128.params[k] for k in ("w1", "w2", "w3")]
+
+    def rays128(**kw):
+        out = render_fused_rays(f128.params, o, d, cfg, A=f128.A, c=f128.c,
+                                block=f128.block, s_chunk=f128.s_chunk, **kw)
+        return out["rgb"], out["depth"]
+
+    def cached_flags():
+        # a fixed camera's flags, built once: only encoding and render
+        e = encoded(f128, o, d)
+        return rk.render_fused(e[0], e[1], *w128, e[2], **render_kw(
+            f128, flags=cached, early_stop_eps=RENDER_EPS))
+
+    def packed(f):
+        out = render_fused_rays_packed(
+            f.params, o, d, f.cfg, A=f.A, c=f.c, block=f.block,
+            s_chunk=f.s_chunk, early_stop_eps=RENDER_EPS)
+        return out["rgb"], out["depth"]
+
+    variants = [
+        ("dense", "render[bf16]", lambda: rays128(early_stop_eps=0.0)),
+        ("early-stop", "render[bf16]",
+         lambda: rays128(early_stop_eps=RENDER_EPS)),
+        ("occupancy+early-stop", "render[bf16]",
+         lambda: rays128(occupancy_ivol=ivol, early_stop_eps=RENDER_EPS)),
+        ("occupancy-cached+early-stop", "render[bf16]", cached_flags),
+        ("packed-w64", "render[w64]", lambda: packed(fields[64])),
+        ("packed-w32", "render[w32]", lambda: packed(fields[32])),
+        ("int8+early-stop", "render[int8]", lambda: rk.render_fused_int8(
+            oe, de, qf, df, **render_kw(f128, early_stop_eps=RENDER_EPS))),
+    ]
+    for _, _, fn in variants:  # warm-up: library handles, allocator pools
+        fn()
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    for name, _, fn in variants:
+        t0 = time.perf_counter()
+        for _ in range(RENDER_ITERS):
+            rgb, depth = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check_render(name, rgb, depth, n, cfg.far)
+        log(f"[render] {name}: {RENDER_ITERS} renders of {n} rays x "
+            f"{cfg.n_samples} samples in {secs:.4f} s, "
+            f"{n * RENDER_ITERS / secs:.1f} rays/s, "
+            f"{secs / RENDER_ITERS * 1e3:.3f} ms per render; mean rgb "
+            f"{float(rgb.mean()):.4f}, mean depth {float(depth.mean()):.4f}")
+    counts = dict(_build.launch_counts)
+    log(f"[render] launches: {json.dumps(counts, sort_keys=True)}")
+    expect = collections.Counter()
+    for _, key, _ in variants:
+        expect[key] += RENDER_ITERS
+    if counts != dict(expect):
+        raise AssertionError(f"render: launches {counts}, expected one per "
+                             f"render: {dict(expect)}")
+    return counts, types.SimpleNamespace(o=o, d=d, oe=oe, de=de, df=df,
+                                         qf=qf, flags=cached, ivol=ivol)
+
+
+def psnr_and_depth_error(rgb, depth, scene):
+    """(PSNR of rgb in dB, mean relative error of depth over the rays that
+    hit the sphere) against the analytic scene."""
+    _, _, rgb_t, t_t, hit = scene
+    mse = float(((rgb - rgb_t) ** 2).mean())
+    derr = (depth - t_t).abs() / t_t
+    return (-10.0 * np.log10(mse),
+            float(torch.where(hit, derr, 0.0).mean() / hit.float().mean()))
+
+
+def phase_render_quality(fields, ivol):
+    """Held-out rays of the analytic sphere through each kernel and its
+    plain version (on the card, same operands); ``ivol`` is the width-128
+    field's integral occupancy volume."""
+    scene = sphere_scene(SEED + 12, QUALITY_RAYS)
+    o, d = scene[:2]
+    scores = {}
+
+    def score(name, out):
+        rgb, depth = out
+        check_render(name, rgb, depth, QUALITY_RAYS, 6.0)
+        scores[name] = psnr_and_depth_error(rgb, depth, scene)
+        log(f"[render-quality] {name}: {scores[name][0]:.4f} dB, mean "
+            f"surface-depth error {scores[name][1] * 100:.3f}%")
+
+    def within(a, b):
+        gap = abs(scores[a][0] - scores[b][0])
+        if not gap <= QUALITY_GAP_DB:
+            raise AssertionError(f"render-quality: {a} and {b} are {gap:.3f} "
+                                 f"dB apart (limit {QUALITY_GAP_DB})")
+
+    for width, f in fields.items():
+        oe, de, df = encoded(f, o, d)
+        ws = [f.params[k] for k in ("w1", "w2", "w3")]
+        kw = render_kw(f, early_stop_eps=RENDER_EPS)
+        if width == 128:
+            kernel, plain = rk.render_fused, rk.render_fused_plain
+        else:
+            kw["width"] = width
+            kernel, plain = rk.render_fused_packed, rk.render_fused_packed_plain
+        score(f"w{width} kernel", kernel(oe, de, *ws, df, **kw))
+        score(f"w{width} plain", plain(oe, de, *ws, df, **kw))
+        within(f"w{width} kernel", f"w{width} plain")
+        if scores[f"w{width} kernel"][0] < QUALITY_MIN_DB:
+            raise AssertionError(f"render-quality: w{width} below "
+                                 f"{QUALITY_MIN_DB} dB")
+    f = fields[128]
+    for name, iv in (("dense", None), ("occupancy-skip", ivol)):
+        # block 512 x 8 samples, as the reference's quality gate renders
+        out = render_fused_rays(f.params, o, d, f.cfg, A=f.A, c=f.c,
+                                occupancy_ivol=iv, early_stop_eps=RENDER_EPS)
+        score(f"w128 {name} (render_fused_rays)", (out["rgb"], out["depth"]))
+    within("w128 dense (render_fused_rays)",
+           "w128 occupancy-skip (render_fused_rays)")
+    if scores["w128 occupancy-skip (render_fused_rays)"][0] < QUALITY_MIN_DB:
+        raise AssertionError("render-quality: occupancy-skip below "
+                             f"{QUALITY_MIN_DB} dB")
+    oe, de, df = encoded(f, o, d)
+    qf = calibrated_int8(f, oe, de, df)
+    kw = render_kw(f, early_stop_eps=RENDER_EPS)
+    score("int8 kernel", rk.render_fused_int8(oe, de, qf, df, **kw))
+    score("int8 plain", rk.render_fused_int8_plain(oe, de, qf, df, **kw))
+    within("int8 kernel", "int8 plain")
+
+
+def phase_render_kernels(fields, ops, peaks):
+    """Each render kernel against its plain version on the drive's
+    operands; the first case of each kernel gives its row."""
+    int8_rate, mem_rate, _, bf16_rate = peaks
+    f128 = fields[128]
+    n = ops.oe.shape[0]
+    cases = [("render[bf16]", "dense", f128, dict(early_stop_eps=0.0)),
+             ("render[bf16]", "early stop", f128,
+              dict(early_stop_eps=RENDER_EPS)),
+             ("render[bf16]", "cached flags + early stop", f128,
+              dict(flags=ops.flags, early_stop_eps=RENDER_EPS)),
+             ("render[w64]", "early stop", fields[64],
+              dict(early_stop_eps=RENDER_EPS)),
+             ("render[w32]", "early stop", fields[32],
+              dict(early_stop_eps=RENDER_EPS)),
+             ("render[int8]", "early stop", f128,
+              dict(early_stop_eps=RENDER_EPS))]
+    rows = {}
+    for key, label, f, extra in cases:
+        W = f.width
+        kw = render_kw(f, **extra)
+        packed = W != 128
+        chunk = f.s_chunk * (128 // W if packed else 1)
+        if f is f128:
+            oe, de, df = ops.oe, ops.de, ops.df
+        else:
+            # the encodings render_fused_rays_packed hands its kernel
+            oe, de, df = encoded(f, ops.o, ops.d)
+        if key == "render[int8]":
+            weights = [ops.qf[k] for k in ("qw1", "qw2", "qw3", "m1", "m2", "r3")]
+            head = rk.int8_mlp_head(ops.qf)
+            kernel = lambda: rk.render_fused_int8(oe, de, ops.qf, df, **kw)  # noqa: E731
+            rate, unit = int8_rate, "int8"
+        else:
+            weights = [f.params[k] for k in ("w1", "w2", "w3")]
+            head = rk.float_mlp_head(*weights, packed)
+            fn = rk.render_fused_packed if packed else rk.render_fused
+            if packed:
+                kw["width"] = W
+            kernel = lambda: fn(oe, de, *weights, df, **kw)  # noqa: E731
+            rate, unit = bf16_rate, "bf16"
+
+        def plain():
+            return rk.render_plain_counted(
+                oe, de, df, head, width=W, n_samples=kw["n_samples"],
+                chunk=chunk, near=kw["near"], far=kw["far"],
+                jitter=kw["jitter"], block=kw["block"], flags=kw.get("flags"),
+                early_stop_eps=kw["early_stop_eps"], packed=packed)
+
+        before = _build.launch_counts.copy()
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if _build.launch_counts - before != {key: 2}:
+            raise AssertionError(f"{key} {label}: launches "
+                                 f"{dict(_build.launch_counts - before)}")
+        if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+            raise AssertionError(f"{key} {label}: two runs differ")
+        want_rgb, want_depth, composited = plain()
+        rgb_err = float((got[0] - want_rgb).abs().max())
+        depth_err = float((got[1] - want_depth).abs().max())
+        if not (rgb_err <= RENDER_RGB_TOL and depth_err <= RENDER_DEPTH_TOL):
+            raise AssertionError(
+                f"{key} {label}: rgb differs by {rgb_err}, depth by "
+                f"{depth_err} (limits {RENDER_RGB_TOL}, {RENDER_DEPTH_TOL})")
+        share = float((got[0] != want_rgb).float().mean())
+        ms = cuda_ms(kernel, reps=20, warmup=3)
+        plain_ms = cuda_ms(plain, reps=3)
+        # the products of the (ray, sample) pairs this run's flags and early
+        # stop leave: two W x W layers and the (W, 4) head that holds sigma
+        # and rgb (the TPU kernel's full-width head would make it 3 W^2)
+        ops_done = 2 * composited * (2 * W * W + 4 * W)
+        moved = nbytes(oe, de, df, *weights, got[0], got[1])
+        if kw.get("flags") is not None:
+            moved += nbytes(kw["flags"])
+        t_ops, t_bytes = ops_done / rate * 1e3, moved / mem_rate * 1e3
+        # yardstick, not a library equivalent (no single PyTorch call
+        # computes a fused render): the three products alone, bf16 on the
+        # tensor cores, over every (ray, sample) row, activations through
+        # device memory
+        x = torch.zeros((n * kw["n_samples"], W), dtype=torch.bfloat16,
+                        device="cuda")
+        wb = [w.to(torch.bfloat16) for w in weights[:3]]
+        matmul_ms = cuda_ms(lambda: ((x @ wb[0]) @ wb[1]) @ wb[2], reps=5)
+        del x
+        log(f"[kernel] {key} {label}: {n} rays x {kw['n_samples']} samples, "
+            f"width {W}, block {kw['block']}, chunks of {chunk} samples, "
+            f"{composited / (n * kw['n_samples']):.4f} of the (ray, sample) "
+            f"pairs composited; max_abs_err rgb {rgb_err:.3e} depth "
+            f"{depth_err:.3e} ({share:.3e} of rgb values differ), two runs "
+            f"bit-equal, kernel {ms:.4f} ms (median of 20), plain "
+            f"{plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'}: "
+            f"{ops_done / 1e9:.2f} GFLOP at the {unit} tensor-core rate, "
+            f"{moved / 1e6:.1f} MB), three torch.matmul in bf16 over all "
+            f"rows {matmul_ms:.4f} ms")
+        rows.setdefault(key, {
+            "name": key, "route": "cuda", "source": RENDER_SOURCE,
+            "replaces": RENDER_REPLACES[key], "launches": None,
+            "max_abs_err": max(rgb_err, depth_err), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,
+        })
+        del got, again, want_rgb, want_depth
+        torch.cuda.empty_cache()
+    return list(rows.values())
+
+
+def phase_render_small(fields, n: int = 300):
+    """A few hundred sphere rays on the card and by the plain path on the
+    CPU, same weights and flags (built on the card): every width, float32
+    and bf16 operands, and int8."""
+    o, d = sphere_scene(SEED + 13, n)[:2]
+    before = _build.launch_counts.copy()
+    worst, enc_q = {}, {}
+    for width, f in fields.items():
+        block, s_chunk = 64, 4 * width // 128  # chunks of 4 samples
+        kw = dict(jitter=0.5, n_samples=32, near=2.0, far=6.0, block=block,
+                  s_chunk=s_chunk, early_stop_eps=RENDER_EPS)
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            params = {k: v.float().to(dtype) for k, v in f.params.items()}
+            flags = qf = None
+            outs = collections.defaultdict(dict)  # kind -> device -> outputs
+            for dev in ("cuda", "cpu"):
+                p = {k: v.to(dev) for k, v in params.items()}
+                A, c = f.A.to(dev), f.c.to(dev)
+                oe, de = encode_rays(o.to(dev), d.to(dev), A, c)
+                df = direction_features(p, d.to(dev), A, c)
+                ws = [p[k] for k in ("w1", "w2", "w3")]
+                if width != 128:
+                    outs[name][dev] = rk.render_fused_packed(
+                        oe, de, *ws, df, width=width, **kw)
+                    continue
+                if flags is None:  # on the card, then copied
+                    ivol = field_integral_volume(
+                        {k: v.float() for k, v in p.items()}, f.cfg,
+                        resolution=32)
+                    flags = chunk_flags(o, d, ivol, block=block, n_samples=32,
+                                        s_chunk=s_chunk, near=2.0, far=6.0,
+                                        extent=6.0)
+                outs[name][dev] = rk.render_fused(oe, de, *ws, df,
+                                                  flags=flags.to(dev), **kw)
+                if dtype == torch.float32:
+                    # the int8 encoding of the middle sample (t = 4.0625)
+                    enc_q[dev] = torch.round(
+                        torch.sin(oe + 4.0625 * de) * 127.0).cpu()
+                    if qf is None:
+                        qf = rk.quantize_field(
+                            {k: v.cpu().numpy() for k, v in p.items()},
+                            oe.cpu().numpy(), de.cpu().numpy(),
+                            df.cpu().numpy())
+                    outs["int8"][dev] = rk.render_fused_int8(
+                        oe, de, qf, df, flags=flags.to(dev), **kw)
+            for kind, by_dev in outs.items():
+                card, host = by_dev["cuda"], by_dev["cpu"]
+                rgb_err = float((card[0].cpu() - host[0]).abs().max())
+                depth_err = float((card[1].cpu() - host[1]).abs().max())
+                rgb_tol, depth_tol = SMALL_RENDER_TOL[kind]
+                if not (rgb_err <= rgb_tol and depth_err <= depth_tol):
+                    raise AssertionError(
+                        f"render-small: w{width} {kind}: rgb {rgb_err}, "
+                        f"depth {depth_err} against the CPU plain path")
+                worst[f"w{width} {kind}"] = (rgb_err, depth_err)
+    launched = _build.launch_counts - before
+    want = {"render[f32]": 1, "render[bf16]": 1, "render[int8]": 1,
+            "render[w64]": 2, "render[w32]": 2}
+    if launched != want:
+        raise AssertionError(f"render-small: launches {dict(launched)}")
+    differ = float((enc_q["cuda"] != enc_q["cpu"]).float().mean())
+    log(f"[render-small] {n} sphere rays, card against the CPU plain path "
+        "(rgb, depth): " + "; ".join(
+            f"{k} {a:.3e}, {b:.3e}" for k, (a, b) in worst.items())
+        + f"; {differ:.3e} of the int8 encodings of one sample differ "
+          "between the card's sine and the CPU's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1266,7 +1755,8 @@ def main() -> int:
     card = phase_card()
     peaks = card_peaks(torch.cuda.get_device_name(0))
     log(f"[card] peaks used for bounds: {peaks[0] / 1e12:.0f} int8 TOP/s, "
-        f"{peaks[1] / 1e12:.2f} TB/s ({card})")
+        f"{peaks[3] / 1e12:.0f} bf16 TFLOP/s, {peaks[1] / 1e12:.2f} TB/s "
+        f"({card})")
 
     cfg = SuperPointConfig(det_thresh=0.015)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -1341,6 +1831,22 @@ def main() -> int:
                                  "training path")
     phase_train_small()
     rows += desc_rows
+    torch.cuda.empty_cache()
+
+    # the fused tiny-NeRF serving renderer: the 10 renders per variant are
+    # the drive of the main path
+    fields = {width: load_field(width) for width in RENDER_FIELDS}
+    o, d = orbit_rays(RENDER_RAYS)
+    render_counts, render_ops = phase_render(fields, o, d)
+    phase_render_quality(fields, render_ops.ivol)
+    render_rows = phase_render_kernels(fields, render_ops, peaks)
+    for row in render_rows:
+        row["launches"] = render_counts.get(row["name"], 0)
+        if row["launches"] == 0:
+            raise AssertionError(f"{row['name']} never launched on the "
+                                 "render path")
+    phase_render_small(fields)
+    rows += render_rows
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spnerf_tpu_torch"
 SOURCES = ("conv12_fused", "double_conv3x3", "head", "warp",
-           "descriptor_loss")
+           "descriptor_loss", "render")
 
 # launches per kernel, counted by the wrappers where they launch
 launch_counts: collections.Counter = collections.Counter()
@@ -96,13 +96,17 @@ def load(name: str) -> ctypes.CDLL:
 
 def launch(lib_name: str, fn_name: str, *args) -> None:
     """Call C launch function ``fn_name`` on the current stream: tensors
-    pass as device pointers, ints as C ints. Raises on a CUDA error."""
+    pass as device pointers (None as a null pointer), Python floats as C
+    floats, anything else as a C int. Raises on a CUDA error."""
     fn = getattr(load(lib_name), fn_name)
     argtypes, values = [], []
     for a in args:
-        if isinstance(a, torch.Tensor):
+        if a is None or isinstance(a, torch.Tensor):
             argtypes.append(ctypes.c_void_p)
-            values.append(a.data_ptr())
+            values.append(None if a is None else a.data_ptr())
+        elif isinstance(a, float):
+            argtypes.append(ctypes.c_float)
+            values.append(a)
         else:
             argtypes.append(ctypes.c_int)
             values.append(int(a))

@@ -1,4 +1,5 @@
-"""Carry weights of the flax SuperPoint (as numpy trees) into the port.
+"""Carry weights of the flax SuperPoint and of the tiny NeRF field (as
+numpy trees) into the port.
 
 The flax tree nests ``params/<head>/<block>/Conv_0/{kernel, bias}`` with
 HWIO kernels, and ``BatchNorm_0/{scale, bias}`` beside running stats in
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from spnerf_tpu_torch.device import resolve_device
 from spnerf_tpu_torch.models.superpoint import SuperPoint, conv_blocks
 from spnerf_tpu_torch.ops.serving import ServingSuperPoint
 from spnerf_tpu_torch.train.loop import TrainState, create_train_state
@@ -106,3 +108,17 @@ def serving_from_folded(folded: dict, act_scales: dict,
     scales = {k: torch.tensor(np.float32(v)) for k, v in act_scales.items()}
     return ServingSuperPoint(folded_from_flax(folded, has_descriptor), scales,
                              has_descriptor, device=device, **kw)
+
+
+def tiny_field_from_jax(params: dict, device="cuda",
+                        dtype: torch.dtype = torch.float32) -> dict:
+    """The tiny NeRF field's parameters (a dict of numpy ``w1``, ``w2``,
+    ``w3``, ``wd``, as ``np.load`` of a saved field or ``np.asarray`` of
+    the reference's ``init_params`` gives them) as the port's: tensors on
+    ``device``, rounded from float32 to ``dtype`` (float32, or bfloat16 as
+    the render benchmark serves them)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"tiny_field_from_jax: dtype {dtype}")
+    device = resolve_device(device)
+    return {k: _t(params[k]).to(device=device, dtype=dtype)
+            for k in ("w1", "w2", "w3", "wd")}

@@ -219,3 +219,119 @@ def test_hinge_wrapper_launches_only_the_gradient_asked_for(card):
     with pytest.raises(ValueError, match="multiple of 4"):
         descriptor_hinge_sums(A[..., :30], Bm[..., :30], wcells, cells, mask,
                               250.0, 1.0, 0.2, 8.0)
+
+
+def _render_case(kind, rng):
+    """(width, weights' dtype, operands, keywords) of a small render: N not
+    a multiple of the kernels' tile, ``block`` not a multiple of it either
+    (so a tile spans flags of two blocks), flags with zeros, and for
+    ``hot`` a dense field, denser still for every other run of 50 rays, so
+    that the early stop fires and tiles stop at different chunks."""
+    width = 64 if "w64" in kind else 32 if "w32" in kind else 128
+    dtype = torch.bfloat16 if "bf16" in kind else torch.float32
+    hot = kind.startswith("hot")
+    N, n_samples, chunk = 333, 16, 4
+    block, s_chunk = (48, 4) if width == 128 else (80, chunk * width // 128)
+    p = {k: (rng.standard_normal((width, width)) * 0.1).astype(np.float32)
+         for k in ("w1", "w2", "w3")}
+    oe = rng.uniform(-3, 3, (N, width)).astype(np.float32)
+    de = rng.uniform(-2, 2, (N, width)).astype(np.float32)
+    oe[:, 0], de[:, 0] = np.pi / 2, 0.0  # the constant-one lane
+    df = (rng.standard_normal((N, width)) * 0.1).astype(np.float32)
+    if hot:
+        mul, add = {128: (1.0, 0.05), 64: (6.0, 0.3), 32: (25.0, 1.2)}[width]
+        p["w3"][:, 0] = np.abs(p["w3"][:, 0]) * mul + add
+        df[(np.arange(N) // 50) % 2 == 0] += 0.5
+    flags = (rng.uniform(size=(-(-N // block), n_samples // chunk)) > 0.3)
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    kw = dict(jitter=0.37, n_samples=n_samples, near=2.0, far=6.0, block=block,
+              s_chunk=s_chunk, flags=t(flags.astype(np.int32)),
+              early_stop_eps=1e-3 if hot else 0.0)
+    if hot or kind == "no_flags":
+        kw["flags"] = None
+    ws = [t(p[k]).to(dtype) for k in ("w1", "w2", "w3")]
+    return width, ws, (t(oe), t(de), t(df)), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "no_flags", "hot", "hot_bf16",
+                                  "w64", "w64_bf16", "hot_w64", "w32",
+                                  "w32_bf16", "hot_w32"])
+def test_render_matches_plain_on_card(card, kind):
+    """The float render kernels against their plain versions: the same
+    roundings and skips, the dots' float32 sums in another order. With
+    float32 operands within 2e-5 (rgb) and 1e-4 (depth); with bf16 a sum
+    that lands on the other side of a rounding moves a hidden activation by
+    one bf16 ulp: within 1e-4 and 1e-3 (measured on an H100: 6.4e-6 and
+    1.4e-6 at most). Two runs give the same bits."""
+    from spnerf_tpu_torch.kernels import _build
+    from spnerf_tpu_torch.kernels import render as R
+
+    width, (w1, w2, w3), (oe, de, df), kw = _render_case(
+        kind, np.random.default_rng(20))
+    if width == 128:
+        run = lambda fn: fn(oe, de, w1, w2, w3, df, **kw)  # noqa: E731
+        kernel, plain = R.render_fused, R.render_fused_plain
+    else:
+        run = lambda fn: fn(oe, de, w1, w2, w3, df, width=width, **kw)  # noqa: E731
+        kernel, plain = R.render_fused_packed, R.render_fused_packed_plain
+    before = sum(_build.launch_counts.values())
+    got, again = run(kernel), run(kernel)
+    torch.cuda.synchronize()
+    assert sum(_build.launch_counts.values()) == before + 2
+    want = run(plain)
+    assert got[0].shape == (oe.shape[0], 3) and got[1].shape == (oe.shape[0],)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+    assert float(want[0].max()) > 0.05  # the render is not empty
+    rgb_tol, depth_tol = (1e-4, 1e-3) if "bf16" in kind else (2e-5, 1e-4)
+    rgb_err = float((got[0] - want[0]).abs().max())
+    depth_err = float((got[1] - want[1]).abs().max())
+    print(f"render {kind}: rgb {rgb_err:.3e} depth {depth_err:.3e}")
+    assert rgb_err <= rgb_tol and depth_err <= depth_tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "hot"])
+def test_render_int8_matches_plain_on_card(card, kind):
+    """The int8 render kernel against its plain version: the int32 dots are
+    exact on both sides, so only a sine or a requantization within float32
+    rounding of a half-integer can differ (one int8 step): rgb within 5e-4,
+    depth within 2e-3 (measured on an H100: equal)."""
+    from spnerf_tpu_torch.kernels import _build
+    from spnerf_tpu_torch.kernels import render as R
+
+    rng = np.random.default_rng(21)
+    _, ws, (oe, de, df), kw = _render_case(kind, rng)
+    params = {k: w.cpu().numpy() for k, w in zip(("w1", "w2", "w3"), ws)}
+    qf = R.quantize_field(params, oe.cpu().numpy(), de.cpu().numpy(),
+                          df.cpu().numpy(), n_samples=kw["n_samples"],
+                          near=kw["near"], far=kw["far"], jitter=kw["jitter"])
+    before = _build.launch_counts["render[int8]"]
+    got = R.render_fused_int8(oe, de, qf, df, **kw)
+    again = R.render_fused_int8(oe, de, R.qfield_to(qf, "cuda"), df, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["render[int8]"] == before + 2
+    want = R.render_fused_int8_plain(oe, de, qf, df, **kw)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert float(want[0].max()) > 0.05
+    rgb_err = float((got[0] - want[0]).abs().max())
+    depth_err = float((got[1] - want[1]).abs().max())
+    print(f"render int8 {kind}: rgb {rgb_err:.3e} depth {depth_err:.3e}")
+    assert rgb_err <= 5e-4 and depth_err <= 2e-3
+
+
+@pytest.mark.cuda
+def test_render_wrappers_raise_on_what_the_kernel_does_not_take(card):
+    from spnerf_tpu_torch.kernels import render as R
+
+    _, (w1, w2, w3), (oe, de, df), kw = _render_case(
+        "f32", np.random.default_rng(22))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        R.render_fused(oe, de, w1.half(), w2.half(), w3.half(), df, **kw)
+    with pytest.raises(ValueError, match="flags must be int32"):
+        R.render_fused(oe, de, w1, w2, w3, df, **{**kw, "flags": kw["flags"][:1]})
+    with pytest.raises(ValueError, match="CUDA"):
+        R.render_fused(oe, de, w1.cpu(), w2.cpu(), w3.cpu(), df, **kw)
+    with pytest.raises(ValueError, match="pack width"):
+        R.render_fused_packed(oe, de, w1, w2, w3, df, width=128)
