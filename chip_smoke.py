@@ -19,13 +19,29 @@ Phases, each of which raises on failure (nothing is caught):
    then time the serving graph apart from detection + sampling;
 5. hold the CUDA graph against the plain path on the CPU on a small
    input;
+5b. the other serving routes through ``build_inference``, each with its
+   kernels held against their plain versions on one request's operands
+   (int8 equal; bf16 within 2 ulps, at most 0.1% beyond 1; with times,
+   bounds and cuDNN / addmm / ``_int_mm`` yardsticks), then its requests
+   with the launch counters at 0 before (every kernel of the route
+   launched its count per request, no other), the outputs checked and
+   frames/s and the graph / detection split printed: ``[slice-bf16]``
+   and ``[slice-mixed]`` (5 requests of batch 64 at 480 x 640; bf16 runs
+   conv1 as a plain conv above batch 8, block 2 through
+   ``packed_conv3x3``), ``[slice-unfused]`` (fused mid and tail off,
+   int8 and bf16, 5 requests of batch 8; bf16 runs ``conv1_packed``; and
+   one int8 request of batch 8 at 480 x 632 with the fused flags on,
+   where the mid drops to per-layer kernels by itself);
+5c. hold the bf16, mixed and unfused graphs on the card against the CPU
+   plain path at 2 x 32 x 64 and 2 x 32 x 56;
 6. export homographic-adaptation pseudo-labels with
    ``tasks.export.export_pseudo_labels`` at the configuration of
    ``spnerf_tpu/configs/magicpoint_coco_export.yaml`` (full-width seeded
    MagicPoint, 240 x 320, batch 8, 100 views in chunks of 10) for 20
-   synthetic images, by three routes, each with the launch counters at 0
+   synthetic images, by four routes, each with the launch counters at 0
    before: (a) the default BN-folded bf16 forward, (b) ``export.serving:
-   int8`` on the int8 kernels, (c) one batch with int8 warps; check one
+   int8`` on the int8 kernels, (c) one batch with int8 warps, (d)
+   ``export.serving: mixed`` (int8 backbone, bf16 head); check one
    int64 (N, 2) label file per image and the launch counts, print
    images/s and split one batch into its parts by CUDA events;
 7. hold the warp kernel against its plain version on the operands HA
@@ -111,6 +127,7 @@ from spnerf_tpu_torch.geometry.homography import (
     warp_points,
 )
 from spnerf_tpu_torch.kernels import _build
+from spnerf_tpu_torch.kernels import conv_stack
 from spnerf_tpu_torch.kernels import descriptor_loss as dl
 from spnerf_tpu_torch.kernels import render as rk
 from spnerf_tpu_torch.kernels.conv12_fused import conv12_fused_plain
@@ -136,6 +153,7 @@ from spnerf_tpu_torch.ops import homography_adaptation as ha_mod
 from spnerf_tpu_torch.ops import serving
 from spnerf_tpu_torch.ops.fast_inference import (
     build_inference,
+    detect_from_logits,
     detect_from_probs_padded,
     make_infer,
     sample_descriptors_onehot,
@@ -327,7 +345,8 @@ SMALL_RENDER_TOL = {"f32": (5e-6, 2e-5), "bf16": (2e-4, 5e-4),
                     "int8": (5e-4, 2e-3)}
 
 # serving-module name of each wrapper -> (plain version, CUDA source,
-# TPU kernel it replaces)
+# TPU kernel it replaces); the bf16 instances of double_conv3x3 and head
+# share the int8 rows' sources
 WRAPPERS = {
     "conv12_fused": (conv12_fused_plain,
                      "spnerf_tpu_torch/kernels/csrc/conv12_fused.cu",
@@ -340,7 +359,29 @@ WRAPPERS = {
                        "spnerf_tpu/kernels/tail_fused_pallas.py:99"),
     "head": (head_plain, "spnerf_tpu_torch/kernels/csrc/head.cu",
              "spnerf_tpu/kernels/tail_fused_pallas.py:179"),
+    "conv3x3": (conv_stack.conv3x3_plain,
+                "spnerf_tpu_torch/kernels/csrc/conv3x3.cu",
+                "spnerf_tpu/kernels/conv_stack_pallas.py:156"),
+    "packed_conv3x3": (conv_stack.conv3x3_plain,
+                       "spnerf_tpu_torch/kernels/csrc/conv3x3.cu",
+                       "spnerf_tpu/kernels/conv_stack_pallas.py:295"),
+    "dot_bias_act": (conv_stack.dot_bias_act_plain,
+                     "spnerf_tpu_torch/kernels/csrc/dot_bias_act.cu",
+                     "spnerf_tpu/kernels/conv_stack_pallas.py:381"),
 }
+# kernels that round a mid activation to bf16 before their last sum
+CHAINS = ("double_packed_conv3x3", "double_conv3x3", "head")
+# kernel against plain version, bf16 or float32 operands: within 2 bf16
+# ulps, at most 0.1% of the values beyond 1 (float32 FMAs in a fixed order
+# against float64 sums rounded once). Ulps are counted at the larger of
+# the two values and at least at a floor of the tensor's largest
+# magnitude: 1/256 (below it a bf16 ulp is finer than a float32 sum's own
+# rounding), 1/4 for the chains (a mid value rounded apart moves every
+# output it feeds by the weight times its ulp, an error on the scale of
+# the largest outputs: 4 ulps at a 1/16 floor in 1.3e-5 of the values of
+# head[bf16-256] at batch 64 on an H100)
+BF16_FLOOR, BF16_CHAIN_FLOOR = 2.0 ** -8, 2.0 ** -2
+BF16_MAX_ULPS, BF16_SHARE_OVER_1 = 2, 1e-3
 
 
 def log(msg: str) -> None:
@@ -359,9 +400,16 @@ def nbytes(*tensors) -> int:
 
 
 def work(name, args, kw, out):
-    """(int8 multiply-accumulates, bytes read once + written once) of one
+    """(multiply-accumulates, bytes read once + written once) of one
     kernel call, from its operands' shapes."""
-    if name == "conv12_fused":
+    if name in ("conv3x3", "packed_conv3x3"):
+        x, w = args[:2]
+        B, h, w_, cin = x.shape
+        macs = B * h * w_ * 9 * cin * w.shape[-1]
+    elif name == "dot_bias_act":
+        x, w = args[:2]
+        macs = x.numel() * w.shape[-1]
+    elif name == "conv12_fused":
         image, k1, _, _, w2 = args[:5]
         B, h, w, _ = image.shape
         macs = B * h * w * 9 * (1 + 64) * 64
@@ -380,8 +428,10 @@ def work(name, args, kw, out):
 @contextlib.contextmanager
 def recorded_calls(calls: list):
     """Record (wrapper name, args, kwargs) of every kernel call the
-    serving graph makes."""
-    saved = {name: getattr(serving, name) for name in WRAPPERS}
+    serving graph makes (``conv1_packed`` calls ``dot_bias_act`` in
+    ``conv_stack``)."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in
+             [(serving, n) for n in WRAPPERS] + [(conv_stack, "dot_bias_act")]]
 
     def recorder(name, fn):
         def call(*args, **kw):
@@ -389,13 +439,13 @@ def recorded_calls(calls: list):
             return fn(*args, **kw)
         return call
 
-    for name, fn in saved.items():
-        setattr(serving, name, recorder(name, fn))
+    for mod, name, fn in saved:
+        setattr(mod, name, recorder(name, fn))
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(serving, name, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -421,20 +471,72 @@ def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ordered(a) - ordered(b)).abs().max())
 
 
-def compare(name, got, want):
-    """(max |got - want|, share of values that differ); raises unless
-    int8 results are equal and bf16 results are within 1 ulp."""
+def bf16_scaled_ulps(got, want, floor):
+    """Per-value distance in bf16 ulps at the larger of the two values,
+    and at least at ``floor`` times ``want``'s largest magnitude."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs())
+    mag = torch.clamp_min(mag, max(floor * float(w.abs().max()), 1e-30))
+    return (g - w).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def compare(name, got, want, float_operands=False, chain=False):
+    """(max |got - want|, share of values that differ, share beyond 1 bf16
+    ulp); raises unless int8 results are equal, bf16 results of int8 sums
+    within 1 ulp, and bf16 results of bf16 or float32 operands within
+    BF16_MAX_ULPS with at most BF16_SHARE_OVER_1 beyond 1."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} vs "
                              f"{tuple(want.shape)} {want.dtype}")
     err = float((got.float() - want.float()).abs().max())
+    over_1 = 0.0
     if got.dtype == torch.int8 and err != 0:
         n = int((got != want).sum())
         raise AssertionError(f"{name}: {n} int8 values differ (max {err})")
-    if got.dtype == torch.bfloat16 and bf16_ulps(got, want) > 1:
+    if got.dtype == torch.bfloat16 and not float_operands \
+            and bf16_ulps(got, want) > 1:
         raise AssertionError(f"{name}: bf16 differs by "
                              f"{bf16_ulps(got, want)} ulps")
-    return err, float((got != want).float().mean())
+    if got.dtype == torch.bfloat16 and float_operands:
+        d = bf16_scaled_ulps(got, want,
+                             BF16_CHAIN_FLOOR if chain else BF16_FLOOR)
+        over_1 = float((d > 1).float().mean())
+        if float(d.max()) > BF16_MAX_ULPS or over_1 > BF16_SHARE_OVER_1:
+            raise AssertionError(f"{name}: bf16 differs by {float(d.max())} "
+                                 f"ulps, {over_1:.3e} of values beyond 1")
+    return err, float((got != want).float().mean()), over_1
+
+
+def library_call(name, args, kw):
+    """One PyTorch call computing the kernel's function on the same
+    inputs (without its ReLU, pool or cast), or None where there is none:
+    cuDNN convs in bf16 (channels-last), addmm in bf16 or float32,
+    ``torch._int_mm`` for an int8 product."""
+    x = args[0]
+    if name == "conv12_fused" or (x.dtype == torch.int8
+                                  and name != "dot_bias_act"):
+        return None  # int8 convs: F.conv2d takes no int8 CUDA tensors
+
+    def conv(inp, w, b):
+        w = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        return F.conv2d(inp, w, b.to(w.dtype), padding=w.shape[-1] // 2)
+
+    if name in ("conv3x3", "packed_conv3x3"):
+        xc = x.permute(0, 3, 1, 2)
+        return lambda: conv(xc, args[1], args[3])
+    if name in ("double_packed_conv3x3", "double_conv3x3"):
+        xc = x.permute(0, 3, 1, 2)
+        return lambda: conv(conv(xc, args[1], args[3]), args[4], args[6])
+    if name == "head":
+        xc, w1 = x.permute(0, 3, 1, 2), args[4][None, None]
+        return lambda: conv(conv(xc, args[1], args[3]), w1, args[6])
+    x2, w = x.reshape(-1, x.shape[-1]), args[1]
+    if x.dtype == torch.int8:
+        n = -(-w.shape[-1] // 8) * 8  # _int_mm takes widths of 8
+        wc = F.pad(w, (0, n - w.shape[-1])).t().contiguous().t()
+        return lambda: torch._int_mm(x2, wc)
+    b = args[3].to(x.dtype)
+    return lambda: torch.addmm(b, x2, w)
 
 
 def synthetic_images(n: int, gen: torch.Generator,
@@ -471,45 +573,57 @@ def phase_card() -> str:
 
 
 def phase_kernels(calls, peaks):
-    """Each recorded call: kernel against plain version on the same
-    operands, with times and the bound."""
-    int8_rate, mem_rate = peaks[:2]
-    rows = []
+    """Each recorded call (the first of each kernel instance): kernel
+    against plain version on the same operands, with times, the bound and
+    the library yardstick."""
+    int8_rate, mem_rate, f32_rate, bf16_rate = peaks
+    rows, seen = [], set()
     for name, args, kw in calls:
         plain, source, replaces = WRAPPERS[name]
         kernel = getattr(serving, name)
         before = _build.launch_counts.copy()
         got = kernel(*args, **kw)
         key, = (_build.launch_counts - before).keys()
+        if key in seen:  # the same instance at the same shapes
+            del got
+            continue
+        seen.add(key)
         want = plain(*args, **kw)
-        err, share = compare(key, got, want)
+        dtype = args[0].dtype if name != "conv12_fused" else torch.int8
+        err, share, over_1 = compare(key, got, want,
+                                     float_operands=dtype != torch.int8,
+                                     chain=name in CHAINS)
         ms = cuda_ms(lambda: kernel(*args, **kw), reps=20, warmup=3)
         plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=3)
+        lib = library_call(name, args, kw)
+        lib_ms = None if lib is None else cuda_ms(lib, reps=20, warmup=3)
         macs, moved = work(name, args, kw, got)
-        t_ops, t_bytes = 2 * macs / int8_rate * 1e3, moved / mem_rate * 1e3
+        rate = {torch.int8: int8_rate, torch.bfloat16: bf16_rate,
+                torch.float32: f32_rate}[dtype]
+        t_ops, t_bytes = 2 * macs / rate * 1e3, moved / mem_rate * 1e3
         rows.append({
             "name": key, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            # no single PyTorch call computes a fused int8 conv chain with
-            # its requantization (F.conv2d takes no int8 CUDA tensors)
-            "library_ms": None,
+            "library_ms": lib_ms,
         })
-        log(f"[kernel] {key}: in {tuple(args[0].shape)} -> out "
+        lib_text = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"[kernel] {key}: in {tuple(args[0].shape)} {dtype} -> out "
             f"{tuple(got.shape)} {got.dtype}, max_abs_err {err} "
-            f"({share:.3e} of values differ), kernel "
-            f"{ms:.4f} ms (median of 20), plain {plain_ms:.4f} ms, bound "
-            f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}, "
-            f"{2 * macs / 1e9:.2f} GOP, {moved / 1e6:.1f} MB)")
-        del got, want
+            f"({share:.3e} of values differ, {over_1:.3e} beyond 1 bf16 "
+            f"ulp), kernel {ms:.4f} ms (median of 20), plain {plain_ms:.4f} "
+            f"ms, library {lib_text}, bound {rows[-1]['bound_ms']:.4f} ms "
+            f"({rows[-1]['bound_by']}, {2 * macs / 1e9:.2f} GOP, "
+            f"{moved / 1e6:.1f} MB)")
+        del got, want, lib
         torch.cuda.empty_cache()
     return rows
 
 
-def check_outputs(pts, scores, valid, desc):
-    expect = {"pts": (BATCH, TOP_K, 2), "scores": (BATCH, TOP_K),
-              "valid": (BATCH, TOP_K), "desc": (BATCH, TOP_K, 256)}
+def check_outputs(pts, scores, valid, desc, batch=BATCH):
+    expect = {"pts": (batch, TOP_K, 2), "scores": (batch, TOP_K),
+              "valid": (batch, TOP_K), "desc": (batch, TOP_K, 256)}
     for key, t in zip(expect, (pts, scores, valid, desc)):
         if tuple(t.shape) != expect[key]:
             raise AssertionError(f"{key}: shape {tuple(t.shape)}")
@@ -571,6 +685,208 @@ def phase_slice(infer, requests):
     return counts
 
 
+# the serving routes beside the int8 slice: (label, mode, fused_mid,
+# fused_tail, batch, width, requests) -> kernel launches per request
+SLICE_W_NARROW = 632  # W % 16 == 8: the fused mid drops to per-layer kernels
+SLICE_ROUTES = [
+    (("slice-bf16", "bf16", True, True, BATCH, W, REQUESTS), {
+        "packed_conv3x3[bf16-64-64-pool]": 1,
+        "double_conv3x3[bf16-64-64-64-pool]": 1,
+        "double_conv3x3[bf16-64-128-128-pool]": 1,
+        "double_conv3x3[bf16-128-128-128]": 1,
+        "head[bf16-65-softmax]": 1, "head[bf16-256]": 1}),
+    (("slice-mixed", "mixed", True, True, BATCH, W, REQUESTS), {
+        "conv12_fused[pool]": 1, "double_conv3x3[64-64-64-pool]": 1,
+        "double_conv3x3[64-128-128-pool]": 1, "double_conv3x3[128-128-128]": 1,
+        "head[bf16-65-softmax]": 1, "head[bf16-256]": 1}),
+    (("slice-unfused", "int8", False, False, 8, W, REQUESTS), {
+        "conv12_fused[pool]": 1, "packed_conv3x3[int8-64-64]": 1,
+        "packed_conv3x3[int8-64-64-pool]": 1,
+        "packed_conv3x3[int8-64-128]": 1, "conv3x3[int8-128-128-pool]": 1,
+        "conv3x3[int8-128-128]": 2, "conv3x3[int8-128-256]": 2,
+        "dot_bias_act[int8-256-65]": 1, "dot_bias_act[int8-256-256]": 1}),
+    (("slice-unfused", "bf16", False, False, 8, W, REQUESTS), {
+        "dot_bias_act[f32-9-64-relu]": 1,
+        "packed_conv3x3[bf16-64-64-pool]": 2, "packed_conv3x3[bf16-64-64]": 1,
+        "packed_conv3x3[bf16-64-128]": 1, "conv3x3[bf16-128-128-pool]": 1,
+        "conv3x3[bf16-128-128]": 2, "conv3x3[bf16-128-256]": 2,
+        "dot_bias_act[bf16-256-65]": 1, "dot_bias_act[bf16-256-256]": 1}),
+    (("slice-unfused", "int8", True, True, 8, SLICE_W_NARROW, 1), {
+        "conv12_fused[pool]": 1, "packed_conv3x3[int8-64-64]": 1,
+        "packed_conv3x3[int8-64-64-pool]": 1,
+        "packed_conv3x3[int8-64-128]": 1, "conv3x3[int8-128-128-pool]": 1,
+        "double_conv3x3[128-128-128]": 1, "head[65-softmax]": 1,
+        "head[256]": 1}),
+]
+# card against the CPU plain path on small inputs, as the CPU tests hold
+# the port against the JAX package: mixed (int8 backbone, one bf16 head)
+# at most 0.1% of values beyond 1 bf16 ulp (floor 1/256) and all within
+# 1e-2 of the largest magnitude; bf16 (ten bf16 layers whose roundings
+# compound) every value within 1 ulp of the tensor's largest magnitude;
+# each keypoint set holds at most 1% of the points, or one point, that
+# the other lacks
+SMALL_ROUTES = [("bf16", True, True), ("mixed", True, True),
+                ("int8", False, False), ("bf16", False, False)]
+
+
+def phase_route(label, infer, requests, expect):
+    """Answer ``requests`` through ``infer`` with every launch counter at 0
+    before; check the outputs and that exactly the kernels of ``expect``
+    launched, each its count per request."""
+    batch, h, w = requests[0].shape[:3]
+    infer(requests[0])  # warm-up
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    times, outs = [], None
+    t_all = time.perf_counter()
+    for images in requests:
+        t0 = time.perf_counter()
+        outs = infer(images)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    total = time.perf_counter() - t_all
+    counts = dict(_build.launch_counts)
+    check_outputs(*outs, batch=batch)
+    sp = infer.serving
+    log(f"[{label}] mode {sp.mode}, fused_mid {sp.fused_mid}, fused_tail "
+        f"{sp.fused_tail}: {len(requests)} requests of batch {batch} at "
+        f"{h}x{w}: {total:.4f} s, {len(requests) * batch / total:.2f} "
+        f"frames/s; per request (s): {', '.join(f'{t:.4f}' for t in times)}; "
+        f"median {statistics.median(times) * 1e3:.3f} ms; "
+        f"{int(outs[2].sum())} valid keypoints in the last request")
+    log(f"[{label}] launches: {json.dumps(counts, sort_keys=True)}")
+    want = {k: n * len(requests) for k, n in expect.items()}
+    if counts != want:
+        raise AssertionError(f"[{label}] launches {counts}, expected {want}")
+    return counts
+
+
+def phase_route_split(label, infer, images, cfg):
+    """Device time of the serving graph and of detection + sampling."""
+    sp = infer.serving
+    out = sp(images, softmax=sp.fused_tail)
+
+    def post():
+        if sp.fused_tail:
+            pts, _, _ = detect_from_probs_padded(
+                out["probs"], cfg.grid_size, min_prob=cfg.det_thresh,
+                size=cfg.nms, top_k=TOP_K, num_candidates=TOP_K,
+                compact=False)
+        else:
+            pts, _, _ = detect_from_logits(
+                out["logits"], cfg.grid_size, min_prob=cfg.det_thresh,
+                size=cfg.nms, top_k=TOP_K, num_candidates=1024)
+        sample_descriptors_onehot(out["desc_raw"], pts, cfg.grid_size)
+
+    graph_ms = cuda_ms(lambda: sp(images, softmax=sp.fused_tail), reps=5)
+    post_ms = cuda_ms(post, reps=5)
+    log(f"[{label}-split] mode {sp.mode}, batch {images.shape[0]} at "
+        f"{images.shape[1]}x{images.shape[2]}: serving graph {graph_ms:.4f} "
+        f"ms, detect + descriptor sampling {post_ms:.4f} ms (medians of 5)")
+
+
+def phase_slice_routes(model, cfg, requests, peaks):
+    """Each route of SLICE_ROUTES through ``build_inference``: its kernels
+    against their plain versions on one request's operands, then the
+    requests with the counters at 0 before, then the split. Returns the
+    kernel rows with their launches on the route."""
+    rows = []
+    for (label, mode, fused_mid, fused_tail, batch, width, n), expect in \
+            SLICE_ROUTES:
+        reqs = [r[:batch, :, :width].contiguous() for r in requests[:n]]
+        infer = build_inference(cfg, model, requests[0][:8], mode=mode,
+                                fused_mid=fused_mid, fused_tail=fused_tail,
+                                device="cuda", top_k=TOP_K)
+        calls = []
+        with recorded_calls(calls):
+            infer.serving(reqs[0], softmax=fused_tail)
+        torch.cuda.synchronize()
+        route_rows = phase_kernels(calls, peaks)
+        del calls
+        counts = phase_route(label, infer, reqs, expect)
+        phase_route_split(label, infer, reqs[0], cfg)
+        for row in route_rows:
+            row["launches"] = counts.get(row["name"], 0)
+            if row["launches"] == 0:
+                raise AssertionError(f"{row['name']} never launched on the "
+                                     f"{label} route")
+        rows += route_rows
+        del infer, reqs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_modes_small(sp_cuda_int8, cfg):
+    """The bf16, mixed and unfused graphs on the card against the CPU
+    plain path (same weights and scales) on 2 images of 32 x 64 and
+    32 x 56."""
+    params = {k: {n: t.cpu() for n, t in v.items()}
+              for k, v in sp_cuda_int8.params.items()}
+    scales = {k: v.cpu() for k, v in sp_cuda_int8.act_scales.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    worst = []
+    for width in (64, 56):
+        x = synthetic_images(2, gen)[:, :32, :width].contiguous()
+        n_all = 4 * (width // 8) * 64  # every pixel a candidate
+        for mode, fused_mid, fused_tail in SMALL_ROUTES:
+            kw = dict(mode=mode, fused_mid=fused_mid, fused_tail=fused_tail)
+            sps = [serving.ServingSuperPoint(
+                params, None if mode == "bf16" else scales,
+                sp_cuda_int8.has_descriptor, device=dev, **kw)
+                for dev in ("cuda", "cpu")]
+            got, want = (sp(x.to(sp.device), softmax=fused_tail)
+                         for sp in sps)
+            name = f"{mode} fused_mid={fused_mid} fused_tail={fused_tail} " \
+                   f"2x32x{width}"
+            det = "probs" if fused_tail else "logits"
+            for key in (det, "desc_raw"):
+                g, w = got[key].cpu(), want[key]
+                err = float((g.float() - w.float()).abs().max())
+                scale = float(w.float().abs().max())
+                if mode == "int8":
+                    ok, note = bf16_ulps(g, w) <= 1, f"{bf16_ulps(g, w)} ulps"
+                elif mode == "bf16":
+                    d = float(bf16_scaled_ulps(g, w, 1.0).max())
+                    ok, note = d <= 1, f"{d} ulps of the largest"
+                else:
+                    d = bf16_scaled_ulps(g, w, BF16_FLOOR)
+                    share = float((d > 1).float().mean())
+                    ok = share <= 1e-3 and err <= 1e-2 * scale
+                    note = f"{share:.3e} beyond 1 ulp"
+                if not ok:
+                    raise AssertionError(f"small {name}: {key} {note}, max "
+                                         f"|err| {err}")
+                worst.append(f"{mode}/{int(fused_tail)}/{width} {key} {note}")
+            sets = []
+            for out in (got, want):
+                if fused_tail:
+                    pts, _, valid = detect_from_probs_padded(
+                        out["probs"].cpu(), cfg.grid_size,
+                        min_prob=cfg.det_thresh, size=cfg.nms,
+                        num_candidates=n_all, top_k=n_all, compact=False)
+                else:
+                    pts, _, valid = detect_from_logits(
+                        out["logits"].cpu(), cfg.grid_size,
+                        min_prob=cfg.det_thresh, size=cfg.nms,
+                        num_candidates=n_all, top_k=n_all)
+                sets.append({tuple(p) for p in pts[valid].tolist()})
+            apart = max(len(sets[0] - sets[1]), len(sets[1] - sets[0]))
+            if not sets[1] or apart > max(1, 0.01 * len(sets[1])) or (
+                    mode == "int8" and apart):
+                raise AssertionError(f"small {name}: {apart} of "
+                                     f"{len(sets[1])} keypoints apart")
+            pts = pts.cpu()
+            d_cuda = sample_descriptors_onehot(got["desc_raw"],
+                                               pts.cuda()).cpu()
+            d_cpu = sample_descriptors_onehot(want["desc_raw"], pts)
+            cos = float((d_cuda * d_cpu).sum(-1)[valid].min())
+            if cos < 0.999:
+                raise AssertionError(f"small {name}: descriptor cosine {cos}")
+            worst.append(f"{mode}/{int(fused_tail)}/{width} keypoints "
+                         f"{apart} apart of {len(sets[1])}, cosine {cos:.6f}")
+    log("[modes-small] card against the CPU plain path: " + "; ".join(worst))
+
+
 def phase_small_reference(sp_cuda, cfg):
     """The CUDA graph against the plain path on the CPU (same weights and
     scales) on 2 images of 64 x 128."""
@@ -627,9 +943,11 @@ def ha_model():
 
 def ha_prob_fn(model, config, calib):
     """The forward ``export_pseudo_labels`` builds for ``config``."""
-    if config["export"]["serving"]:
-        sp = serving.ServingSuperPoint.build(model.config, model, calib,
-                                             device="cuda")
+    mode = config["export"]["serving"]
+    if mode:
+        sp = serving.ServingSuperPoint.build(
+            model.config, model, calib,
+            mode=mode if isinstance(mode, str) else "int8", device="cuda")
         return export.make_prob_fn(model, serving=sp)
     return export.make_prob_fn(model, fast=True)
 
@@ -1781,6 +2099,10 @@ def main() -> int:
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} never launched on the path")
     phase_small_reference(infer.serving, cfg)
+    # bf16, mixed and the per-layer routes: each a drive of its path with
+    # the counters at 0 before it
+    rows += phase_slice_routes(model, cfg, requests, peaks)
+    phase_modes_small(infer.serving, cfg)
     del infer, requests
     torch.cuda.empty_cache()
 
@@ -1794,7 +2116,8 @@ def main() -> int:
     for route, config in (
             ("(a) bf16 forward", export_config()),
             ("(b) int8 serving", export_config(serving="int8")),
-            ("(c) int8 warps", export_config(compute_dtype="int8"))):
+            ("(c) int8 warps", export_config(compute_dtype="int8")),
+            ("(d) mixed serving", export_config(serving="mixed"))):
         n = 8 if route.startswith("(c)") else HA_IMAGES  # (c): one batch
         ha_counts.update(phase_ha_export(ha, images[:n], route, config))
         image_warp, unwarp = phase_ha_split(

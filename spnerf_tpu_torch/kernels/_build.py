@@ -27,8 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spnerf_tpu_torch"
-SOURCES = ("conv12_fused", "double_conv3x3", "head", "warp",
-           "descriptor_loss", "render")
+SOURCES = ("conv12_fused", "double_conv3x3", "head", "conv3x3",
+           "dot_bias_act", "warp", "descriptor_loss", "render")
 
 # launches per kernel, counted by the wrappers where they launch
 launch_counts: collections.Counter = collections.Counter()
@@ -119,16 +119,23 @@ def launch(lib_name: str, fn_name: str, *args) -> None:
         raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
 
 
-def pack_dp4a(w: torch.Tensor, cout_pad: int | None = None) -> torch.Tensor:
-    """int8 (..., cin, cout) weights -> int32 words (taps, cin/4, cout_pad):
-    each word holds four consecutive input channels of one output
-    channel, the operand layout of ``__dp4a``. Output channels are
-    zero-padded to ``cout_pad``."""
+def pack_words(w: torch.Tensor, cout_pad: int | None = None,
+               cin_pad: int | None = None) -> torch.Tensor:
+    """int8, bf16 or float32 (..., cin, cout) weights -> int32 words
+    (taps, cin/per_word, cout_pad): each word holds per_word = 4, 2 or 1
+    consecutive input channels of one output channel, the operand layout
+    of the kernels' dot (``__dp4a`` for int8). Input and output channels
+    are zero-padded to ``cin_pad`` and ``cout_pad``."""
     cin, cout = w.shape[-2:]
-    w = w.reshape(-1, cin // 4, 4, cout)
-    if cout_pad is not None and cout_pad > cout:
-        w = torch.nn.functional.pad(w, (0, cout_pad - cout))
-    return w.permute(0, 1, 3, 2).contiguous().view(torch.int32)[..., 0]
+    per = 4 // w.element_size()
+    w = w.reshape(-1, cin, cout)
+    pad_in = (cin_pad or cin) - cin
+    pad_out = (cout_pad or cout) - cout
+    if pad_in > 0 or pad_out > 0:
+        w = torch.nn.functional.pad(w, (0, max(pad_out, 0), 0, max(pad_in, 0)))
+    taps, cinp, coutp = w.shape
+    w = w.reshape(taps, cinp // per, per, coutp).permute(0, 1, 3, 2)
+    return w.contiguous().view(torch.int32)[..., 0]
 
 
 def check_cuda(name: str, **tensors) -> None:

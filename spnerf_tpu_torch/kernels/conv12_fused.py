@@ -77,7 +77,7 @@ def conv12_fused(image, k1, mult1, bias1, w2, mult2, bias2, *,
     kq1, m1, b1, m2, b2 = _operands(k1, mult1, bias1, mult2, bias2)
     image = image.float().contiguous()
     k1p = kq1.reshape(9, 64).contiguous()
-    w2p = _build.pack_dp4a(w2)
+    w2p = _build.pack_words(w2)
     _build.check_cuda("conv12_fused", image=image, k1=k1p, m1=m1, b1=b1,
                       w2=w2p, m2=m2, b2=b2)
     shape = (B, H // 2, W // 2, 64) if pool else (B, H, W, 64)

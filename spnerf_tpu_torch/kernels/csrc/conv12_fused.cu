@@ -70,8 +70,8 @@ conv12_kernel(const float* __restrict__ img, const int8_t* __restrict__ k1,
   }
   __syncthreads();
   const size_t out_img = POOL ? static_cast<size_t>(H / 2) * (W / 2) : static_cast<size_t>(H) * W;
-  conv3x3_out_stage<C, C, POOL, TH, TW>(s_mid, w2, m2, b2, relu != 0, out + b * out_img * C,
-                                        H, W, y0, x0);
+  conv3x3_out_stage<int8_t, int8_t, C, C, POOL, TH, TW>(s_mid, w2, m2, b2, relu != 0,
+                                                        out + b * out_img * C, H, W, y0, x0);
 }
 
 }  // namespace

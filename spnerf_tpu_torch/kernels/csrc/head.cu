@@ -1,7 +1,8 @@
-// One SuperPoint head in one kernel: 3x3 int8 conv (CIN -> CM) -> ReLU ->
-// requant to int8 -> 1x1 int8 dot (CM -> COUT) -> float32 dequant (no
-// ReLU) -> optional masked softmax over the first n_real lanes with the
-// dustbin dropped -> bf16.
+// One SuperPoint head in one kernel: 3x3 conv (CIN -> CM) -> ReLU ->
+// cast to the operand type (int8 requant, or bf16) -> 1x1 dot
+// (CM -> COUT) -> float32 affine (no ReLU) -> optional masked softmax
+// over the first n_real lanes with the dustbin dropped -> bf16. int8
+// operands with int32 sums, or bf16 operands with float32 sums.
 //
 // Replaces spnerf_tpu/kernels/tail_fused_pallas.py head_pallas. The
 // reference pads the detector's 65 logits to 128 TPU lanes and returns
@@ -9,16 +10,17 @@
 // 1x1 weights are zero-padded to COUTP) and the output holds n_store
 // real lanes: 64 cell probabilities, or all logits / descriptor values.
 //
-// Bound on an H100 SXM at 60 x 80 cells, batch 64: int8 operations
-// (detector 1.50 GMAC per image, descriptor 1.73) against ~0.6 MB read
-// and <2.5 MB written per image.
+// Bound on an H100 SXM at 60 x 80 cells, batch 64: operations (detector
+// 1.50 GMAC per image, descriptor 1.73) against ~0.6 MB read (1.2 MB in
+// bf16) and <2.5 MB written per image.
 //
 // Design: one block of 256 threads per (image, 8 x 16 cell tile). The
 // input tile with a one-cell halo sits in shared memory; the 3x3 conv
-// runs with __dp4a, its int8 output (128 x CM) stays in shared memory;
-// the 1x1 dot then gives each warp whole pixels, so the softmax's max
-// and sum are warp shuffles. Softmax in float32 with IEEE expf and
-// division; the store rounds to bf16 (round to nearest even).
+// runs with __dp4a (int8) or float32 FMAs (bf16), its output (128 x CM
+// of the operand type) stays in shared memory; the 1x1 dot then gives
+// each warp whole pixels, so the softmax's max and sum are warp shuffles.
+// Softmax in float32 with IEEE expf and division; the store rounds to
+// bf16 (round to nearest even).
 #include "conv_common.cuh"
 
 #include <math_constants.h>
@@ -29,25 +31,27 @@ using namespace spnerf;
 
 constexpr int TH = 8, TW = 16, NP = TH * TW;
 
-template <int CIN, int CM, int COUTP, bool SOFTMAX>
+template <typename T, int CIN, int CM, int COUTP, bool SOFTMAX>
 __global__ void __launch_bounds__(kThreads)
-head_kernel(const int8_t* __restrict__ x, const int* __restrict__ w3,
+head_kernel(const T* __restrict__ x, const int* __restrict__ w3,
             const float* __restrict__ m3, const float* __restrict__ b3,
             const int* __restrict__ w1, const float* __restrict__ m1,
             const float* __restrict__ b1, __nv_bfloat16* __restrict__ out, int H, int W,
             int n_real, int n_store, int tiles_x) {
   extern __shared__ __align__(16) int8_t smem[];
-  int8_t* s_in = smem;                              // (TH+2) x (TW+2) x CIN
-  int8_t* s_mid = smem + (TH + 2) * (TW + 2) * CIN;  // NP x CM
+  constexpr int S = sizeof(T);
+  int8_t* s_in = smem;                                  // (TH+2) x (TW+2) x CIN
+  int8_t* s_mid = smem + (TH + 2) * (TW + 2) * CIN * S;  // NP x CM
   const int b = blockIdx.y;
   const int y0 = (blockIdx.x / tiles_x) * TH, x0 = (blockIdx.x % tiles_x) * TW;
-  load_tile<CIN>(x + static_cast<size_t>(b) * H * W * CIN, H, W, y0 - 1, x0 - 1, TH + 2,
-                 TW + 2, s_in);
+  load_tile<CIN * S>(reinterpret_cast<const int8_t*>(x) + static_cast<size_t>(b) * H * W * CIN * S,
+                     H, W, y0 - 1, x0 - 1, TH + 2, TW + 2, s_in);
   __syncthreads();
   // the 3x3 output at out-of-image tile positions is never stored, so it
   // needs no zeroing
-  conv3x3_requant_stage<CIN, CM>(s_in, TW + 2, TW, NP, w3, m3, b3, s_mid,
-                                 [](int, int) { return false; });
+  conv3x3_requant_stage<T, CIN, CM>(s_in, TW + 2, TW, NP, w3, m3, b3,
+                                    reinterpret_cast<T*>(s_mid),
+                                    [](int, int) { return false; });
   __syncthreads();
 
   constexpr int Q = COUTP / 32, P = 32 / Q;
@@ -63,8 +67,8 @@ head_kernel(const int8_t* __restrict__ x, const int* __restrict__ w3,
     int base[P];
     #pragma unroll
     for (int p = 0; p < P; ++p) base[p] = p0 + p;
-    int acc[P][Q] = {};
-    conv_acc<CM, COUTP, P, 1>(s_mid, TW, base, w1, lane, acc);
+    typename Op<T>::Acc acc[P][Q] = {};
+    conv_acc<T, CM, COUTP, P, 1>(s_mid, TW, base, w1, lane, acc);
     #pragma unroll
     for (int p = 0; p < P; ++p) {
       float v[Q];
@@ -98,12 +102,12 @@ head_kernel(const int8_t* __restrict__ x, const int* __restrict__ w3,
   }
 }
 
-template <int CIN, int CM, int COUTP, bool SOFTMAX>
-cudaError_t launch(const int8_t* x, const int* w3, const float* m3, const float* b3,
+template <typename T, int CIN, int CM, int COUTP, bool SOFTMAX>
+cudaError_t launch(const T* x, const int* w3, const float* m3, const float* b3,
                    const int* w1, const float* m1, const float* b1, __nv_bfloat16* out,
                    int B, int H, int W, int n_real, int n_store, cudaStream_t stream) {
-  const int smem = (TH + 2) * (TW + 2) * CIN + NP * CM;
-  auto kern = head_kernel<CIN, CM, COUTP, SOFTMAX>;
+  const int smem = ((TH + 2) * (TW + 2) * CIN + NP * CM) * sizeof(T);
+  auto kern = head_kernel<T, CIN, CM, COUTP, SOFTMAX>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -111,6 +115,30 @@ cudaError_t launch(const int8_t* x, const int* w3, const float* m3, const float*
   kern<<<dim3(tiles_x * tiles_y, B), kThreads, smem, stream>>>(
       x, w3, m3, b3, w1, m1, b1, out, H, W, n_real, n_store, tiles_x);
   return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* x, const void* w3, const void* m3, const void* b3, const void* w1,
+             const void* m1, const void* b1, void* out, int B, int H, int W, int cin, int cm,
+             int coutp, int n_real, int n_store, int softmax, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto X = static_cast<const T*>(x);
+  auto W3 = static_cast<const int*>(w3), W1 = static_cast<const int*>(w1);
+  auto M3 = static_cast<const float*>(m3), B3 = static_cast<const float*>(b3);
+  auto M1 = static_cast<const float*>(m1), B1 = static_cast<const float*>(b1);
+  auto O = static_cast<__nv_bfloat16*>(out);
+  if (cin != 128 || cm != 256 || n_store > coutp || n_real > coutp)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (coutp == 128 && softmax)
+    return launch<T, 128, 256, 128, true>(X, W3, M3, B3, W1, M1, B1, O, B, H, W, n_real,
+                                          n_store, s);
+  if (coutp == 128 && !softmax)
+    return launch<T, 128, 256, 128, false>(X, W3, M3, B3, W1, M1, B1, O, B, H, W, n_real,
+                                           n_store, s);
+  if (coutp == 256 && !softmax)
+    return launch<T, 128, 256, 256, false>(X, W3, M3, B3, W1, M1, B1, O, B, H, W, n_real,
+                                           n_store, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -123,22 +151,16 @@ extern "C" int head_launch(const void* x, const void* w3, const void* m3, const 
                            const void* w1, const void* m1, const void* b1, void* out,
                            int B, int H, int W, int cin, int cm, int coutp, int n_real,
                            int n_store, int softmax, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  auto X = static_cast<const int8_t*>(x);
-  auto W3 = static_cast<const int*>(w3), W1 = static_cast<const int*>(w1);
-  auto M3 = static_cast<const float*>(m3), B3 = static_cast<const float*>(b3);
-  auto M1 = static_cast<const float*>(m1), B1 = static_cast<const float*>(b1);
-  auto O = static_cast<__nv_bfloat16*>(out);
-  if (cin != 128 || cm != 256 || n_store > coutp || n_real > coutp)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (coutp == 128 && softmax)
-    return launch<128, 256, 128, true>(X, W3, M3, B3, W1, M1, B1, O, B, H, W, n_real,
-                                       n_store, s);
-  if (coutp == 128 && !softmax)
-    return launch<128, 256, 128, false>(X, W3, M3, B3, W1, M1, B1, O, B, H, W, n_real,
-                                        n_store, s);
-  if (coutp == 256 && !softmax)
-    return launch<128, 256, 256, false>(X, W3, M3, B3, W1, M1, B1, O, B, H, W, n_real,
-                                        n_store, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<int8_t>(x, w3, m3, b3, w1, m1, b1, out, B, H, W, cin, cm, coutp, n_real,
+                          n_store, softmax, stream);
+}
+
+// The same with bf16 x and mid, and weights packed as pairs of bf16
+// channels per 32-bit word: w3 [9][64][256], w1 [128][coutp].
+extern "C" int head_bf16_launch(const void* x, const void* w3, const void* m3, const void* b3,
+                                const void* w1, const void* m1, const void* b1, void* out,
+                                int B, int H, int W, int cin, int cm, int coutp, int n_real,
+                                int n_store, int softmax, void* stream) {
+  return dispatch<__nv_bfloat16>(x, w3, m3, b3, w1, m1, b1, out, B, H, W, cin, cm, coutp,
+                                 n_real, n_store, softmax, stream);
 }

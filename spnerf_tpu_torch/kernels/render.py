@@ -418,9 +418,9 @@ def render_fused_int8(oe, de, qfield, df=None, jitter=0.5, n_samples=32,
     _check_int8(q)
     N = oe.shape[0]
     oe, de, df = oe.contiguous(), de.contiguous(), df.contiguous()
-    w1p = _build.pack_dp4a(q["qw1"])
-    w2p = _build.pack_dp4a(q["qw2"])
-    w3p = _build.pack_dp4a(q["qw3"][:, :4].contiguous())
+    w1p = _build.pack_words(q["qw1"])
+    w2p = _build.pack_words(q["qw2"])
+    w3p = _build.pack_words(q["qw3"][:, :4].contiguous())
     m1, m2 = q["m1"].contiguous(), q["m2"].contiguous()
     r3 = q["r3"][:4].contiguous()
     flags = None if flags is None else flags.contiguous()

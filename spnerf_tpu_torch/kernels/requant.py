@@ -1,7 +1,9 @@
 """Plain PyTorch building blocks shared by the kernels' plain versions.
 
 Counterparts of ``_affine``, ``_cast`` and ``_requant`` in
-``spnerf_tpu/kernels/conv_stack_pallas.py``. The affine is two separately
+``spnerf_tpu/kernels/conv_stack_pallas.py``, and the two sums of a 3x3
+conv: exact integer sums of int8 operands, float sums of bf16 or float32
+operands. The affine is two separately
 rounded float32 operations (multiply, then add), as in the reference;
 the CUDA epilogues use ``__fmul_rn`` / ``__fadd_rn`` for the same reason.
 """
@@ -25,6 +27,12 @@ def cast_int8(y: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(y), -127.0, 127.0).to(torch.int8)
 
 
+def cast_out(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float32 -> ``dtype``: int8 as ``cast_int8``, otherwise ``.to``
+    (bf16: round to nearest even)."""
+    return cast_int8(y) if dtype == torch.int8 else y.to(dtype)
+
+
 def maxpool2x2(y: torch.Tensor) -> torch.Tensor:
     """2x2/2 max-pool of a (B, H, W, C) tensor."""
     B, H, W, C = y.shape
@@ -43,3 +51,28 @@ def conv3x3_int(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     wd = w.to(torch.float64).permute(3, 2, 0, 1)
     return F.conv2d(xd, wd, padding=1).permute(0, 2, 3, 1).float()
 
+
+
+def conv3x3_float(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """SAME 3x3 conv of bf16 or float32 (B, H, W, Cin) by (3, 3, Cin, Cout)
+    of the same type -> float32 (B, H, W, Cout) accumulator.
+
+    Sums in float64 (each product of two bf16 values is exact there), then
+    rounds once to float32: the plain twin of ``jnp.dot(...,
+    preferred_element_type=f32)``, whose float32 sums differ from it only
+    in the order of their roundings.
+    """
+    xd = x.to(torch.float64).permute(0, 3, 1, 2)
+    wd = w.to(torch.float64).permute(3, 2, 0, 1)
+    return F.conv2d(xd, wd, padding=1).permute(0, 2, 3, 1).float()
+
+
+def conv3x3_acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``conv3x3_int`` for int8 operands, else ``conv3x3_float``."""
+    return conv3x3_int(x, w) if x.dtype == torch.int8 else conv3x3_float(x, w)
+
+
+def dot_acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., Cin) @ (Cin, Cout) -> float32, summed in float64 (exact for
+    int8 operands) and rounded once."""
+    return (x.to(torch.float64) @ w.to(torch.float64)).float()

@@ -15,6 +15,49 @@ import torch
 from spnerf_tpu_torch.ops.serving import ServingSuperPoint
 
 
+def detect_keypoints(prob, min_prob: float = 0.015, size: int = 4,
+                     iou: float = 0.1, num_candidates: int = 2048,
+                     top_k: int = 1000):
+    """(B, H, W) heatmap -> (pts (B, K, 2) float32 (y, x), scores (B, K),
+    valid (B, K)): the top ``num_candidates`` pixels, candidate NMS, the
+    best ``top_k`` survivors."""
+    B, H, W = prob.shape
+    flat = prob.reshape(B, -1)
+    scores, idx = torch.topk(flat, min(num_candidates, H * W), dim=1)
+    # float32 coordinates: bf16 would round pixel indices above 256
+    ys, xs = (idx // W).float(), (idx % W).float()
+    return _suppress_and_select(ys, xs, scores.float(), min_prob, size, iou,
+                                top_k)
+
+
+def _cell_candidates(flat, Wc, grid_size, num_candidates):
+    """Top candidates of cell-major probabilities (B, Hc*Wc*g^2) ->
+    (ys, xs, scores) float32, pixel coordinates rebuilt from (cell,
+    within-cell) indices."""
+    g2 = grid_size * grid_size
+    scores, idx = torch.topk(flat, min(num_candidates, flat.shape[1]), dim=1)
+    cell = idx // g2
+    within = idx % g2
+    ys = (cell // Wc * grid_size + within // grid_size).float()
+    xs = (cell % Wc * grid_size + within % grid_size).float()
+    return ys, xs, scores.float()
+
+
+def detect_from_logits(logits, grid_size: int = 8, min_prob: float = 0.015,
+                       size: int = 4, iou: float = 0.1,
+                       num_candidates: int = 1024, top_k: int = 1000):
+    """Keypoints straight from (B, Hc, Wc, 65) detector logits: float32
+    softmax, dustbin dropped, candidates over the cell-major
+    probabilities (the depth-to-space heatmap is never built), then
+    ``_suppress_and_select``. Same keypoints as ``decode_detector_logits``
+    + ``detect_keypoints``."""
+    B, Hc, Wc, _ = logits.shape
+    probs = torch.softmax(logits.float(), dim=-1)[..., :-1]
+    ys, xs, scores = _cell_candidates(probs.reshape(B, -1), Wc, grid_size,
+                                      num_candidates)
+    return _suppress_and_select(ys, xs, scores, min_prob, size, iou, top_k)
+
+
 def detect_from_probs_padded(probs, grid_size: int = 8,
                              min_prob: float = 0.015, size: int = 4,
                              iou: float = 0.1, num_candidates: int = 1024,
@@ -29,13 +72,7 @@ def detect_from_probs_padded(probs, grid_size: int = 8,
     B, Hc, Wc, _ = probs.shape
     g2 = grid_size * grid_size
     flat = probs[..., :g2].reshape(B, -1)  # ranked in the serving dtype
-    C = min(num_candidates, flat.shape[1])
-    scores, idx = torch.topk(flat, C, dim=1)
-    scores = scores.float()
-    cell = idx // g2
-    within = idx % g2
-    ys = (cell // Wc * grid_size + within // grid_size).float()
-    xs = (cell % Wc * grid_size + within % grid_size).float()
+    ys, xs, scores = _cell_candidates(flat, Wc, grid_size, num_candidates)
     if not compact:
         return _suppress_only(ys, xs, scores, min_prob, size, iou)
     return _suppress_and_select(ys, xs, scores, min_prob, size, iou, top_k)
@@ -115,16 +152,22 @@ def sample_descriptors_onehot(desc_raw, points, grid_size: int = 8,
     return out
 
 
-def build_inference(config, state, calib, device="cuda", top_k: int = 1024):
-    """The serving path ``bench.py`` times: int8 ``ServingSuperPoint`` with
-    the in-kernel softmax, candidate NMS without compaction
-    (top_k == num_candidates) and descriptor sampling at the keypoints.
+def build_inference(config, state, calib, *, mode: str = "int8",
+                    fused_mid: bool = True, fused_tail: bool = True,
+                    device="cuda", top_k: int = 1024):
+    """The serving path ``bench.py`` times: ``ServingSuperPoint`` in
+    ``mode`` (int8, bf16 or mixed), then, with the fused tail, the
+    in-kernel softmax and candidate NMS without compaction (top_k ==
+    num_candidates), or without it ``detect_from_logits`` over 1024
+    candidates; then descriptor sampling at the keypoints.
 
     ``state``: the ``use_bn=True`` SuperPoint (or its folded dict);
-    ``calib``: (N, H, W, 1) calibration images. Returns ``infer(images)
-    -> (pts, scores, valid, desc)``; ``infer.serving`` is the graph.
+    ``calib``: (N, H, W, 1) calibration images (unused in bf16 mode).
+    Returns ``infer(images) -> (pts, scores, valid, desc)``;
+    ``infer.serving`` is the graph.
     """
-    sp = ServingSuperPoint.build(config, state, calib_images=calib,
+    sp = ServingSuperPoint.build(config, state, calib_images=calib, mode=mode,
+                                 fused_mid=fused_mid, fused_tail=fused_tail,
                                  device=device)
     return make_infer(sp, config, top_k)
 
@@ -135,11 +178,18 @@ def make_infer(sp: ServingSuperPoint, config, top_k: int = 1024):
 
     @torch.no_grad()
     def infer(images):
-        out = sp(images, softmax=True)
-        # top_k == num_candidates: compaction would only permute the set
-        pts, scores, valid = detect_from_probs_padded(
-            out["probs"], cfg.grid_size, min_prob=cfg.det_thresh,
-            size=cfg.nms, top_k=top_k, num_candidates=top_k, compact=False)
+        if sp.fused_tail:
+            out = sp(images, softmax=True)
+            # top_k == num_candidates: compaction would only permute the set
+            pts, scores, valid = detect_from_probs_padded(
+                out["probs"], cfg.grid_size, min_prob=cfg.det_thresh,
+                size=cfg.nms, top_k=top_k, num_candidates=top_k,
+                compact=False)
+        else:
+            out = sp(images)
+            pts, scores, valid = detect_from_logits(
+                out["logits"], cfg.grid_size, min_prob=cfg.det_thresh,
+                size=cfg.nms, top_k=top_k, num_candidates=1024)
         desc = sample_descriptors_onehot(out["desc_raw"], pts, cfg.grid_size)
         return pts, scores, valid, desc
 

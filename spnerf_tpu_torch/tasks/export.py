@@ -42,9 +42,9 @@ def make_prob_fn(model: SuperPoint, fast: bool = False, serving=None):
 
     ``fast=False``: the float32 model, with cuDNN's TF32 off. ``fast=True``:
     BatchNorm folded into the convs, the forward in bf16 (the export
-    default); the decode stays float32. ``serving``: a built int8
-    ``ServingSuperPoint``, whose detector head returns logits (no
-    in-kernel softmax).
+    default); the decode stays float32. ``serving``: a built
+    ``ServingSuperPoint`` (int8, bf16 or mixed), whose detector head
+    returns logits (no in-kernel softmax).
     """
     grid = model.config.grid_size
     if serving is not None:
@@ -82,8 +82,9 @@ def export_pseudo_labels(config: dict, model: SuperPoint, loader,
     ``config`` is the reference's export config as a dict: ``data``
     (experiment_name, batch_size), ``model.detector_head`` (nms,
     det_thresh, top_k), ``homography_adaptation`` (see ``HAConfig``) and
-    ``export`` (serving: false | true | "int8"; "bf16" and "mixed" raise
-    NotImplementedError; topk_cap, default 4096). Image i of the dataset
+    ``export`` (serving: false, or true / "int8" | "bf16" | "mixed" for
+    the serving graph in that mode: "mixed" runs the int8 backbone with
+    bf16 heads; topk_cap, default 4096). Image i of the dataset
     draws its views from (seed, i), counted from the loader dataset's
     ``shard_offset`` if it has one: the labels depend on neither batch
     size, padding nor resumes.
@@ -107,8 +108,8 @@ def export_pseudo_labels(config: dict, model: SuperPoint, loader,
     serving_mode = exp_cfg.get("serving", False)
     if serving_mode:
         mode = serving_mode if isinstance(serving_mode, str) else "int8"
-        # calibrate on the first batch; close the iterator so that its
-        # prefetch thread ends
+        # calibrate on the first batch (bf16 needs none); close the
+        # iterator so that its prefetch thread ends
         cal_it = iter(loader)
         first = next(cal_it)
         if hasattr(cal_it, "close"):

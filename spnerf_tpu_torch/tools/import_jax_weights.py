@@ -100,12 +100,14 @@ def folded_from_flax(folded: dict, has_descriptor: bool = True) -> dict:
     return out
 
 
-def serving_from_folded(folded: dict, act_scales: dict,
+def serving_from_folded(folded: dict, act_scales: dict | None,
                         has_descriptor: bool = True, device="cuda", **kw):
     """A ``ServingSuperPoint`` built from flax-folded weights and flax
-    activation scales, so that a comparison with the JAX serving graph
-    sees only the kernels' arithmetic."""
-    scales = {k: torch.tensor(np.float32(v)) for k, v in act_scales.items()}
+    activation scales (None for ``mode="bf16"``), so that a comparison
+    with the JAX serving graph sees only the kernels' arithmetic. ``kw``:
+    ``mode``, ``fused_mid``, ``fused_tail``."""
+    scales = None if act_scales is None else {
+        k: torch.tensor(np.float32(v)) for k, v in act_scales.items()}
     return ServingSuperPoint(folded_from_flax(folded, has_descriptor), scales,
                              has_descriptor, device=device, **kw)
 

@@ -44,6 +44,19 @@ def bf16_ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ordered(a) - ordered(b)).abs().max())
 
 
+def bf16_scaled_ulps(got: torch.Tensor, want: torch.Tensor,
+                     floor: float = 2.0 ** -8) -> torch.Tensor:
+    """Per-value distance in bf16 ulps at the larger of the two values,
+    and at least at ``floor`` times ``want``'s largest magnitude: float32
+    sums in another order differ by an absolute amount near the tensor's
+    scale times 1e-7, which is more than a bf16 ulp of a value close to
+    zero. Within one binade above the floor this is the bit distance."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs())
+    mag = torch.clamp_min(mag, max(floor * float(w.abs().max()), 1e-30))
+    return (g - w).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
 def jax_bf16_to_torch(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x).view(np.int16)).view(torch.bfloat16)
 

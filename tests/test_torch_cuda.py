@@ -6,8 +6,10 @@ mode). Imports no JAX, so that it runs where only PyTorch is installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Shapes are small, with edges that are not multiples of the kernels'
-tiles. Tolerances: int8 results exactly equal, bf16 within 1 ulp (the
-softmax's exp and sum order differ from PyTorch's), warps within 1e-6,
+tiles. Tolerances: int8 results exactly equal, bf16 results of int8
+sums within 1 ulp (the softmax's exp and sum order differ from
+PyTorch's), bf16 operands as ``test_layer_kernel_matches_plain_on_card``
+states, warps within 1e-6,
 the descriptor-loss sums within 1e-5 relative and its gradients within
 1e-4 of their largest entry (float32 sums in another order; the inputs
 keep every dot away from both margins, and the warped cells sit on a
@@ -335,3 +337,133 @@ def test_render_wrappers_raise_on_what_the_kernel_does_not_take(card):
         R.render_fused(oe, de, w1.cpu(), w2.cpu(), w3.cpu(), df, **kw)
     with pytest.raises(ValueError, match="pack width"):
         R.render_fused_packed(oe, de, w1, w2, w3, df, width=128)
+
+
+def _bf16_scaled_ulps(got, want, floor):
+    from _torch_port import bf16_scaled_ulps
+    return bf16_scaled_ulps(got.cpu(), want.cpu(), floor)
+
+
+def _layer_case(kind, rng):
+    """(wrapper, plain, args, kwargs, chain?) for the per-layer kernels and
+    the bf16 instances of the fused ones, at ragged shapes (edges that are
+    not multiples of the 16 x 16 or 128-row tiles). ``kind`` is
+    "<op>_<dtype>_<shape>"."""
+    from spnerf_tpu_torch.kernels import conv_stack as S
+
+    op, dtype, *shape = kind.split("_")
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+
+    def act(shape):  # activations as the stack holds them (after ReLU)
+        if dtype == "int8":
+            return t(_int8(rng, shape, 0, 128))
+        return t(rng.uniform(0, 1, shape).astype(np.float32)).to(torch.bfloat16)
+
+    def weights(shape):
+        if dtype == "int8":
+            return t(_int8(rng, shape))
+        fan_in = int(np.prod(shape[:-1]))
+        return t((rng.standard_normal(shape) / np.sqrt(fan_in)).astype(
+            np.float32)).to(torch.bfloat16)
+
+    def mb(c, lo=5e-5, hi=4e-4):
+        if dtype == "int8":
+            return [t(a) for a in _mb(rng, c, lo, hi)]
+        return [torch.ones(c, device="cuda"),
+                t((rng.standard_normal(c) * 0.1).astype(np.float32))]
+
+    out = torch.int8 if dtype == "int8" else torch.bfloat16
+    if op in ("conv", "packed"):
+        cin, cout, pool = {"64-64-pool": (64, 64, True), "64-64": (64, 64, False),
+                           "64-128": (64, 128, False),
+                           "128-128-pool": (128, 128, True),
+                           "128-128": (128, 128, False),
+                           "128-256": (128, 256, False)}[shape[0]]
+        fn = S.packed_conv3x3 if op == "packed" else S.conv3x3
+        args = [act((2, 20, 36, cin)), weights((3, 3, cin, cout)), *mb(cout)]
+        return fn, S.conv3x3_plain, args, {"out_dtype": out, "pool": pool}, False
+    if op == "dot":
+        cout = int(shape[0])
+        x = act((2, 7, 13, 256))
+        if dtype == "int8":  # heads see signed int8 mids
+            x = t(_int8(rng, (2, 7, 13, 256)))
+        m, b = mb(cout, 2e-5, 1e-4)
+        return (S.dot_bias_act, S.dot_bias_act_plain,
+                [x, weights((256, cout)), m, b], {"relu": False}, False)
+    if op == "conv1":
+        image = t(rng.uniform(0, 1, (3, 37, 53, 1)).astype(np.float32))
+        w1 = t((rng.standard_normal((3, 3, 1, 64)) / 3).astype(np.float32))
+        b = t((rng.standard_normal(64) * 0.1).astype(np.float32))
+        return (S.conv1_packed, S.conv1_packed_plain,
+                [image, w1, torch.ones(64, device="cuda"), b],
+                {"out_dtype": torch.bfloat16}, False)
+    if op == "double":
+        cin, cm, pool = {"64-64": (64, 64, True), "64-128": (64, 128, True),
+                         "128-128": (128, 128, False)}[shape[0]]
+        args = [act((2, 20, 36, cin)), weights((3, 3, cin, cm)), *mb(cm),
+                weights((3, 3, cm, cm)), *mb(cm)]
+        return double_conv3x3, double_conv3x3_plain, args, {"pool": pool}, True
+    cout = 65 if shape[0].startswith("65") else 256
+    m1, b1 = mb(cout, 2e-5, 1e-4)
+    args = [act((2, 12, 20, 128)), weights((3, 3, 128, 256)), *mb(256),
+            weights((256, cout)), m1, b1 * 10]
+    kw = {"softmax_lanes": 65} if shape[0] == "65-softmax" else {}
+    return head, head_plain, args, kw, True
+
+
+LAYER_CASES = (
+    [f"{op}_{dt}_{s}" for op, s in (("packed", "64-64-pool"), ("packed", "64-64"),
+                                   ("packed", "64-128"), ("conv", "128-128-pool"),
+                                   ("conv", "128-128"), ("conv", "128-256"))
+     for dt in ("int8", "bf16")]
+    + [f"dot_{dt}_{c}" for dt in ("int8", "bf16") for c in (65, 256)]
+    + ["conv1_f32_9-64"]
+    + [f"double_bf16_{s}" for s in ("64-64", "64-128", "128-128")]
+    + [f"head_bf16_{s}" for s in ("65-softmax", "65", "256")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", LAYER_CASES)
+def test_layer_kernel_matches_plain_on_card(card, kind):
+    """int8 results exactly equal; bf16 results within 2 ulps with at most
+    0.1% beyond 1 (float32 FMAs in a fixed order against float64 sums
+    rounded once), ulps counted by ``bf16_scaled_ulps`` at no less than
+    1/256 of the tensor's largest magnitude, and at no less than 1/4 for
+    the chains through a bf16 mid (a mid value rounded apart moves every
+    output it feeds by the weight times its ulp)."""
+    from spnerf_tpu_torch.kernels import _build
+
+    kernel, plain, args, kw, chain = _layer_case(kind,
+                                                 np.random.default_rng(23))
+    before = sum(_build.launch_counts.values())
+    got = kernel(*args, **kw)
+    again = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert sum(_build.launch_counts.values()) == before + 2
+    assert torch.equal(got.view(torch.int8), again.view(torch.int8))
+    want = plain(*args, **kw)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype == torch.int8:
+        assert torch.equal(got, want)
+        return
+    d = _bf16_scaled_ulps(got, want, 2.0 ** -2 if chain else 2.0 ** -8)
+    share = float((d > 1).float().mean())
+    print(f"{kind}: max {float(d.max())} ulps, {share:.3e} beyond 1")
+    assert float(d.max()) <= 2 and share <= 1e-3
+
+
+@pytest.mark.cuda
+def test_layer_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    from spnerf_tpu_torch.kernels import conv_stack as S
+
+    x = torch.zeros(1, 8, 8, 32, dtype=torch.int8, device="cuda")
+    w = torch.zeros(3, 3, 32, 32, dtype=torch.int8, device="cuda")
+    ones, zeros = torch.ones(32, device="cuda"), torch.zeros(32, device="cuda")
+    with pytest.raises(RuntimeError, match="conv3x3_launch"):
+        S.conv3x3(x, w, ones, zeros)  # no C_in 32 instance
+    with pytest.raises(ValueError, match="same type"):
+        S.conv3x3(x, w, ones, zeros, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no kernel"):
+        S.dot_bias_act(torch.zeros(4, 32, device="cuda"),
+                       torch.zeros(32, 16, device="cuda"), ones[:16],
+                       zeros[:16])

@@ -39,6 +39,7 @@ from spnerf_tpu_torch.ops.homography_adaptation import (
     homography_adaptation,
     image_homographies,
 )
+from spnerf_tpu_torch.ops.serving import ServingSuperPoint
 from spnerf_tpu_torch.ops.space_ops import depth_to_space
 from spnerf_tpu_torch.tasks import export as texport
 from spnerf_tpu_torch.tools.import_jax_weights import load_flax_variables
@@ -288,8 +289,7 @@ def test_ha_export_resumes_and_skips_existing(small, tmp_path, monkeypatch):
 
 def test_ha_export_int8_serving_route(tmp_path, monkeypatch):
     """``export.serving: int8`` at full width through the port's
-    DataLoader (calibration closes its first iterator); bf16 and mixed
-    serving are not ported and raise."""
+    DataLoader (calibration closes its first iterator)."""
     model = init_superpoint(0, SuperPointConfig(model_name="magicpoint"),
                             device="cpu")
     data = [{"image": im, "name": f"s{i}"}
@@ -303,10 +303,42 @@ def test_ha_export_int8_serving_route(tmp_path, monkeypatch):
         pts = np.load(tmp_path / "outputs/ha/training" / name)
         assert pts.dtype == np.int64 and len(pts) > 0
         assert (pts >= 0).all() and (pts < [32, 48]).all()
-    for mode in ("bf16", "mixed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            texport.export_pseudo_labels(_config(2, serving=mode), model,
-                                         loader, device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["mixed", "bf16"])
+def test_ha_export_bf16_and_mixed_serving_routes(tmp_path, monkeypatch,
+                                                 mode):
+    """``export.serving: mixed`` and ``bf16`` end to end at full width:
+    the labels are those of HA over the port's own
+    ``make_prob_fn(serving=...)`` heatmaps, with the same views, NMS and
+    threshold."""
+    model = init_superpoint(0, SuperPointConfig(model_name="magicpoint"),
+                            device="cpu")
+    with torch.no_grad():  # spread the probabilities away from 1/65
+        model.detector["convPb"].Conv_0.weight.mul_(10.0)
+    images = _images(3, 32, 48)
+    config = _config(3, num=3, serving=mode)
+    got = _run(monkeypatch, tmp_path, texport.export_pseudo_labels, config,
+               model, _batches(images, 3), seed=5, device="cpu")
+    # the same pipeline by hand: uint8 images, the graph calibrated on the
+    # batch, the views of (seed, image index)
+    x = torch.from_numpy(np.rint(images * 255.0).astype(np.uint8)).float()
+    x = x * (1.0 / 255.0)
+    sp = ServingSuperPoint.build(model.config, model,
+                                 torch.from_numpy(images), mode=mode,
+                                 device="cpu")
+    ha_cfg = HAConfig.from_dict(config["homography_adaptation"])
+    homs = image_homographies(5, range(3), ha_cfg.num - 1, (32, 48),
+                              ha_cfg.params)
+    prob = homography_adaptation(texport.make_prob_fn(model, serving=sp), x,
+                                 homs, ha_cfg)
+    pn = tnms.box_nms(prob, size=4, iou=0.1, min_prob=0.001)
+    assert sorted(got) == ["img0.npy", "img1.npy", "img2.npy"]
+    for i in range(3):
+        pts = np.load(tmp_path / f"outputs/ha/training/img{i}.npy")
+        want = {tuple(p) for p in pn[i].nonzero().tolist()}
+        assert pts.dtype == np.int64 and len(pts) > 0
+        assert {tuple(p) for p in pts.tolist()} == want
 
 
 def test_loader_batches_and_closes_its_thread():

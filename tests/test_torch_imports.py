@@ -14,6 +14,7 @@ import importlib, importlib.util, pkgutil, sys
 import spnerf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(spnerf_tpu_torch.__path__,
                                                "spnerf_tpu_torch.")]
+assert "spnerf_tpu_torch.kernels.conv_stack" in names, names
 for name in names:
     importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
@@ -32,7 +33,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 45, proc.stdout
+    assert n_modules >= 46, proc.stdout
 
 
 def test_chip_smoke_needs_a_card():

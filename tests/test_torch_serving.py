@@ -145,15 +145,43 @@ def test_build_inference_end_to_end(ref):
 
 
 def test_unported_modes_raise(ref):
-    folded = ref["folded"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serving_from_folded(folded, ref["scales"], device="cpu", mode="bf16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serving_from_folded(folded, ref["scales"], device="cpu",
-                            fused_mid=False)
+    """As in the JAX package: a mode that is not int8, bf16 or mixed
+    raises, and so does ``softmax=True`` without the fused tail."""
+    with pytest.raises(ValueError, match="mode"):
+        serving_from_folded(ref["folded"], ref["scales"], device="cpu",
+                            mode="int4")
+    sp = serving_from_folded(ref["folded"], ref["scales"], device="cpu",
+                             fused_tail=False)
+    with pytest.raises(ValueError, match="fused_tail"):
+        sp(torch.from_numpy(ref["x"]), softmax=True)
 
 
 def test_serving_rejects_unaligned_input(port):
+    """Inputs need H % 16 == 0 and W % 8 == 0, as in the JAX package: W
+    36 raises, W 40 (where the fused mid cannot run) serves."""
     sp, _ = port
-    with pytest.raises(ValueError, match="W % 16"):
-        sp(torch.zeros(1, 32, 40, 1))
+    with pytest.raises(ValueError, match="W % 8"):
+        sp(torch.zeros(1, 32, 36, 1))
+    out = sp(torch.rand(1, 32, 40, 1), softmax=True)
+    assert out["probs"].shape == (1, 4, 5, 64)
+    assert out["desc_raw"].shape == (1, 4, 5, 256)
+
+
+def test_detect_keypoints_matches_jax():
+    """``detect_keypoints`` on a (B, H, W) heatmap with every pixel a
+    candidate: the same valid points and scores as the JAX package."""
+    rng = np.random.default_rng(13)
+    prob = rng.uniform(0, 0.05, (2, 24, 40)).astype(np.float32)
+    n_all = 24 * 40
+    jpts, jscores, jvalid = jax.tree.map(np.asarray, jfi.detect_keypoints(
+        jnp.asarray(prob), min_prob=THRESH, size=4, num_candidates=n_all,
+        top_k=n_all))
+    pts, scores, valid = tfi.detect_keypoints(
+        torch.from_numpy(prob), min_prob=THRESH, size=4,
+        num_candidates=n_all, top_k=n_all)
+    for b in range(2):
+        got = _point_set(pts[b].numpy(), valid[b].numpy())
+        assert got == _point_set(jpts[b], jvalid[b])
+        assert 0 < len(got) < n_all
+        np.testing.assert_array_equal(np.sort(scores[b].numpy()[valid[b]]),
+                                      np.sort(jscores[b][jvalid[b]]))
