@@ -34,6 +34,27 @@ Phases, each of which raises on failure (nothing is caught):
    where the mid drops to per-layer kernels by itself);
 5c. hold the bf16, mixed and unfused graphs on the card against the CPU
    plain path at 2 x 32 x 64 and 2 x 32 x 56;
+5d. count the images of the int8 requests that hold a run of equal
+   probabilities at the 1,024-candidate cut, and time the defined tie
+   order's top-k against a plain ``torch.topk``; then the fused bicubic
+   descriptor sampler (``kernels/desc_sample.py``, on no serving path of
+   the reference) on three operand sets with the launch counters at 0:
+   one request's ``desc_raw`` and candidates, the shapes of
+   ``benchmarks/micro_desc_sample.py`` (K 1,000) and border and corner
+   points; held against its plain version (within 1e-6 on the unit
+   vectors, two runs bit-equal) and the request's own one-hot output
+   (within 2e-6), timed beside the plain version, the one-hot product,
+   ``F.grid_sample`` + normalize and the bound;
+5e. export HPatches bundles with ``tasks.export.export_hpatches`` through
+   the parity path (``superpoint_inference``, float32, TF32 off) at
+   ``magicpoint_repeatability.yaml`` (16 synthetic pairs, 240 x 320) and
+   ``superpoint_descriptors.yaml`` (2 pairs, 480 x 640, dense
+   descriptors), the MagicPoint weights restored from the JAX package's
+   ``demo/pretrained/demo_mp_5000.ckpt`` by the port's msgpack reader
+   (the descriptor head from seed 0); check every bundle and print
+   pairs/s; then 2 pairs of 64 x 80 on the card and on the CPU: heatmaps
+   and descriptors within 1e-5, keypoint sets equal away from the
+   threshold and NMS near-ties;
 6. export homographic-adaptation pseudo-labels with
    ``tasks.export.export_pseudo_labels`` at the configuration of
    ``spnerf_tpu/configs/magicpoint_coco_export.yaml`` (full-width seeded
@@ -128,6 +149,7 @@ from spnerf_tpu_torch.geometry.homography import (
 )
 from spnerf_tpu_torch.kernels import _build
 from spnerf_tpu_torch.kernels import conv_stack
+from spnerf_tpu_torch.kernels import desc_sample as ds
 from spnerf_tpu_torch.kernels import descriptor_loss as dl
 from spnerf_tpu_torch.kernels import render as rk
 from spnerf_tpu_torch.kernels.conv12_fused import conv12_fused_plain
@@ -148,10 +170,15 @@ from spnerf_tpu_torch.models.fused_tiny_nerf import (
     render_fused_rays_packed,
 )
 from spnerf_tpu_torch.models.nerf import camera_rays
-from spnerf_tpu_torch.models.superpoint import SuperPointConfig, init_superpoint
+from spnerf_tpu_torch.models.superpoint import (
+    SuperPointConfig,
+    init_superpoint,
+    superpoint_inference,
+)
 from spnerf_tpu_torch.ops import homography_adaptation as ha_mod
 from spnerf_tpu_torch.ops import serving
 from spnerf_tpu_torch.ops.fast_inference import (
+    _cell_candidates,
     build_inference,
     detect_from_logits,
     detect_from_probs_padded,
@@ -166,6 +193,7 @@ from spnerf_tpu_torch.ops.homography_adaptation import (
 from spnerf_tpu_torch.ops.image_warp import (
     compute_valid_mask,
     valid_mask_from_inverse,
+    warp_image,
 )
 from spnerf_tpu_torch.ops.nms import box_nms
 from spnerf_tpu_torch.ops.occupancy import chunk_flags, field_integral_volume
@@ -343,6 +371,51 @@ QUALITY_GAP_DB = 0.3
 # one step of a hidden activation (measured 1.6e-5, 2.8e-5 with bf16)
 SMALL_RENDER_TOL = {"f32": (5e-6, 2e-5), "bf16": (2e-4, 5e-4),
                     "int8": (5e-4, 2e-3)}
+
+# row 8, the fused bicubic sampler, on the slice's sampling operands
+DESC_KEY = "desc_sample[bf16]"
+DESC_SOURCE = "spnerf_tpu_torch/kernels/csrc/desc_sample.cu"
+DESC_REPLACES = "spnerf_tpu/kernels/desc_sample_pallas.py:96"
+DESC_MICRO_K = 1000  # benchmarks/micro_desc_sample.py's K
+# kernel against plain version on unit vectors: the same products summed
+# in the same order, the sum of squares in another; against the request's
+# one-hot output: the same products summed in the product's order
+DESC_PLAIN_TOL, DESC_ONEHOT_TOL = 1e-6, 2e-6
+
+# spnerf_tpu/configs/magicpoint_repeatability.yaml and
+# superpoint_descriptors.yaml as dicts
+_HP_MODEL = {"script": "SuperPoint", "class_name": "SuperPoint",
+             "vgg_cn": [64, 64, 64, 64, 128, 128, 128, 128],
+             "detector_head": {"detector_dim": [128, 256], "grid_size": 8,
+                               "nms": 4, "det_thresh": 0.001, "top_k": 1000}}
+HP_CONFIGS = {
+    "repeatability": {
+        "data": {"name": "HPatches", "class_name": "HPatches",
+                 "experiment_name": "magicpoint_COCO_v1_HA_nms_4",
+                 "alteration": "i",
+                 "batch_size": 1, "preprocessing": {"resize": [240, 320]}},
+        "model": {"model_name": "magicpoint", **_HP_MODEL},
+        "pretrained": "magicpoint_COCO_v1_HA/magicpoint_COCO_v1_HA_25000.ckpt"},
+    "descriptors": {
+        "data": {"name": "HPatches", "class_name": "HPatches",
+                 "experiment_name": "Superpoint_Baseline_nms_4",
+                 "alteration": "v",
+                 "batch_size": 1, "preprocessing": {"resize": [480, 640]},
+                 "correctness_thresh": 3},
+        "model": {"model_name": "superpoint", **_HP_MODEL,
+                  "descriptor_head": {"descriptor_dim": [128, 256],
+                                      "grid_size": 8}},
+        "pretrained": "Superpoint_Baseline/Superpoint_Baseline_450000.ckpt"},
+}
+# cuts: the repository's only checkpoint (a MagicPoint the JAX package
+# trained, under demo/) in place of both configs' own, and synthetic
+# pairs; the dense 480 x 640 x 256 float32 descriptors make each bundle
+# 629 MB that np.savez_compressed writes on one host core
+HP_CUTS = {"pretrained": "pretrained/demo_mp_5000.ckpt"}
+HP_PAIRS = {"repeatability": 16, "descriptors": 2}
+HP_HOMOGRAPHY = EXPORT_CONFIG["homography_adaptation"]["params"]
+# card against CPU, float32 with TF32 off: sums in other orders
+HP_SMALL_TOL = 1e-5
 
 # serving-module name of each wrapper -> (plain version, CUDA source,
 # TPU kernel it replaces); the bf16 instances of double_conv3x3 and head
@@ -2065,6 +2138,325 @@ def phase_render_small(fields, n: int = 300):
           "between the card's sine and the CPU's")
 
 
+# ------------------------------------------------- row 8: fused sampling
+
+
+def slice_ties(infer, requests, cfg):
+    """Per image of the requests: the length of the run of equal
+    probabilities at the candidate cut (rank TOP_K), 0 where the cut
+    falls between two values."""
+    runs = []
+    for images in requests:
+        probs = infer.serving(images, softmax=True)["probs"]
+        flat = probs[..., :cfg.grid_size ** 2].reshape(probs.shape[0], -1)
+        top = torch.topk(flat, TOP_K + 1, dim=1).values
+        cut = top[:, TOP_K - 1:TOP_K]
+        run = (flat == cut).sum(dim=1)
+        runs += torch.where(top[:, TOP_K] == cut[:, 0], run, 0).tolist()
+    return runs
+
+
+def phase_ties(infer, requests, cfg):
+    """How many images of the requests hold a tie run at the candidate
+    cut, and what the defined tie order costs: the int64-key top-k of
+    ``_cell_candidates`` against one ``torch.topk`` over the bf16
+    probabilities (no defined order), on one request's probabilities."""
+    runs = [r for r in slice_ties(infer, requests, cfg) if r]
+    n = len(requests) * BATCH
+    text = (f"runs of {min(runs)}-{max(runs)} equal values, median "
+            f"{statistics.median(runs)}" if runs else "no run")
+    log(f"[ties] {len(runs)} of {n} images of the [slice] requests have a "
+        f"tie run at the {TOP_K}-candidate cut ({text}); the port takes its "
+        "lowest raster indices")
+    probs = infer.serving(requests[0], softmax=True)["probs"]
+    Wc, g2 = probs.shape[2], cfg.grid_size ** 2
+    flat = probs[..., :g2].reshape(probs.shape[0], -1)
+    ordered = lambda: _cell_candidates(flat, Wc, cfg.grid_size, TOP_K)  # noqa: E731
+    plain = lambda: torch.topk(flat, TOP_K, dim=1)  # noqa: E731
+    times = [cuda_ms(f, reps=20, warmup=3) for f in (plain, ordered,
+                                                     ordered, plain)]
+    log(f"[ties] candidates at batch {BATCH}: _cell_candidates (int64 key, "
+        f"defined order) {times[1]:.4f}, {times[2]:.4f} ms; torch.topk of "
+        f"the bf16 values {times[0]:.4f}, {times[3]:.4f} ms (medians of 20)")
+
+
+def grid_sample_descriptors(d_nchw, pts, grid_size):
+    """The yardstick: ``F.grid_sample`` bicubic with border padding (taps
+    clamped, a = -0.75, float32 weights) at pixel p = 2 (p + 0.5) /
+    (grid_size n) - 1, then the same normalization."""
+    _, _, Hc, Wc = d_nchw.shape
+    gy = 2.0 * (pts[..., 0] + 0.5) / (grid_size * Hc) - 1.0
+    gx = 2.0 * (pts[..., 1] + 0.5) / (grid_size * Wc) - 1.0
+    out = F.grid_sample(d_nchw, torch.stack([gx, gy], -1)[:, None],
+                        mode="bicubic", padding_mode="border",
+                        align_corners=False)[:, :, 0].transpose(1, 2)
+    return out / (torch.linalg.norm(out, dim=-1, keepdim=True) + 1e-12)
+
+
+def desc_sample_work(desc, pts, grid_size):
+    """(multiply-adds, bytes read once + written once) of one call: the
+    distinct taps of each point times C; the map, points and float32
+    output."""
+    B, Hc, Wc, C = desc.shape
+    _, _, fy = ds.axis_taps(pts[..., 0], Hc, grid_size)
+    _, _, fx = ds.axis_taps(pts[..., 1], Wc, grid_size)
+    taps = sum(f.long() for f in fy) * sum(f.long() for f in fx)
+    out_bytes = B * pts.shape[1] * C * 4
+    return int(taps.sum()) * C, nbytes(desc, pts) + out_bytes
+
+
+def desc_sample_sets(infer, images, cfg):
+    """The three operand sets of ``[desc-sample]``: (label, map, points)."""
+    out = infer.serving(images, softmax=True)
+    pts, _, _ = detect_from_probs_padded(
+        out["probs"], cfg.grid_size, min_prob=cfg.det_thresh, size=cfg.nms,
+        top_k=TOP_K, num_candidates=TOP_K, compact=False)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    B, Hc, Wc, C = out["desc_raw"].shape
+    micro = torch.randn((B, Hc, Wc, C), generator=gen, device="cuda").bfloat16()
+    micro_pts = torch.stack([
+        torch.rand((B, DESC_MICRO_K), generator=gen, device="cuda")
+        * (Hc * cfg.grid_size - 1),
+        torch.rand((B, DESC_MICRO_K), generator=gen, device="cuda")
+        * (Wc * cfg.grid_size - 1)], -1)
+    # corners, the four borders and up to 12 pixels beyond them, K 300
+    h, w = Hc * cfg.grid_size - 1, Wc * cfg.grid_size - 1
+    edge = torch.linspace(-12.0, 12.0, 25, device="cuda")
+    along = torch.linspace(0.0, 1.0, 25, device="cuda")
+    border = torch.cat([
+        torch.tensor([[0.0, 0.0], [0.0, w], [h, 0.0], [h, w]], device="cuda"),
+        torch.stack([edge, along * w], -1), torch.stack([h + edge, along * w], -1),
+        torch.stack([along * h, edge], -1), torch.stack([along * h, w + edge], -1),
+        torch.stack([edge, edge], -1), torch.stack([h + edge, w + edge], -1),
+        torch.rand((300 - 154, 2), generator=gen, device="cuda")
+        * torch.tensor([h + 24.0, w + 24.0], device="cuda") - 12.0])
+    return [("slice request", out["desc_raw"], pts),
+            ("micro_desc_sample shapes", micro, micro_pts),
+            ("borders", out["desc_raw"][:2].contiguous(),
+             border[None].expand(2, -1, -1).contiguous())]
+
+
+def phase_desc_sample(infer, images, cfg, peaks):
+    """Row 8: drive the kernel once on each operand set with the launch
+    counters at 0, then hold it against its plain version (within
+    DESC_PLAIN_TOL, two runs bit-equal), the request's own one-hot output
+    (within DESC_ONEHOT_TOL) and time it beside the plain version, the
+    one-hot product, ``grid_sample`` + normalize and the bound."""
+    _, mem_rate, f32_rate, _ = peaks
+    sets = desc_sample_sets(infer, images, cfg)
+    _, _, _, onehot = infer(images)
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    outs = [ds.sample_descriptors_fused(d, p, cfg.grid_size)
+            for _, d, p in sets]
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    if counts != {DESC_KEY: len(sets)}:
+        raise AssertionError(f"[desc-sample] launches {counts}, expected "
+                             f"{len(sets)} of {DESC_KEY}")
+    log(f"[desc-sample] launches: {json.dumps(counts)}")
+    row = None
+    for (label, d, p), got in zip(sets, outs):
+        fn = lambda: ds.sample_descriptors_fused(d, p, cfg.grid_size)  # noqa: E731
+        want = ds.sample_descriptors_fused_plain(d, p, cfg.grid_size)
+        err = float((got - want).abs().max())
+        if not (torch.isfinite(got).all() and err <= DESC_PLAIN_TOL
+                and torch.equal(got, fn())):
+            raise AssertionError(f"[desc-sample] {label}: max |kernel - "
+                                 f"plain| {err}, or not finite or not "
+                                 "bit-equal in two runs")
+        norm_err = float((got.norm(dim=-1) - 1).abs().max())
+        d_nchw = d.float().permute(0, 3, 1, 2).contiguous()
+        lib_err = float((grid_sample_descriptors(d_nchw, p, cfg.grid_size)
+                         - want).abs().max())
+        text = (f"[desc-sample] {label}: map {tuple(d.shape)} {d.dtype}, "
+                f"points {tuple(p.shape)}: max |kernel - plain| {err:.3e}, "
+                f"two runs equal, max |norm - 1| {norm_err:.3e}, grid_sample "
+                f"off by {lib_err:.3e}")
+        if label == "slice request":
+            onehot_err = float((got - onehot).abs().max())
+            if onehot_err > DESC_ONEHOT_TOL:
+                raise AssertionError(f"[desc-sample] against the request's "
+                                     f"one-hot output: {onehot_err}")
+            text += f", max |kernel - one-hot output| {onehot_err:.3e}"
+        log(text)
+        if label == "borders":
+            continue
+        before = _build.launch_counts[DESC_KEY]
+        ms = cuda_ms(fn, reps=20, warmup=3)
+        if _build.launch_counts[DESC_KEY] != before + 23:
+            raise AssertionError("[desc-sample] the counter did not rise by "
+                                 "1 per call")
+        plain_ms = cuda_ms(lambda: ds.sample_descriptors_fused_plain(
+            d, p, cfg.grid_size), reps=3)
+        onehot_ms = cuda_ms(lambda: sample_descriptors_onehot(
+            d, p, cfg.grid_size), reps=5)
+        lib_ms = cuda_ms(lambda: grid_sample_descriptors(
+            d_nchw, p, cfg.grid_size), reps=20, warmup=3)
+        macs, moved = desc_sample_work(d, p, cfg.grid_size)
+        t_ops, t_bytes = 2 * macs / f32_rate * 1e3, moved / mem_rate * 1e3
+        bound = max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        log(f"[kernel] {DESC_KEY} ({label}): kernel {ms:.4f} ms (median of "
+            f"20), plain {plain_ms:.4f} ms, one-hot product {onehot_ms:.4f} "
+            f"ms, grid_sample + normalize {lib_ms:.4f} ms, bound {bound:.4f} "
+            f"ms ({by}, {2 * macs / 1e9:.3f} GFLOP, {moved / 1e6:.1f} MB)")
+        if row is None:  # the path's shapes: the slice request's operands
+            row = {"name": DESC_KEY, "route": "cuda", "source": DESC_SOURCE,
+                   "replaces": DESC_REPLACES, "launches": counts[DESC_KEY],
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+        del want, d_nchw
+        torch.cuda.empty_cache()
+    return [row]
+
+
+# ------------------------------------------------------ HPatches export
+
+
+def hpatches_model(kind: str):
+    """The config's model, seeded, then restored from the demo MagicPoint
+    checkpoint by the port's own msgpack reader (the descriptor head keeps
+    its seed-0 weights: the checkpoint has none); (config, model)."""
+    config = copy.deepcopy(HP_CONFIGS[kind])
+    config.update(HP_CUTS)
+    model = init_superpoint(SEED, SuperPointConfig.from_dict(config["model"]),
+                            device="cuda")
+    seeded = {k: v.clone() for k, v in model.state_dict().items()}
+    saved_ckpt = settings.CKPT_PATH
+    settings.CKPT_PATH = Path(__file__).resolve().parent / "demo"
+    try:
+        train_task.restore_pretrained(config, model)
+    finally:
+        settings.CKPT_PATH = saved_ckpt
+    kept = sorted(k for k, v in model.state_dict().items()
+                  if torch.equal(v, seeded[k]) and k.endswith("weight"))
+    if any(not k.startswith("descriptor.") for k in kept):
+        raise AssertionError(f"[hpatches] not restored: {kept}")
+    return config, model
+
+
+def hpatches_pairs(n: int, size, seed: int):
+    """n synthetic pairs on the host: blobs with a bright rectangle, and
+    their warps by homographies of ``sample_homographies``."""
+    h, w = size
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    image = synthetic_images(n, gen, size) * 0.6
+    image[:, h // 4:h // 2, w // 4:w // 2] += 0.4
+    homs = sample_homographies(torch.Generator().manual_seed(seed), n, size,
+                               HomographyConfig.from_dict(HP_HOMOGRAPHY))
+    warped = warp_image(image, homs.cuda())
+    image, warped, homs = (t.cpu().numpy() for t in (image, warped, homs))
+    return [{"image": image[i:i + 1], "warped_image": warped[i:i + 1],
+             "homography": homs[i:i + 1], "name": [f"pair{i:02d}"]}
+            for i in range(n)]
+
+
+def check_bundles(out_dir: Path, n: int, size, with_descriptors, det_thresh):
+    keys = {"image", "warped_image", "prob", "warped_prob", "homography"}
+    if with_descriptors:
+        keys |= {"desc", "warped_desc"}
+    files = sorted(out_dir.glob("*.npz"))
+    if len(files) != n:
+        raise AssertionError(f"[hpatches] {len(files)} bundles for {n} pairs")
+    counts, worst_norm = [], 0.0
+    for f in files:
+        b = np.load(f)
+        if set(b.files) != keys:
+            raise AssertionError(f"{f.name}: keys {sorted(b.files)}")
+        for k in keys:
+            shape = {"homography": (3, 3), "desc": size + (256,),
+                     "warped_desc": size + (256,)}.get(k, size)
+            if b[k].shape != shape or b[k].dtype != np.float32:
+                raise AssertionError(f"{f.name}: {k} {b[k].shape} "
+                                     f"{b[k].dtype}")
+        for k in ("prob", "warped_prob"):
+            pts = export._nms_threshold_points(b[k], det_thresh)
+            if len(pts) == 0:
+                raise AssertionError(f"{f.name}: no {k} at or above "
+                                     f"{det_thresh}")
+            counts.append(len(pts))
+        if with_descriptors:
+            for k in ("desc", "warped_desc"):
+                norm = np.linalg.norm(b[k].astype(np.float64), axis=-1)
+                worst_norm = max(worst_norm, float(np.abs(norm - 1).max()))
+    if worst_norm > 1e-5:
+        raise AssertionError(f"[hpatches] descriptor norms off by "
+                             f"{worst_norm}")
+    return counts, worst_norm
+
+
+def phase_hpatches(root: Path):
+    """``export_hpatches`` of both kinds at their configs' full widths and
+    sizes, on synthetic pairs; bundles checked, pairs/s and the device
+    time of one pair's inference printed."""
+    models = {}
+    for kind, with_desc in (("repeatability", False), ("descriptors", True)):
+        config, model = hpatches_model(kind)
+        size = tuple(config["data"]["preprocessing"]["resize"])
+        n = HP_PAIRS[kind]
+        batches = hpatches_pairs(n, size, SEED + 30)
+        export.EXPER_PATH = root
+        x = torch.from_numpy(batches[0]["image"]).cuda()
+        superpoint_inference(model, x)  # warm-up: cuDNN plans
+        infer_ms = cuda_ms(lambda: superpoint_inference(model, x), reps=5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_dir = export.export_hpatches(config, model, batches,
+                                         with_descriptors=with_desc)
+        seconds = time.perf_counter() - t0
+        counts, worst_norm = check_bundles(out_dir, n, size, with_desc,
+                                           model.config.det_thresh)
+        log(f"[hpatches] {kind} ({config['data']['experiment_name']}, "
+            f"{size[0]}x{size[1]}, demo checkpoint at iteration 5000): {n} "
+            f"pairs in {seconds:.3f} s, {n / seconds:.3f} pairs/s; "
+            f"inference {infer_ms:.4f} ms per image (median of 5); "
+            f"{min(counts)}-{max(counts)} keypoints per image at or above "
+            f"{model.config.det_thresh}"
+            + (f"; max |norm - 1| of desc {worst_norm:.3e}" if with_desc
+               else ""))
+        models[kind] = (config, model)
+    return models
+
+
+def phase_hpatches_small(config, model, root: Path):
+    """2 pairs of 64 x 80 through ``export_hpatches`` with descriptors on
+    the card and by the plain path on the CPU (same weights): prob and
+    desc within HP_SMALL_TOL, keypoint sets equal away from the threshold
+    and from NMS near-ties."""
+    batches = hpatches_pairs(2, (64, 80), SEED + 31)
+    cpu_model = copy.deepcopy(model).cpu()
+    dirs = {}
+    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        export.EXPER_PATH = root / dev
+        dirs[dev] = export.export_hpatches(config, m, batches,
+                                           with_descriptors=True, device=dev)
+    det = model.config.det_thresh
+    worst, apart = 0.0, 0
+    for f in sorted(dirs["cpu"].glob("*.npz")):
+        got, want = np.load(dirs["cuda"] / f.name), np.load(f)
+        for k in ("prob", "warped_prob", "desc", "warped_desc"):
+            worst = max(worst, float(np.abs(got[k] - want[k]).max()))
+        for k, img in (("prob", "image"), ("warped_prob", "warped_image")):
+            dense = superpoint_inference(cpu_model, torch.from_numpy(
+                want[img][None, ..., None]))["prob_heatmap"][0].numpy()
+            a = {tuple(p) for p in export._nms_threshold_points(got[k], det)}
+            b = {tuple(p) for p in export._nms_threshold_points(want[k], det)}
+            for y, x in a ^ b:
+                win = dense[max(y - 3, 0):y + 4, max(x - 3, 0):x + 4]
+                near_tie = np.sort(np.abs(win - dense[y, x]).ravel())[1]
+                if abs(dense[y, x] - det) > HP_SMALL_TOL \
+                        and near_tie > HP_SMALL_TOL:
+                    raise AssertionError(f"[hpatches-small] {f.name} {k}: "
+                                         f"keypoint ({y}, {x}) on one side")
+            apart += len(a ^ b)
+    if worst > HP_SMALL_TOL:
+        raise AssertionError(f"[hpatches-small] card against CPU: {worst}")
+    log(f"[hpatches-small] 2 pairs of 64x80, card against the CPU plain "
+        f"path: prob and desc within {worst:.3e}, {apart} keypoints on one "
+        "side only (at the threshold or an NMS near-tie)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2103,7 +2495,18 @@ def main() -> int:
     # the counters at 0 before it
     rows += phase_slice_routes(model, cfg, requests, peaks)
     phase_modes_small(infer.serving, cfg)
+    # the row 8 kernel on the slice's sampling operands (its drive is the
+    # three sets with the counters at 0), and the tie runs at the cut
+    phase_ties(infer, requests, cfg)
+    rows += phase_desc_sample(infer, requests[0], cfg, peaks)
     del infer, requests
+    torch.cuda.empty_cache()
+
+    # HPatches bundles through the parity path, from the JAX checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        hp_models = phase_hpatches(Path(tmp))
+        phase_hpatches_small(*hp_models["descriptors"], Path(tmp) / "small")
+    del hp_models
     torch.cuda.empty_cache()
 
     # homographic-adaptation export: each route is a drive of the main

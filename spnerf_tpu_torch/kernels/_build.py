@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spnerf_tpu_torch"
 SOURCES = ("conv12_fused", "double_conv3x3", "head", "conv3x3",
-           "dot_bias_act", "warp", "descriptor_loss", "render")
+           "dot_bias_act", "warp", "descriptor_loss", "render", "desc_sample")
 
 # launches per kernel, counted by the wrappers where they launch
 launch_counts: collections.Counter = collections.Counter()

@@ -17,6 +17,9 @@ import torch
 from torch import nn
 
 from spnerf_tpu_torch.device import resolve_device
+from spnerf_tpu_torch.ops.detector_decode import decode_detector_logits
+from spnerf_tpu_torch.ops.nms import box_nms
+from spnerf_tpu_torch.ops.upsample import upsample_bicubic
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,3 +200,31 @@ def init_superpoint(seed: int, config: SuperPointConfig = SuperPointConfig(),
             w.copy_(torch.randn(w.shape, generator=gen) / math.sqrt(fan_in))
             block.Conv_0.bias.zero_()
     return model.to(resolve_device(device)).eval()
+
+
+@torch.no_grad()
+def superpoint_inference(model: SuperPoint, image: torch.Tensor,
+                         with_nms: bool | None = None) -> dict:
+    """The parity inference path (``spnerf_tpu/models/superpoint.py``
+    ``superpoint_inference``): the float32 forward with cuDNN's TF32 off,
+    then "logits", "prob_heatmap" (B, H, W), "prob_heatmap_nms" (with
+    NMS: ``box_nms`` at the config's size, det_thresh and top_k),
+    "pred_pts" (int32 mask of the heatmap at or above det_thresh) and,
+    with a descriptor head, "desc_raw" and "desc": the dense bicubic x8
+    upsample, L2-normalized with 1e-12 (B, H, W, C). ``model`` is used in
+    its current mode (eval for inference)."""
+    cfg = model.config
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        out = dict(model(image.float()))
+    prob = decode_detector_logits(out["logits"], cfg.grid_size)
+    out["prob_heatmap"] = prob
+    if cfg.nms if with_nms is None else with_nms:
+        prob = box_nms(prob, size=cfg.nms, iou=0.1, min_prob=cfg.det_thresh,
+                       keep_top_k=cfg.top_k)
+        out["prob_heatmap_nms"] = prob
+    out["pred_pts"] = (prob >= cfg.det_thresh).to(torch.int32)
+    if "desc_raw" in out:
+        desc = upsample_bicubic(out["desc_raw"], cfg.grid_size)
+        out["desc"] = desc / (torch.linalg.norm(desc, dim=-1, keepdim=True)
+                              + 1e-12)
+    return out

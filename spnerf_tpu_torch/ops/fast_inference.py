@@ -4,14 +4,19 @@ Counterpart of ``spnerf_tpu/ops/fast_inference.py``: candidates from one
 top-k over the cell probabilities, a (C, C) pairwise candidate NMS with
 the box-IoU topology of ``box_nms``, and bicubic descriptor sampling at
 the keypoints as one product with a (K, Hc*Wc) interpolation matrix.
-``torch.topk`` is exact where the reference's ``lax.approx_max_k`` has a
-recall target; ``build_inference`` is the serving path ``bench.py`` times.
+Every top-k cut has a defined tie order, ``topk_lowest_index``: the
+highest score first, and among equal scores the lowest raster index
+y * W + x (runs of equal bf16 probabilities straddle the cut). It is
+exact where the reference's ``lax.approx_max_k`` has a recall target and
+leaves the order of ties to its backend. ``build_inference`` is the
+serving path ``bench.py`` times.
 """
 
 from __future__ import annotations
 
 import torch
 
+from spnerf_tpu_torch.ops.descriptor_sampling import cubic_weights
 from spnerf_tpu_torch.ops.serving import ServingSuperPoint
 
 
@@ -23,24 +28,42 @@ def detect_keypoints(prob, min_prob: float = 0.015, size: int = 4,
     best ``top_k`` survivors."""
     B, H, W = prob.shape
     flat = prob.reshape(B, -1)
-    scores, idx = torch.topk(flat, min(num_candidates, H * W), dim=1)
+    scores, idx = topk_lowest_index(flat, min(num_candidates, H * W))
     # float32 coordinates: bf16 would round pixel indices above 256
     ys, xs = (idx // W).float(), (idx % W).float()
     return _suppress_and_select(ys, xs, scores.float(), min_prob, size, iou,
                                 top_k)
 
 
+def topk_lowest_index(scores, k: int, order=None):
+    """``torch.topk(scores, k, dim=1)`` in a defined order: the highest
+    score first and, among equal scores, the lowest ``order[i]`` (default
+    i; 0 <= order < 2^32). One top-k over an int64 key: the float32
+    score's bits, mapped so that signed integers sort as the floats do, in
+    the high 32 bits and 2^32 - 1 - order in the low 32. Returns (scores,
+    indices)."""
+    bits = scores.float().view(torch.int32)
+    bits = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # negative floats: flip
+    if order is None:
+        order = torch.arange(scores.shape[1], device=scores.device)
+    key = (bits.to(torch.int64) << 32) | (0xFFFFFFFF - order)
+    idx = torch.topk(key, k, dim=1).indices
+    return scores.gather(1, idx), idx
+
+
 def _cell_candidates(flat, Wc, grid_size, num_candidates):
     """Top candidates of cell-major probabilities (B, Hc*Wc*g^2) ->
     (ys, xs, scores) float32, pixel coordinates rebuilt from (cell,
-    within-cell) indices."""
-    g2 = grid_size * grid_size
-    scores, idx = torch.topk(flat, min(num_candidates, flat.shape[1]), dim=1)
-    cell = idx // g2
-    within = idx % g2
-    ys = (cell // Wc * grid_size + within // grid_size).float()
-    xs = (cell % Wc * grid_size + within % grid_size).float()
-    return ys, xs, scores.float()
+    within-cell) indices; ties go to the lowest raster index."""
+    g, g2 = grid_size, grid_size * grid_size
+    pos = torch.arange(flat.shape[1], device=flat.device)
+    cell, within = pos // g2, pos % g2
+    raster = ((cell // Wc * g + within // g) * (Wc * g)
+              + cell % Wc * g + within % g)
+    scores, idx = topk_lowest_index(flat, min(num_candidates, flat.shape[1]),
+                                    raster)
+    ys, xs = raster[idx] // (Wc * g), raster[idx] % (Wc * g)
+    return ys.float(), xs.float(), scores.float()
 
 
 def detect_from_logits(logits, grid_size: int = 8, min_prob: float = 0.015,
@@ -102,20 +125,11 @@ def _suppress_and_select(ys, xs, scores, min_prob, size, iou, top_k):
     C = scores.shape[1]
     keep = _candidate_keep(ys, xs, scores, min_prob, size, iou)
     kept = torch.where(keep, scores, -torch.inf)
-    final, sel = torch.topk(kept, min(top_k, C), dim=1)
+    # candidates come in (score, raster) order: ties go to the lower rank
+    final, sel = topk_lowest_index(kept, min(top_k, C))
     pts = torch.stack([ys.gather(1, sel), xs.gather(1, sel)], dim=-1)
     valid = torch.isfinite(final) & (final >= min_prob)
     return pts, torch.where(valid, final, 0.0), valid
-
-
-def _cubic_weights(t, a: float = -0.75):
-    t2 = t * t
-    t3 = t2 * t
-    w0 = a * (t3 - 2 * t2 + t)
-    w1 = (a + 2) * t3 - (a + 3) * t2 + 1
-    w2 = -(a + 2) * t3 + (2 * a + 3) * t2 - a * t
-    w3 = a * (-t3 + t2)
-    return torch.stack([w0, w1, w2, w3], dim=-1)  # (..., K, 4)
 
 
 def _axis_weight_matrix(coord, n: int, grid_size: int):
@@ -124,7 +138,7 @@ def _axis_weight_matrix(coord, n: int, grid_size: int):
     src = (coord + 0.5) / grid_size - 0.5
     base = torch.floor(src)
     t = src - base
-    w = _cubic_weights(t)
+    w = cubic_weights(t)
     taps = torch.arange(-1, 3, device=coord.device)
     idx = torch.clamp(base.to(torch.int64)[..., None] + taps, 0, n - 1)
     grid = torch.arange(n, device=coord.device)
@@ -147,6 +161,25 @@ def sample_descriptors_onehot(desc_raw, points, grid_size: int = 8,
     W2 = (Wy[..., :, None] * Wx[..., None, :]).reshape(B, -1, Hc * Wc)
     out = torch.bmm(W2.to(torch.bfloat16).float(),
                     desc_raw.reshape(B, Hc * Wc, C).to(torch.bfloat16).float())
+    if normalize:
+        out = out / (torch.linalg.norm(out, dim=-1, keepdim=True) + 1e-12)
+    return out
+
+
+def sample_descriptors_matmul(desc_raw, points, grid_size: int = 8,
+                              normalize: bool = True):
+    """Bicubic descriptor interpolation at keypoints as two separable
+    products: out[k] = sum_h Wy[k, h] sum_w Wx[k, w] desc[h, w], the
+    weights in the map's dtype, float32 sums. desc_raw (B, Hc, Wc, C),
+    points (B, K, 2) -> (B, K, C) float32. On no serving path: a
+    yardstick for the fused sampler."""
+    B, Hc, Wc, C = desc_raw.shape
+    K = points.shape[1]
+    Wy = _axis_weight_matrix(points[..., 0], Hc, grid_size)
+    Wx = _axis_weight_matrix(points[..., 1], Wc, grid_size)
+    Wy, Wx = Wy.to(desc_raw.dtype).float(), Wx.to(desc_raw.dtype).float()
+    tmp = torch.bmm(Wy, desc_raw.float().reshape(B, Hc, Wc * C))
+    out = (Wx[..., None] * tmp.reshape(B, K, Wc, C)).sum(dim=2)
     if normalize:
         out = out / (torch.linalg.norm(out, dim=-1, keepdim=True) + 1e-12)
     return out

@@ -1,8 +1,11 @@
-"""Homographic-adaptation pseudo-label export (``spnerf_tpu/tasks/export.py``).
+"""Homographic-adaptation pseudo-label export and HPatches bundles
+(``spnerf_tpu/tasks/export.py``).
 
 Artifact layout as in the reference: EXPER_PATH/outputs/<experiment>/
-<split>/<name>.npy holds int64 (N, 2) (y, x) keypoints. The export is
-resumable: images that already have a file are skipped.
+<split>/<name>.npy holds int64 (N, 2) (y, x) keypoints; the pseudo-label
+export is resumable: images that already have a file are skipped.
+``export_hpatches`` writes EXPER_PATH/{repeatability|descriptors}/
+<experiment>/<name>.npz through the parity inference path.
 
 Each image batch goes to the card as uint8, is padded to one fixed batch
 shape, adapted over its random views, NMS'd and cut to its top ``k_cap``
@@ -25,6 +28,7 @@ from spnerf_tpu_torch.models.superpoint import (
     SuperPoint,
     fold_batch_norm,
     folded_superpoint,
+    superpoint_inference,
 )
 from spnerf_tpu_torch.ops.detector_decode import decode_detector_logits
 from spnerf_tpu_torch.ops.homography_adaptation import (
@@ -35,6 +39,13 @@ from spnerf_tpu_torch.ops.homography_adaptation import (
 from spnerf_tpu_torch.ops.nms import box_nms
 from spnerf_tpu_torch.ops.serving import ServingSuperPoint
 from spnerf_tpu_torch.settings import EXPER_PATH
+
+
+def _nms_threshold_points(prob_nms: np.ndarray,
+                          det_thresh: float) -> np.ndarray:
+    """NMS'd heatmap -> int64 (N, 2) (y, x) of the pixels at or above
+    ``det_thresh``, in raster order."""
+    return np.argwhere(prob_nms >= det_thresh).astype(np.int64)
 
 
 def make_prob_fn(model: SuperPoint, fast: bool = False, serving=None):
@@ -190,4 +201,46 @@ def export_pseudo_labels(config: dict, model: SuperPoint, loader,
         pending = (todo, res, done)
     if pending is not None:
         flush(pending)
+    return out_dir
+
+
+@torch.no_grad()
+def export_hpatches(config: dict, model: SuperPoint, loader,
+                    with_descriptors: bool = False, device="cuda") -> Path:
+    """HPatches repeatability or descriptor bundles: for every pair of
+    ``loader`` (an iterable of {"image", "warped_image": (B, H, W, 1)
+    float in [0, 1], "homography": (B, 3, 3), "name": [...]} batches)
+    one EXPER_PATH/{repeatability|descriptors}/<experiment>/<name>.npz
+    with "image", "warped_image" (H, W), "prob", "warped_prob" (the NMS'd
+    heatmaps of ``superpoint_inference``), "homography" and, with
+    descriptors, "desc" and "warped_desc" (H, W, C) float32."""
+    device = resolve_device(device)
+    kind = "descriptors" if with_descriptors else "repeatability"
+    out_dir = Path(EXPER_PATH, kind, config["data"]["experiment_name"])
+    out_dir.mkdir(parents=True, exist_ok=True)
+    model = model.to(device).eval()
+
+    def infer(images):
+        x = torch.as_tensor(np.asarray(images, np.float32)).to(device)
+        out = superpoint_inference(model, x)
+        keys = ("prob_heatmap_nms", "desc") if with_descriptors \
+            else ("prob_heatmap_nms",)
+        return [out[k].cpu().numpy() for k in keys]
+
+    for bi, batch in enumerate(loader):
+        names = batch.get("name", [str(bi)])
+        out1 = infer(batch["image"])
+        out2 = infer(batch["warped_image"])
+        for i, name in enumerate(names):
+            payload = {
+                "image": np.asarray(batch["image"][i, ..., 0]),
+                "warped_image": np.asarray(batch["warped_image"][i, ..., 0]),
+                "prob": out1[0][i],
+                "warped_prob": out2[0][i],
+                "homography": np.asarray(batch["homography"][i]),
+            }
+            if with_descriptors:
+                payload["desc"] = out1[1][i]
+                payload["warped_desc"] = out2[1][i]
+            np.savez_compressed(out_dir / f"{name}.npz", **payload)
     return out_dir

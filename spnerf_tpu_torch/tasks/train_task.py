@@ -23,6 +23,7 @@ from spnerf_tpu_torch.device import resolve_device
 from spnerf_tpu_torch.geometry.homography import HomographyConfig
 from spnerf_tpu_torch.models.superpoint import SuperPointConfig, init_superpoint
 from spnerf_tpu_torch.ops.photometric_device import PhotometricDeviceConfig
+from spnerf_tpu_torch.tools.import_jax_weights import flax_checkpoint_to_torch
 from spnerf_tpu_torch.train.loop import (
     StepConfig,
     StepGenerators,
@@ -84,11 +85,14 @@ def restore_pretrained(config: dict, model) -> int:
     """The reference's partial checkpoint load: parameters and BatchNorm
     statistics of ``config["pretrained"]`` (under CKPT_PATH) go into
     ``model`` wherever path and shape match. Returns the iteration to
-    continue from (0 unless ``continue_training``)."""
+    continue from (0 unless ``continue_training``). The checkpoint may be
+    the port's own or one the JAX package wrote."""
     pretrained = config.get("pretrained")
     if not pretrained:
         return 0
     data = load_checkpoint(Path(settings.CKPT_PATH, pretrained))
+    if any(isinstance(v, dict) for v in data["params"].values()):
+        data = flax_checkpoint_to_torch(data)  # nested: the flax tree
     partial_restore(model_params(model), data["params"])
     if "batch_stats" in data:
         partial_restore(model_batch_stats(model), data["batch_stats"])

@@ -48,22 +48,55 @@ def load_flax_variables(model: SuperPoint, variables: dict) -> SuperPoint:
     return model
 
 
+def _block_params(prefix: str, node: dict, with_bn: bool) -> dict:
+    """One flax VGG block's parameters -> {torch path: float32 tensor}."""
+    out = {f"{prefix}.Conv_0.weight": _t(
+               node["Conv_0"]["kernel"]).permute(3, 2, 0, 1).contiguous(),
+           f"{prefix}.Conv_0.bias": _t(node["Conv_0"]["bias"])}
+    if with_bn:
+        out[f"{prefix}.BatchNorm_0.weight"] = _t(node["BatchNorm_0"]["scale"])
+        out[f"{prefix}.BatchNorm_0.bias"] = _t(node["BatchNorm_0"]["bias"])
+    return out
+
+
 def flax_params_to_torch(model: SuperPoint, params: dict) -> dict:
     """A flax ``params``-shaped numpy tree (the parameters, their
     gradients or an Adam moment) -> {torch parameter path: float32 tensor
     in the torch layout} for ``model``'s parameters."""
     out = {}
     for path, block in conv_blocks(model).items():
-        node = _node(params, path)
-        prefix = path.replace("/", ".")
-        out[f"{prefix}.Conv_0.weight"] = _t(
-            node["Conv_0"]["kernel"]).permute(3, 2, 0, 1).contiguous()
-        out[f"{prefix}.Conv_0.bias"] = _t(node["Conv_0"]["bias"])
-        if block.BatchNorm_0 is not None:
-            out[f"{prefix}.BatchNorm_0.weight"] = _t(
-                node["BatchNorm_0"]["scale"])
-            out[f"{prefix}.BatchNorm_0.bias"] = _t(node["BatchNorm_0"]["bias"])
+        out.update(_block_params(path.replace("/", "."), _node(params, path),
+                                 block.BatchNorm_0 is not None))
     return out
+
+
+def flax_checkpoint_to_torch(data: dict) -> dict:
+    """A checkpoint the JAX package wrote, as ``train.loop.load_checkpoint``
+    decodes it -> the payload the port's own checkpoints hold:
+    {"iteration", "params", "batch_stats"} with torch paths and layouts,
+    for every block the checkpoint has (a MagicPoint checkpoint has no
+    descriptor head; ``partial_restore`` matches by path and shape)."""
+    params, stats = {}, {}
+    for prefix, node in _holding(data["params"], "Conv_0"):
+        params.update(_block_params(prefix, node, "BatchNorm_0" in node))
+    for prefix, node in _holding(data.get("batch_stats", {}), "BatchNorm_0"):
+        stats[f"{prefix}.BatchNorm_0.running_mean"] = _t(
+            node["BatchNorm_0"]["mean"])
+        stats[f"{prefix}.BatchNorm_0.running_var"] = _t(
+            node["BatchNorm_0"]["var"])
+    return {"iteration": int(data["iteration"]), "params": params,
+            "batch_stats": stats}
+
+
+def _holding(tree: dict, key: str, path: tuple = ()):
+    """(torch path prefix, node) of every node of a flax tree that holds
+    ``key``."""
+    if key in tree:
+        yield ".".join(path), tree
+        return
+    for name, child in tree.items():
+        if isinstance(child, dict):
+            yield from _holding(child, key, path + (name,))
 
 
 def train_state_from_flax(model: SuperPoint, variables: dict, mu: dict,

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import io
 from pathlib import Path
 
 import torch
@@ -46,6 +47,7 @@ from spnerf_tpu_torch.ops.photometric_device import (
     PhotometricDeviceConfig,
     photometric_augment,
 )
+from spnerf_tpu_torch.train import flax_msgpack
 from spnerf_tpu_torch.train.losses import (
     DescriptorLossConfig,
     cell_grid_coords,
@@ -333,5 +335,11 @@ def partial_restore(target: dict, saved: dict) -> list:
 
 
 def load_checkpoint(path: str | Path) -> dict:
-    """The payload ``save_checkpoint`` wrote, tensors on the CPU."""
-    return torch.load(Path(path), map_location="cpu", weights_only=True)
+    """The payload ``save_checkpoint`` wrote, tensors on the CPU; or, for
+    a checkpoint the JAX package wrote (a flax msgpack map, told apart by
+    its first byte), the flax tree as numpy arrays
+    (``tools.import_jax_weights.flax_checkpoint_to_torch`` maps it)."""
+    data = Path(path).read_bytes()
+    if flax_msgpack.is_msgpack_map(data[:1]):
+        return flax_msgpack.msgpack_restore(data)
+    return torch.load(io.BytesIO(data), map_location="cpu", weights_only=True)

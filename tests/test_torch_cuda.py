@@ -13,7 +13,9 @@ states, warps within 1e-6,
 the descriptor-loss sums within 1e-5 relative and its gradients within
 1e-4 of their largest entry (float32 sums in another order; the inputs
 keep every dot away from both margins, and the warped cells sit on a
-quarter-pixel grid, so no pair takes the other side of a step).
+quarter-pixel grid, so no pair takes the other side of a step), the
+fused descriptor sampler equal to its plain version before the
+normalization and within 1e-6 after it.
 """
 
 import numpy as np
@@ -467,3 +469,72 @@ def test_layer_wrappers_raise_on_what_the_kernels_do_not_take(card):
         S.dot_bias_act(torch.zeros(4, 32, device="cuda"),
                        torch.zeros(32, 16, device="cuda"), ones[:16],
                        zeros[:16])
+
+
+# (B, Hc, Wc, C, K, map dtype, normalize): C 256 on the path; C 20 and 300
+# take the element-by-element loads (C % 8 != 0), C 300 and 512 two chunks
+DESC_SAMPLE_CASES = {
+    "bf16_256": (2, 15, 20, 256, 1000, torch.bfloat16, True),
+    "bf16_256_raw": (2, 15, 20, 256, 77, torch.bfloat16, False),
+    "f32_64": (3, 7, 9, 64, 33, torch.float32, True),
+    "bf16_20": (1, 6, 5, 20, 50, torch.bfloat16, True),
+    "f32_300": (2, 4, 6, 300, 40, torch.float32, True),
+    "bf16_512_raw": (1, 5, 7, 512, 20, torch.bfloat16, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(DESC_SAMPLE_CASES))
+def test_desc_sample_matches_plain_on_card(card, kind):
+    """Unnormalized rows equal to the plain version (same weights, same
+    bf16 roundings, the same float32 sum order); unit vectors within 1e-6
+    (the sum of squares runs in another order). Points cover every
+    border and lie beyond it; two runs bit-equal; one launch per call."""
+    from spnerf_tpu_torch.kernels import _build
+    from spnerf_tpu_torch.kernels.desc_sample import (
+        sample_descriptors_fused,
+        sample_descriptors_fused_plain,
+    )
+
+    B, Hc, Wc, C, K, dtype, normalize = DESC_SAMPLE_CASES[kind]
+    rng = np.random.default_rng(31)
+    desc = torch.from_numpy(rng.standard_normal((B, Hc, Wc, C)).astype(
+        np.float32)).to(dtype).cuda()
+    pts = np.stack([rng.uniform(-5, Hc * 8 + 4, (B, K)),
+                    rng.uniform(-5, Wc * 8 + 4, (B, K))], -1)
+    pts[:, :4] = [[0, 0], [Hc * 8 - 1, Wc * 8 - 1], [0, Wc * 8 - 1],
+                  [Hc * 8 - 1, 0]]
+    pts = torch.from_numpy(pts.astype(np.float32)).cuda()
+    before = _build.launch_counts["desc_sample[" + (
+        "bf16]" if dtype == torch.bfloat16 else "f32]")]
+    got = sample_descriptors_fused(desc, pts, 8, normalize)
+    again = sample_descriptors_fused(desc, pts, 8, normalize)
+    torch.cuda.synchronize()
+    after = _build.launch_counts["desc_sample[" + (
+        "bf16]" if dtype == torch.bfloat16 else "f32]")]
+    assert after == before + 2
+    assert torch.equal(got, again)
+    want = sample_descriptors_fused_plain(desc, pts, 8, normalize)
+    assert got.shape == (B, K, C) and got.dtype == torch.float32
+    if normalize:
+        err = float((got - want).abs().max())
+        print(f"{kind}: max |kernel - plain| {err:.3e}")
+        assert err <= 1e-6
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_desc_sample_raises_on_what_the_kernel_does_not_take(card):
+    from spnerf_tpu_torch.kernels.desc_sample import sample_descriptors_fused
+
+    pts = torch.zeros(1, 4, 2, device="cuda")
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        sample_descriptors_fused(torch.zeros(1, 4, 4, 8, dtype=torch.float16,
+                                             device="cuda"), pts)
+    with pytest.raises(ValueError, match="needs \\(B, K, 2\\)"):
+        sample_descriptors_fused(torch.zeros(2, 4, 4, 8, device="cuda"), pts)
+    with pytest.raises(ValueError, match="aligned"):
+        sample_descriptors_fused(
+            torch.zeros(1 * 4 * 4 * 8 + 1, device="cuda")[1:].reshape(
+                1, 4, 4, 8), pts)
