@@ -445,8 +445,9 @@ WRAPPERS = {
 # kernels that round a mid activation to bf16 before their last sum
 CHAINS = ("double_packed_conv3x3", "double_conv3x3", "head")
 # kernel against plain version, bf16 or float32 operands: within 2 bf16
-# ulps, at most 0.1% of the values beyond 1 (float32 FMAs in a fixed order
-# against float64 sums rounded once). Ulps are counted at the larger of
+# ulps, at most 0.1% of the values beyond 1 (float32 sums in a fixed
+# order, by FMAs or on the tensor cores, against float64 sums rounded
+# once). Ulps are counted at the larger of
 # the two values and at least at a floor of the tensor's largest
 # magnitude: 1/256 (below it a bf16 ulp is finer than a float32 sum's own
 # rounding), 1/4 for the chains (a mid value rounded apart moves every
@@ -632,7 +633,8 @@ def phase_build():
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in reports.items():
         for line in text.splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
+            if ("Compiling entry" in line or "Used" in line or "spill" in line
+                    or "arning" in line):
                 log(f"[build] {name}: {line.strip()}")
 
 

@@ -138,6 +138,23 @@ def pack_words(w: torch.Tensor, cout_pad: int | None = None,
     return w.contiguous().view(torch.int32)[..., 0]
 
 
+def pack_slabs(w: torch.Tensor) -> torch.Tensor:
+    """bf16 (3, 3, cin, cout) weights -> the tensor-core layout of
+    ``csrc/conv_tc.cuh``: (9, cout/8, cin/8, 8, 8), one tap's slab of
+    cin x cout after another, each K-major in 8 x 8 core matrices of 128
+    contiguous bytes. Element (tap, n, k) lies at
+    ``((n // 8) * (cin // 8) + k // 8) * 64 + (n % 8) * 8 + k % 8`` of its
+    slab: the wgmma descriptor's leading byte offset (K) is 128, its
+    stride byte offset (N) cin * 16. cin and cout must be multiples of
+    8."""
+    cin, cout = w.shape[-2:]
+    if w.dtype != torch.bfloat16 or cin % 8 or cout % 8:
+        raise ValueError(f"pack_slabs: bf16 weights with C_in and C_out "
+                         f"multiples of 8, not {tuple(w.shape)} {w.dtype}")
+    w = w.reshape(-1, cin // 8, 8, cout // 8, 8)  # [tap][kb][k][nb][n]
+    return w.permute(0, 3, 1, 4, 2).contiguous()  # [tap][nb][kb][n][k]
+
+
 def check_cuda(name: str, **tensors) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor on a 16-byte
     boundary (the kernels read 16-byte vectors)."""

@@ -5,7 +5,8 @@ Counterpart of ``spnerf_tpu/kernels/conv_stack_pallas.py``:
 * ``conv3x3`` replaces ``conv3x3_pallas`` (C_in 128) and
   ``packed_conv3x3`` replaces ``packed_conv3x3_pallas`` (C_in 64), both
   with the CUDA kernel ``csrc/conv3x3.cu``: a SAME 3x3 conv with the
-  affine, ReLU, optional 2x2 pool and cast in its epilogue. The W-pair
+  affine, ReLU, optional 2x2 pool and cast in its epilogue (bf16 on the
+  tensor cores, weights by ``_build.pack_slabs``). The W-pair
   packing of the second (``pack_pairs``, ``unpack_pairs``,
   ``pack_weights_*``, ``maxpool2x2_packed``) is TPU layout: here both
   take and return plain NHWC.
@@ -64,7 +65,8 @@ def _conv3x3(family, x, w, mult, bias, relu, out_dtype, pool):
                          f"with an output of the same type, not {x.dtype} -> "
                          f"{out_dtype}")
     m, b = mult.float().contiguous(), bias.float().contiguous()
-    wp = _build.pack_words(w)
+    wp = (_build.pack_words(w) if x.dtype == torch.int8
+          else _build.pack_slabs(w))
     x = x.contiguous()
     _build.check_cuda(family, x=x, w=wp, mult=m, bias=b)
     shape = (B, H // 2, W // 2, cout) if pool else (B, H, W, cout)

@@ -17,10 +17,13 @@
 // Numerics. int8 matches the reference's int8 chain bit for bit: int32
 // accumulation, then float32 acc * mult and + bias as two separately
 // rounded operations (no FMA contraction), then round half to even and
-// clip to +-127. bf16: every product of two bf16 values is exact in
-// float32, so an FMA adds it with one rounding; the sum runs over taps,
-// then channels, in a fixed order (the same bits every run), and the
-// affine and the bf16 rounding (to nearest even) follow as for int8.
+// clip to +-127. bf16 (head.cu and dot_bias_act.cu; the bf16 3x3 convs of
+// conv3x3.cu and double_conv3x3.cu run on the tensor cores through
+// conv_tc.cuh, whose header states their numerics): every product of two
+// bf16 values is exact in float32, so an FMA adds it with one rounding;
+// the sum runs over taps, then channels, in a fixed order (the same bits
+// every run), and the affine and the bf16 rounding (to nearest even)
+// follow as for int8.
 #pragma once
 
 #include <cuda_bf16.h>

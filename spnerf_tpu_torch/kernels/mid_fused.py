@@ -5,8 +5,9 @@ double_packed_conv3x3_pallas`` (blocks 3-4 and 5-6, pool on) and
 ``spnerf_tpu/kernels/tail_fused_pallas.py:double_conv3x3_pallas``
 (blocks 7-8, pool off) with one CUDA kernel, ``csrc/double_conv3x3.cu``
 (see its header for the bound and the design), in an int8 instance
-(int32 sums, requantized mid) and a bf16 one (float32 sums, the mid
-rounded to bf16 in shared memory). The reference's W-pair packing is a
+(int32 sums, requantized mid; weights by ``pack_words``) and a bf16 one
+on the tensor cores (float32 sums, the mid rounded to bf16 in shared
+memory; weights by ``pack_slabs``). The reference's W-pair packing is a
 TPU layout; plain NHWC holds the same bytes.
 """
 
@@ -60,13 +61,14 @@ def double_conv3x3(x, w_a, mult_a, bias_a, w_b, mult_b, bias_b, *,
                          f"{w_a.dtype}, {w_b.dtype} weights")
     args = (mult_a, bias_a, mult_b, bias_b)
     ma, ba, mb, bb = (a.float().contiguous() for a in args)
-    wa, wb = _build.pack_words(w_a), _build.pack_words(w_b)
+    bf16 = x.dtype == torch.bfloat16
+    pack = _build.pack_slabs if bf16 else _build.pack_words
+    wa, wb = pack(w_a), pack(w_b)
     x = x.contiguous()
     _build.check_cuda("double_conv3x3", x=x, w_a=wa, w_b=wb, mult_a=ma,
                       bias_a=ba, mult_b=mb, bias_b=bb)
     shape = (B, H // 2, W // 2, co) if pool else (B, H, W, co)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
-    bf16 = x.dtype == torch.bfloat16
     fn = "double_conv3x3_bf16_launch" if bf16 else "double_conv3x3_launch"
     _build.launch("double_conv3x3", fn, x, wa, ma, ba, wb, mb, bb, out, B, H,
                   W, cin, cm, co, int(pool), int(relu))

@@ -454,6 +454,76 @@ def test_layer_kernel_matches_plain_on_card(card, kind):
     assert float(d.max()) <= 2 and share <= 1e-3
 
 
+# the bf16 tensor-core instances of conv3x3.cu and double_conv3x3.cu:
+# (op, C_in, C_out, pool) -> wrapper; shapes (B, H, W): several whole
+# tiles, ragged edges at batch 1, W % 16 == 8, a single tile at batch 1
+TC_INSTANCES = {
+    "packed_64-64-pool": ("packed", 64, 64, True),
+    "packed_64-64": ("packed", 64, 64, False),
+    "packed_64-128": ("packed", 64, 128, False),
+    "conv_128-128-pool": ("conv", 128, 128, True),
+    "conv_128-128": ("conv", 128, 128, False),
+    "conv_128-256": ("conv", 128, 256, False),
+    "double_64-64-pool": ("double", 64, 64, True),
+    "double_64-128-pool": ("double", 64, 128, True),
+    "double_128-128": ("double", 128, 128, False),
+    "double_128-128-pool": ("double", 128, 128, True),
+}
+TC_SHAPES = {"aligned": (2, 48, 64), "ragged": (1, 30, 44),
+             "w8": (2, 24, 40), "batch1": (1, 16, 32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(TC_SHAPES))
+@pytest.mark.parametrize("instance", list(TC_INSTANCES))
+def test_tc_conv_matches_plain_on_card(card, instance, shape):
+    """Each bf16 instance of the tensor-core convs against its plain
+    version at whole-tile, ragged, W % 16 == 8 and batch-1 shapes, with
+    the bounds of ``test_layer_kernel_matches_plain_on_card`` (a chain
+    through the bf16 mid at the 1/4 floor); two runs bit-equal."""
+    from spnerf_tpu_torch.kernels import _build
+    from spnerf_tpu_torch.kernels import conv_stack as S
+
+    op, cin, cout, pool = TC_INSTANCES[instance]
+    B, H, W = TC_SHAPES[shape]
+    rng = np.random.default_rng(24)
+
+    def bf16(a):
+        return torch.from_numpy(a.astype(np.float32)).cuda().to(torch.bfloat16)
+
+    def weights(ci, co):
+        return bf16(rng.standard_normal((3, 3, ci, co)) / np.sqrt(9 * ci))
+
+    def mb(c):
+        return [torch.ones(c, device="cuda"),
+                torch.from_numpy((rng.standard_normal(c) * 0.1).astype(
+                    np.float32)).cuda()]
+
+    x = bf16(rng.uniform(0, 1, (B, H, W, cin)))
+    if op == "double":
+        args = [x, weights(cin, cout), *mb(cout), weights(cout, cout),
+                *mb(cout)]
+        kernel, plain, kw = double_conv3x3, double_conv3x3_plain, {"pool": pool}
+    else:
+        args = [x, weights(cin, cout), *mb(cout)]
+        kernel = S.packed_conv3x3 if op == "packed" else S.conv3x3
+        plain = S.conv3x3_plain
+        kw = {"out_dtype": torch.bfloat16, "pool": pool}
+    before = sum(_build.launch_counts.values())
+    got = kernel(*args, **kw)
+    again = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert sum(_build.launch_counts.values()) == before + 2
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    want = plain(*args, **kw)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert float(want.float().abs().max()) > 0
+    d = _bf16_scaled_ulps(got, want, 2.0 ** -2 if op == "double" else 2.0 ** -8)
+    share = float((d > 1).float().mean())
+    print(f"{instance} {shape}: max {float(d.max())} ulps, {share:.3e} beyond 1")
+    assert float(d.max()) <= 2 and share <= 1e-3
+
+
 @pytest.mark.cuda
 def test_layer_wrappers_raise_on_what_the_kernels_do_not_take(card):
     from spnerf_tpu_torch.kernels import conv_stack as S
