@@ -32,6 +32,15 @@ Phases, each of which raises on failure (nothing is caught):
    int8 and bf16, 5 requests of batch 8; bf16 runs ``conv1_packed``; and
    one int8 request of batch 8 at 480 x 632 with the fused flags on,
    where the mid drops to per-layer kernels by itself);
+   Every kernel row also carries ``device_ms`` (and the library call
+   ``library_device_ms``): the device time alone, by ``torch.profiler``
+   over 20 calls, beside the wrapper's ``ms`` (CUDA events around one
+   call, host work included);
+5b'. hold the tensor-core head (bf16, at 80 x 30 x 40 and 1 x 7 x 13) and
+   ``dot_bias_act`` (int8 equal, bf16; and conv1's float32 instance; at
+   M 1, 63, 65, 129 and 37,920) against their plain versions, on
+   operands prepared once, a call on raw weights and a second launch
+   giving the same bits;
 5c. hold the bf16, mixed and unfused graphs on the card against the CPU
    plain path at 2 x 32 x 64 and 2 x 32 x 56;
 5d. count the images of the int8 requests that hold a run of equal
@@ -152,6 +161,7 @@ from spnerf_tpu_torch.kernels import conv_stack
 from spnerf_tpu_torch.kernels import desc_sample as ds
 from spnerf_tpu_torch.kernels import descriptor_loss as dl
 from spnerf_tpu_torch.kernels import render as rk
+from spnerf_tpu_torch.kernels import tail_fused
 from spnerf_tpu_torch.kernels.conv12_fused import conv12_fused_plain
 from spnerf_tpu_torch.kernels.mid_fused import double_conv3x3_plain
 from spnerf_tpu_torch.kernels.tail_fused import head_plain
@@ -204,6 +214,7 @@ from spnerf_tpu_torch.ops.photometric_device import (
 from spnerf_tpu_torch.tasks import export, train_task
 from spnerf_tpu_torch.tasks.nerf_task import pose_orbit
 from spnerf_tpu_torch.tools.import_jax_weights import tiny_field_from_jax
+from spnerf_tpu_torch.tools.kernel_times import device_ms
 from spnerf_tpu_torch.train import loop
 from spnerf_tpu_torch.train.losses import (
     DescriptorLossConfig,
@@ -444,6 +455,13 @@ WRAPPERS = {
 }
 # kernels that round a mid activation to bf16 before their last sum
 CHAINS = ("double_packed_conv3x3", "double_conv3x3", "head")
+# wrapper -> what its kernels' symbols hold (the device time of a call
+# counts these, apart from the padding and packing launches of a call on
+# raw weights)
+KERNEL_SYMBOLS = {"conv12_fused": "::conv12_", "double_packed_conv3x3":
+                  "::double_conv3x3_", "double_conv3x3": "::double_conv3x3_",
+                  "head": "::head_", "conv3x3": "::conv3x3_",
+                  "packed_conv3x3": "::conv3x3_", "dot_bias_act": "::dot_"}
 # kernel against plain version, bf16 or float32 operands: within 2 bf16
 # ulps, at most 0.1% of the values beyond 1 (float32 sums in a fixed
 # order, by FMAs or on the tensor cores, against float64 sums rounded
@@ -471,6 +489,20 @@ def card_peaks(name: str):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def raw_args(args) -> tuple:
+    """A call's arguments with prepared operands (``DotOperands``,
+    ``HeadOperands``) expanded into their raw tensors."""
+    out = []
+    for a in args:
+        if isinstance(a, conv_stack.DotOperands):
+            out += [a.w, a.mult, a.bias]
+        elif isinstance(a, tail_fused.HeadOperands):
+            out += list(a.raw)
+        else:
+            out.append(a)
+    return tuple(out)
 
 
 def work(name, args, kw, out):
@@ -650,7 +682,11 @@ def phase_card() -> str:
 def phase_kernels(calls, peaks):
     """Each recorded call (the first of each kernel instance): kernel
     against plain version on the same operands, with times, the bound and
-    the library yardstick."""
+    the library yardstick. ``ms`` and ``library_ms`` are CUDA events
+    around one call (the wrapper's host work included); ``device_ms`` and
+    ``library_device_ms`` the device time alone (``torch.profiler`` over
+    20 calls: the kernel's own symbol, every kernel of the library
+    call)."""
     int8_rate, mem_rate, f32_rate, bf16_rate = peaks
     rows, seen = [], set()
     for name, args, kw in calls:
@@ -669,10 +705,16 @@ def phase_kernels(calls, peaks):
                                      float_operands=dtype != torch.int8,
                                      chain=name in CHAINS)
         ms = cuda_ms(lambda: kernel(*args, **kw), reps=20, warmup=3)
+        dev_ms, how = device_ms(lambda: kernel(*args, **kw),
+                                KERNEL_SYMBOLS[name])
         plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=3)
-        lib = library_call(name, args, kw)
-        lib_ms = None if lib is None else cuda_ms(lib, reps=20, warmup=3)
-        macs, moved = work(name, args, kw, got)
+        rargs = raw_args(args)
+        lib = library_call(name, rargs, kw)
+        lib_ms = lib_dev_ms = None
+        if lib is not None:
+            lib_ms = cuda_ms(lib, reps=20, warmup=3)
+            lib_dev_ms = device_ms(lib)[0]
+        macs, moved = work(name, rargs, kw, got)
         rate = {torch.int8: int8_rate, torch.bfloat16: bf16_rate,
                 torch.float32: f32_rate}[dtype]
         t_ops, t_bytes = 2 * macs / rate * 1e3, moved / mem_rate * 1e3
@@ -681,16 +723,18 @@ def phase_kernels(calls, peaks):
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib_ms,
+            "library_ms": lib_ms, "device_ms": dev_ms,
+            "library_device_ms": lib_dev_ms,
         })
-        lib_text = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        lib_text = ("none" if lib_ms is None else
+                    f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f})")
         log(f"[kernel] {key}: in {tuple(args[0].shape)} {dtype} -> out "
             f"{tuple(got.shape)} {got.dtype}, max_abs_err {err} "
             f"({share:.3e} of values differ, {over_1:.3e} beyond 1 bf16 "
-            f"ulp), kernel {ms:.4f} ms (median of 20), plain {plain_ms:.4f} "
-            f"ms, library {lib_text}, bound {rows[-1]['bound_ms']:.4f} ms "
-            f"({rows[-1]['bound_by']}, {2 * macs / 1e9:.2f} GOP, "
-            f"{moved / 1e6:.1f} MB)")
+            f"ulp), kernel {ms:.4f} ms (median of 20; device {dev_ms:.4f} "
+            f"ms by {how}), plain {plain_ms:.4f} ms, library {lib_text}, "
+            f"bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}, "
+            f"{2 * macs / 1e9:.2f} GOP, {moved / 1e6:.1f} MB)")
         del got, want, lib
         torch.cuda.empty_cache()
     return rows
@@ -889,6 +933,86 @@ def phase_slice_routes(model, cfg, requests, peaks):
         del infer, reqs
         torch.cuda.empty_cache()
     return rows
+
+
+# the tensor-core head (bf16) and dot_bias_act (int8, bf16) instances and
+# conv1's float32 instance off the main path's tiles: head at HA's 80 x
+# 30 x 40 (H not a multiple of 8) and at 1 x 7 x 13; the products at M
+# not a multiple of their 64- or 256-row tiles
+REDESIGNED_HEAD_SHAPES = [(80, 30, 40), (1, 7, 13)]
+REDESIGNED_DOT_ROWS = [1, 63, 65, 129, 37920]
+
+
+def phase_redesigned():
+    """Each redesigned instance against its plain version (int8 products
+    equal; bf16 by ``compare``'s bounds, the head at the chains' floor),
+    on operands prepared once; a call on the raw weights and a second
+    launch must give the same bits."""
+    rng = np.random.default_rng(SEED + 12)
+
+    def card(a, dtype=None):
+        t = torch.from_numpy(np.asarray(a)).cuda()
+        return t if dtype is None else t.to(dtype)
+
+    def held(label, wrapper, plain, x, ops, raw, kw, kind):
+        got, again = wrapper(x, ops, **kw), wrapper(x, ops, **kw)
+        from_raw = wrapper(x, *raw, **kw)
+        torch.cuda.synchronize()
+        for other in (again, from_raw):
+            if not torch.equal(got.view(torch.int8), other.view(torch.int8)):
+                raise AssertionError(f"{label}: launches differ in their bits")
+        want = plain(x, *raw, **kw)
+        if kind == "int8" and not torch.equal(got, want):
+            raise AssertionError(f"{label}: int8 product differs from its "
+                                 "plain version")
+        _, share, over_1 = compare(label, got, want, float_operands=True,
+                                   chain=kind == "head")
+        return f"{label} {share:.2e}/{over_1:.2e}"
+
+    notes = []
+    for B, h, w in REDESIGNED_HEAD_SHAPES:
+        x = card(rng.uniform(0, 1, (B, h, w, 128)).astype(np.float32),
+                 torch.bfloat16)
+        for cout, soft in ((65, True), (65, False), (256, False)):
+            raw = (card(rng.standard_normal((3, 3, 128, 256)).astype(
+                       np.float32) / np.sqrt(1152), torch.bfloat16),
+                   torch.ones(256, device="cuda"),
+                   card((rng.standard_normal(256) * 0.1).astype(np.float32)),
+                   card(rng.standard_normal((256, cout)).astype(np.float32)
+                        / 16, torch.bfloat16),
+                   torch.ones(cout, device="cuda"),
+                   card(rng.uniform(-10, 10, cout).astype(np.float32)))
+            kw = {"softmax_lanes": cout} if soft else {}
+            notes.append(held(
+                f"head[bf16-{cout}{'-softmax' if soft else ''}] {B}x{h}x{w}",
+                tail_fused.head, head_plain, x, tail_fused.prepare_head(*raw),
+                raw, kw, "head"))
+    for M in REDESIGNED_DOT_ROWS:
+        for dtype in ("int8", "bf16", "f32"):
+            for cout in ((65, 256) if dtype != "f32" else (64,)):
+                cin = 9 if dtype == "f32" else 256
+                if dtype == "int8":
+                    x = card(rng.integers(-127, 128, (M, cin)).astype(np.int8))
+                    wt = card(rng.integers(-127, 128, (cin, cout)).astype(
+                        np.int8))
+                    m = card(rng.uniform(2e-5, 1e-4, cout).astype(np.float32))
+                else:
+                    to = torch.bfloat16 if dtype == "bf16" else None
+                    x = card(rng.uniform(0, 1, (M, cin)).astype(np.float32),
+                             to)
+                    wt = card((rng.standard_normal((cin, cout))
+                               / np.sqrt(cin)).astype(np.float32), to)
+                    m = torch.ones(cout, device="cuda")
+                raw = (wt, m, card(rng.uniform(-1, 1, cout).astype(
+                    np.float32)))
+                notes.append(held(
+                    f"dot_bias_act[{dtype}-{cin}-{cout}] M {M}",
+                    conv_stack.dot_bias_act, conv_stack.dot_bias_act_plain,
+                    x, conv_stack.prepare_dot(*raw), raw,
+                    {"relu": dtype == "f32"}, dtype))
+    log("[redesigned] against their plain versions, prepared = raw = "
+        "second launch, bit for bit (share differing / beyond 1 bf16 ulp): "
+        + "; ".join(notes))
 
 
 def phase_modes_small(sp_cuda_int8, cfg):
@@ -2496,6 +2620,7 @@ def main() -> int:
     # bf16, mixed and the per-layer routes: each a drive of its path with
     # the counters at 0 before it
     rows += phase_slice_routes(model, cfg, requests, peaks)
+    phase_redesigned()
     phase_modes_small(infer.serving, cfg)
     # the row 8 kernel on the slice's sampling operands (its drive is the
     # three sets with the counters at 0), and the tie runs at the cut

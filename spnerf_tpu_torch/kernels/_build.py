@@ -34,6 +34,7 @@ SOURCES = ("conv12_fused", "double_conv3x3", "head", "conv3x3",
 launch_counts: collections.Counter = collections.Counter()
 
 _libs: dict = {}
+_fns: dict = {}  # (library, function) -> ctypes function with its argtypes
 _lock = threading.Lock()
 
 
@@ -94,27 +95,35 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def _current_stream() -> int:
+    """The current CUDA stream's handle (the raw query where this
+    PyTorch has it: the public one builds a Stream object per call)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream().cuda_stream
+    return raw(torch.cuda.current_device())
+
+
 def launch(lib_name: str, fn_name: str, *args) -> None:
     """Call C launch function ``fn_name`` on the current stream: tensors
     pass as device pointers (None as a null pointer), Python floats as C
-    floats, anything else as a C int. Raises on a CUDA error."""
-    fn = getattr(load(lib_name), fn_name)
-    argtypes, values = [], []
-    for a in args:
-        if a is None or isinstance(a, torch.Tensor):
-            argtypes.append(ctypes.c_void_p)
-            values.append(None if a is None else a.data_ptr())
-        elif isinstance(a, float):
-            argtypes.append(ctypes.c_float)
-            values.append(a)
-        else:
-            argtypes.append(ctypes.c_int)
-            values.append(int(a))
-    argtypes.append(ctypes.c_void_p)
-    values.append(torch.cuda.current_stream().cuda_stream)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    err = fn(*values)
+    floats, anything else as a C int. Raises on a CUDA error.
+
+    The C function and its ``argtypes`` (from the first call's arguments)
+    are kept per (library, function), so that a call only converts its
+    values."""
+    fn = _fns.get((lib_name, fn_name))
+    if fn is None:
+        fn = getattr(load(lib_name), fn_name)
+        fn.argtypes = [ctypes.c_void_p if a is None or isinstance(a, torch.Tensor)
+                       else ctypes.c_float if isinstance(a, float)
+                       else ctypes.c_int for a in args] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[(lib_name, fn_name)] = fn
+    values = [a.data_ptr() if isinstance(a, torch.Tensor)
+              else a if a is None or isinstance(a, float) else int(a)
+              for a in args]
+    err = fn(*values, _current_stream())
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
 
@@ -146,13 +155,44 @@ def pack_slabs(w: torch.Tensor) -> torch.Tensor:
     ``((n // 8) * (cin // 8) + k // 8) * 64 + (n % 8) * 8 + k % 8`` of its
     slab: the wgmma descriptor's leading byte offset (K) is 128, its
     stride byte offset (N) cin * 16. cin and cout must be multiples of
-    8."""
+    8. Any leading shape packs as slabs; int8 weights pack the same way
+    with core matrices of 8 x 16 values (e = 16 bytes of K: element at
+    ``((n // 8) * (cin // e) + k // e) * 8 e + (n % 8) * e + k % e``)."""
     cin, cout = w.shape[-2:]
-    if w.dtype != torch.bfloat16 or cin % 8 or cout % 8:
-        raise ValueError(f"pack_slabs: bf16 weights with C_in and C_out "
-                         f"multiples of 8, not {tuple(w.shape)} {w.dtype}")
-    w = w.reshape(-1, cin // 8, 8, cout // 8, 8)  # [tap][kb][k][nb][n]
+    e = 16 // w.element_size()
+    if w.dtype not in (torch.bfloat16, torch.int8) or cin % e or cout % 8:
+        raise ValueError(f"pack_slabs: bf16 (or int8) weights with C_in and "
+                         f"C_out multiples of 8 (C_in of 16 for int8), not "
+                         f"{tuple(w.shape)} {w.dtype}")
+    w = w.reshape(-1, cin // e, e, cout // 8, 8)  # [tap][kb][k][nb][n]
     return w.permute(0, 3, 1, 4, 2).contiguous()  # [tap][nb][kb][n][k]
+
+
+def pack_head_1x1(w: torch.Tensor, coutp: int) -> torch.Tensor:
+    """bf16 (256, cout) 1x1 weights of a head -> the ring slabs of
+    ``csrc/head.cu``'s tensor-core instance: zero-padded to ``coutp``
+    output channels (72 or 256) and cut into ``kc`` K-chunks (1 at 72, 2
+    at 256), each a ``pack_slabs`` slab of (256 / kc) x coutp. Element
+    (k, n) lies at ``((n // 8) * (K // 8) + (k % K) // 8) * 64 + (n % 8)
+    * 8 + k % 8`` of slab ``k // K``, K = 256 / kc."""
+    cin, cout = w.shape
+    if w.dtype != torch.bfloat16 or cin != 256 or coutp not in (72, 256) \
+            or cout > coutp:
+        raise ValueError(f"pack_head_1x1: bf16 (256, <= {coutp}) weights, "
+                         f"not {tuple(w.shape)} {w.dtype}")
+    kc = 1 if coutp == 72 else 2
+    w = torch.nn.functional.pad(w, (0, coutp - cout))
+    return pack_slabs(w.reshape(kc, cin // kc, coutp))
+
+
+def pack_rows(w: torch.Tensor, cout_pad: int) -> torch.Tensor:
+    """(cin, cout) weights of any dtype -> (cout_pad, cin): one row of
+    cin contiguous values per output channel, rows past cout zero. The
+    B operand layout of ``csrc/dot_bias_act.cu``'s N 72 instances
+    (``ldmatrix`` reads 8 rows x 16 bytes, an n8 x k16 or k32
+    fragment)."""
+    cin, cout = w.shape
+    return torch.nn.functional.pad(w.t(), (0, 0, 0, cout_pad - cout)).contiguous()
 
 
 def check_cuda(name: str, **tensors) -> None:

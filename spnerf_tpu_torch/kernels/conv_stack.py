@@ -12,7 +12,9 @@ Counterpart of ``spnerf_tpu/kernels/conv_stack_pallas.py``:
   take and return plain NHWC.
 * ``dot_bias_act`` replaces ``dot_bias_act_pallas`` with
   ``csrc/dot_bias_act.cu``: a per-row product with the same epilogue (the
-  unfused heads' 1x1 convs, and ``conv1_packed``'s patch product).
+  unfused heads' 1x1 convs on the tensor cores, and ``conv1_packed``'s
+  patch product). ``prepare_dot`` / ``prepare_conv1`` pack its operands
+  once (``DotOperands``); raw weights are packed on every call.
 * ``conv1_packed`` is the first VGG block on a float32 image as a 9-tap
   patch product, returning plain (B, H, W, 64).
 
@@ -23,6 +25,8 @@ launch adds one to the wrapper's count for its template instance.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -100,32 +104,91 @@ def packed_conv3x3(x, w, mult, bias, *, relu: bool = True,
     return _conv3x3("packed_conv3x3", x, w, mult, bias, relu, out_dtype, pool)
 
 
-def dot_bias_act_plain(x, w, mult, bias, *, relu=False,
+@dataclasses.dataclass(frozen=True)
+class DotOperands:
+    """``dot_bias_act``'s operands prepared once by ``prepare_dot``: the
+    raw weights (Cin, Cout), multiplier and bias (what the plain version
+    reads) and, where a kernel instance takes their shapes, the kernel's
+    layout of them: ``packed`` (int8 and bf16: ``pack_rows`` to ``coutp``
+    72, ``pack_slabs`` at 256; float32: the (9, 64) weights as they are)
+    and ``mult_p``, ``bias_p`` float32 zero-padded to ``coutp``."""
+
+    w: torch.Tensor
+    mult: torch.Tensor
+    bias: torch.Tensor
+    packed: torch.Tensor | None = None
+    mult_p: torch.Tensor | None = None
+    bias_p: torch.Tensor | None = None
+    coutp: int = 0
+
+
+# operand dtype -> (code, C_in, output dtypes) of the instances of
+# csrc/dot_bias_act.cu; C_out: 72 (<= 72 real lanes) or 256 on the
+# tensor cores, 64 for float32
+_DOT_KERNELS = {
+    torch.int8: (0, 256, (torch.bfloat16,)),
+    torch.bfloat16: (1, 256, (torch.bfloat16,)),
+    torch.float32: (2, 9, (torch.bfloat16, torch.int8)),
+}
+
+
+def _dot_width(dtype, cin, cout):
+    """The kernel's padded output width for these shapes, or None."""
+    if dtype not in _DOT_KERNELS or cin != _DOT_KERNELS[dtype][1]:
+        return None
+    if dtype == torch.float32:
+        return 64 if cout == 64 else None
+    return 72 if cout <= 72 else 256 if cout == 256 else None
+
+
+def prepare_dot(w, mult, bias) -> DotOperands:
+    """Pack ``dot_bias_act``'s weights, multiplier and bias once. Shapes
+    no kernel instance takes keep only the raw operands (the plain
+    version runs them; the kernel raises)."""
+    cin, cout = w.shape
+    coutp = _dot_width(w.dtype, cin, cout)
+    if coutp is None:
+        return DotOperands(w, mult, bias)
+    if w.dtype == torch.float32:
+        packed = w.contiguous()
+    elif coutp == 256:  # wgmma's K-major core matrices
+        packed = _build.pack_slabs(w)
+    else:  # rows for ldmatrix
+        packed = _build.pack_rows(w, coutp)
+    pad = (0, coutp - cout)
+    mp, bp = (F.pad(a.float(), pad).contiguous() for a in (mult, bias))
+    return DotOperands(w, mult, bias, packed, mp, bp, coutp)
+
+
+def _dot_operands(w, mult, bias):
+    """(DotOperands or None, (w, mult, bias))."""
+    if isinstance(w, DotOperands):
+        return w, (w.w, w.mult, w.bias)
+    return None, (w, mult, bias)
+
+
+def dot_bias_act_plain(x, w, mult=None, bias=None, *, relu=False,
                        out_dtype=torch.bfloat16):
     """Plain version of ``dot_bias_act``, on any device."""
+    _, (w, mult, bias) = _dot_operands(w, mult, bias)
     return cast_out(affine(dot_acc(x, w), mult.float(), bias.float(), relu),
                     out_dtype)
 
 
-# operand dtype -> (code, padded C_in, padded C_outs, output dtypes) of
-# the instances of csrc/dot_bias_act.cu
-_DOT_KERNELS = {
-    torch.int8: (0, 256, (128, 256), (torch.bfloat16,)),
-    torch.bfloat16: (1, 256, (128, 256), (torch.bfloat16,)),
-    torch.float32: (2, 12, (64,), (torch.bfloat16, torch.int8)),
-}
-
-
-def dot_bias_act(x, w, mult, bias, *, relu: bool = False,
+def dot_bias_act(x, w, mult=None, bias=None, *, relu: bool = False,
                  out_dtype=torch.bfloat16) -> torch.Tensor:
     """Per-row (..., Cin) @ (Cin, Cout) with ``cast(relu(acc * mult +
     bias))``: the 1x1 convs of the unfused heads (int8 or bf16 operands,
-    bf16 out) and conv1's patch product (float32 operands).
+    Cin 256, Cout <= 72 or 256, bf16 out) and conv1's patch product
+    (float32 operands, 9 -> 64, bf16 or int8 out).
 
-    mult/bias (Cout,) float32. Returns (..., Cout) ``out_dtype``. The
-    kernel pads C_in (to 256, or 12 for float32) and C_out (to 64, 128 or
-    256) inside; only the Cout real lanes are written.
+    ``w`` is a ``DotOperands`` from ``prepare_dot`` (mult and bias then
+    omitted), or the raw (Cin, Cout) weights with mult/bias (Cout,)
+    float32, packed on this call (the same bits). Returns (..., Cout)
+    ``out_dtype``. The kernel pads C_out inside; only the Cout real lanes
+    are written.
     """
+    ops, (w, mult, bias) = _dot_operands(w, mult, bias)
     lead, cin = x.shape[:-1], x.shape[-1]
     cout = w.shape[-1]
     if w.shape != (cin, cout) or w.dtype != x.dtype:
@@ -134,22 +197,22 @@ def dot_bias_act(x, w, mult, bias, *, relu: bool = False,
     if not x.is_cuda:
         return dot_bias_act_plain(x, w, mult, bias, relu=relu,
                                   out_dtype=out_dtype)
-    code, cinp, couts, outs = _DOT_KERNELS.get(x.dtype, (0, 0, (), ()))
-    coutp = next((c for c in couts if cout <= c), None)
-    if (cin > cinp or cin * x.element_size() % 4 or coutp is None
-            or out_dtype not in outs):
+    if ops is None:
+        ops = prepare_dot(w, mult, bias)
+    code, _, outs = _DOT_KERNELS.get(x.dtype, (0, 0, ()))
+    if ops.packed is None or out_dtype not in outs:
         raise ValueError(f"dot_bias_act: no kernel for {x.dtype} "
                          f"{cin} -> {cout} {out_dtype}")
     M = x.numel() // cin
-    pad = (0, coutp - cout)
-    m, b = (F.pad(a.float(), pad).contiguous() for a in (mult, bias))
-    wp = _build.pack_words(w, coutp, cinp)
     x = x.contiguous()
-    _build.check_cuda("dot_bias_act", x=x, w=wp, mult=m, bias=b)
+    _build.check_cuda("dot_bias_act", x=x, w=ops.packed, mult=ops.mult_p,
+                      bias=ops.bias_p)
     out = torch.empty((*lead, cout), dtype=out_dtype, device=x.device)
-    _build.launch("dot_bias_act", "dot_bias_act_launch", x, wp, m, b, out, M,
-                  cin, code, cinp, coutp, cout, int(relu),
-                  int(out_dtype == torch.int8))
+    if M == 0:
+        return out
+    _build.launch("dot_bias_act", "dot_bias_act_launch", x, ops.packed,
+                  ops.mult_p, ops.bias_p, out, M, cin, code, ops.coutp, cout,
+                  int(relu), int(out_dtype == torch.int8))
     _build.launch_counts[f"dot_bias_act[{_DTYPE_NAME[x.dtype]}-{cin}-{cout}"
                          + ("-relu]" if relu else "]")] += 1
     return out
@@ -164,19 +227,36 @@ def conv1_patches(image: torch.Tensor) -> torch.Tensor:
                         for dy in range(3) for dx in range(3)], dim=-1)
 
 
-def conv1_packed_plain(image, w1, mult, bias, *, out_dtype=torch.int8):
+def prepare_conv1(w1, mult, bias) -> DotOperands:
+    """``prepare_dot`` of conv1's (3, 3, 1, Cout) weights as the (9, Cout)
+    float32 patch product ``conv1_packed`` runs."""
+    return prepare_dot(w1.float().reshape(9, -1), mult, bias)
+
+
+def _conv1_operands(w1, mult, bias):
+    if isinstance(w1, DotOperands):
+        return (w1,)
+    return w1.float().reshape(9, -1), mult, bias
+
+
+def conv1_packed_plain(image, w1, mult=None, bias=None, *,
+                       out_dtype=torch.int8):
     """Plain version of ``conv1_packed``, on any device."""
-    return dot_bias_act_plain(conv1_patches(image), w1.float().reshape(9, -1),
-                              mult, bias, relu=True, out_dtype=out_dtype)
+    return dot_bias_act_plain(conv1_patches(image),
+                              *_conv1_operands(w1, mult, bias), relu=True,
+                              out_dtype=out_dtype)
 
 
-def conv1_packed(image, w1, mult, bias, *, out_dtype=torch.int8):
+def conv1_packed(image, w1, mult=None, bias=None, *, out_dtype=torch.int8):
     """First VGG block on a float32 grayscale image: (B, H, W, 1) ->
     (B, H, W, Cout) ``cast(relu(conv(image, w1) * mult + bias))``, as one
     float32 (M, 9) @ (9, Cout) patch product through ``dot_bias_act``.
+    ``w1`` is the (3, 3, 1, Cout) kernel with mult/bias, or a
+    ``DotOperands`` from ``prepare_conv1``.
 
     The contract of ``conv_stack_pallas.conv1_packed``; its output is
     W-pair packed (B, H, W/2, 2 Cout), this one plain NHWC.
     """
-    return dot_bias_act(conv1_patches(image), w1.float().reshape(9, -1),
-                        mult, bias, relu=True, out_dtype=out_dtype)
+    return dot_bias_act(conv1_patches(image),
+                        *_conv1_operands(w1, mult, bias), relu=True,
+                        out_dtype=out_dtype)

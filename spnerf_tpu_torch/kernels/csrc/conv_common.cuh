@@ -1,12 +1,15 @@
-// Shared device code of the SuperPoint serving kernels (sm_90a).
+// Shared device code of the SuperPoint serving kernels (sm_90a): the
+// int8 instances of conv12_fused.cu, double_conv3x3.cu, conv3x3.cu and
+// head.cu, and the epilogue helpers (affine, cast_out, store_vals) of
+// every instance. The bf16 instances run on the tensor cores through
+// conv_tc.cuh (3x3 convs, head.cu) or mma.sync (dot_bias_act.cu); their
+// headers state their numerics.
 //
-// Layout: NHWC activations of one operand type T: int8, bf16 or float32.
-// Weights are pre-packed by the Python wrappers as 32-bit words
-// [tap][cin / per_word][cout], each word holding per_word consecutive
-// input channels of one output channel (int8: 4, bf16: 2, float32: 1),
-// the same packing as a pixel's channels in memory. One word of a pixel
-// times the matching weight word is one __dp4a (int8, int32 sums) or one
-// or two float32 FMAs (bf16, float32 sums).
+// Layout: NHWC int8 activations. Weights are pre-packed by the Python
+// wrappers as 32-bit words [tap][cin / 4][cout], each word holding 4
+// consecutive input channels of one output channel, the same packing as
+// a pixel's channels in memory. One word of a pixel times the matching
+// weight word is one __dp4a (int32 sums).
 //
 // Thread mapping of every conv stage: a warp owns a chunk of P pixels and
 // all COUT output channels; lane l holds channels [l*Q, l*Q + Q) with
@@ -17,13 +20,7 @@
 // Numerics. int8 matches the reference's int8 chain bit for bit: int32
 // accumulation, then float32 acc * mult and + bias as two separately
 // rounded operations (no FMA contraction), then round half to even and
-// clip to +-127. bf16 (head.cu and dot_bias_act.cu; the bf16 3x3 convs of
-// conv3x3.cu and double_conv3x3.cu run on the tensor cores through
-// conv_tc.cuh, whose header states their numerics): every product of two
-// bf16 values is exact in float32, so an FMA adds it with one rounding;
-// the sum runs over taps, then channels, in a fixed order (the same bits
-// every run), and the affine and the bf16 rounding (to nearest even)
-// follow as for int8.
+// clip to +-127.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,25 +41,6 @@ struct Op<int8_t> {
   using Acc = int;
   static __device__ __forceinline__ int dot(int x, int w, int acc) {
     return __dp4a(x, w, acc);
-  }
-};
-
-template <>
-struct Op<__nv_bfloat16> {
-  using Acc = float;
-  // low half: channel 2k, high half: channel 2k + 1
-  static __device__ __forceinline__ float dot(int x, int w, float acc) {
-    const unsigned ux = static_cast<unsigned>(x), uw = static_cast<unsigned>(w);
-    acc = fmaf(__uint_as_float(ux << 16), __uint_as_float(uw << 16), acc);
-    return fmaf(__uint_as_float(ux & 0xffff0000u), __uint_as_float(uw & 0xffff0000u), acc);
-  }
-};
-
-template <>
-struct Op<float> {
-  using Acc = float;
-  static __device__ __forceinline__ float dot(int x, int w, float acc) {
-    return fmaf(__int_as_float(x), __int_as_float(w), acc);
   }
 };
 

@@ -38,10 +38,16 @@ from spnerf_tpu_torch.kernels.conv_stack import (
     conv3x3,
     dot_bias_act,
     packed_conv3x3,
+    prepare_conv1,
+    prepare_dot,
 )
 from spnerf_tpu_torch.kernels.mid_fused import double_packed_conv3x3
 from spnerf_tpu_torch.kernels.requant import affine, cast_out, maxpool2x2
-from spnerf_tpu_torch.kernels.tail_fused import double_conv3x3, head
+from spnerf_tpu_torch.kernels.tail_fused import (
+    double_conv3x3,
+    head,
+    prepare_head,
+)
 from spnerf_tpu_torch.models.superpoint import fold_batch_norm
 from spnerf_tpu_torch.ops.quantization import quantize_weights
 
@@ -106,6 +112,7 @@ class ServingSuperPoint:
                 name: quantize_weights(self.params[name]["kernel"])
                 for name in self.conv_names(has_descriptor)
                 if name != "backbone/block1" and not self._head_is_bf16(name)}
+        self._prepare()
 
     @classmethod
     def conv_names(cls, has_descriptor):
@@ -113,6 +120,36 @@ class ServingSuperPoint:
 
     def _head_is_bf16(self, name):
         return self.mode == "mixed" and name in self._HEAD_NAMES
+
+    def _heads(self):
+        """(conv_a, conv_b, output key) of each head."""
+        heads = [("detector/convPa", "detector/convPb", "logits")]
+        if self.has_descriptor:
+            heads.append(("descriptor/convDa", "descriptor/convDb",
+                          "desc_raw"))
+        return heads
+
+    def _prepare(self):
+        """Pack the heads' and conv1's kernel operands once per model
+        (after calibration): the fused tail's ``head`` operands, or the
+        per-layer route's 3x3 operands and 1x1 ``dot_bias_act`` operands;
+        in bf16 mode conv1's patch product. The heads' input scale is
+        block 8's in int8 mode (the chain's last), none in bf16 and mixed
+        (the dequantized bf16 input)."""
+        s_in = (self.act_scales["backbone/block8"] if self.mode == "int8"
+                else None)
+        self.head_ops = {}
+        for conv_a, conv_b, key in self._heads():
+            w, mult, bias, s_a = self._wmb(conv_a, s_in)
+            wh, mh, bh = self._head_wmb(conv_b, s_a)
+            self.head_ops[key] = (
+                prepare_head(w, mult, bias, wh, mh, bh) if self.fused_tail
+                else ((w, mult, bias), prepare_dot(wh, mh, bh)))
+        self.conv1_ops = None
+        if self.mode == "bf16":
+            node = self.params["backbone/block1"]
+            self.conv1_ops = prepare_conv1(
+                node["kernel"], torch.ones_like(node["bias"]), node["bias"])
 
     # ------------------------------------------------------------ building
 
@@ -198,11 +235,11 @@ class ServingSuperPoint:
         bf16-rounded image and kernel (TF32 off) in chunks of that size,
         then the affine, ReLU and cast, as the reference computes this
         branch outside any kernel."""
+        if image.shape[0] <= CONV1_KERNEL_MAX_BATCH:
+            return conv1_packed(image, self.conv1_ops,
+                                out_dtype=torch.bfloat16)
         node = self.params["backbone/block1"]
         mult, bias = torch.ones_like(node["bias"]), node["bias"]
-        if image.shape[0] <= CONV1_KERNEL_MAX_BATCH:
-            return conv1_packed(image, node["kernel"], mult, bias,
-                                out_dtype=torch.bfloat16)
         kernel = node["kernel"].to(torch.bfloat16).float().permute(3, 2, 0, 1)
         chunks = []
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
@@ -280,21 +317,16 @@ class ServingSuperPoint:
             x = x.to(torch.bfloat16) * s_prev.to(torch.bfloat16)
             s_prev = None
 
-        heads = [("detector/convPa", "detector/convPb", "logits")]
-        if self.has_descriptor:
-            heads.append(("descriptor/convDa", "descriptor/convDb",
-                          "desc_raw"))
         out = {}
-        for conv_a, conv_b, key in heads:
-            w, mult, bias, s_a = self._wmb(conv_a, s_prev)
-            wh, mh, bh = self._head_wmb(conv_b, s_a)
+        for _, _, key in self._heads():
             if not self.fused_tail:
+                (w, mult, bias), dot_ops = self.head_ops[key]
                 mid = conv3x3(x, w, mult, bias, out_dtype=act_head)
-                out[key] = dot_bias_act(mid, wh, mh, bh, relu=False,
+                out[key] = dot_bias_act(mid, dot_ops, relu=False,
                                         out_dtype=torch.bfloat16)
             elif softmax and key == "logits":
-                out["probs"] = head(x, w, mult, bias, wh, mh, bh,
-                                    softmax_lanes=wh.shape[-1])
+                ops = self.head_ops[key]
+                out["probs"] = head(x, ops, softmax_lanes=ops.w1.shape[-1])
             else:
-                out[key] = head(x, w, mult, bias, wh, mh, bh)
+                out[key] = head(x, self.head_ops[key])
         return out

@@ -1,0 +1,284 @@
+"""Device time of the serving heads' kernels apart from their wrappers'
+host work, on the card.
+
+    python -m spnerf_tpu_torch.tools.kernel_times [--out PATH] [--routes]
+
+For each case (``dot_bias_act`` at the shapes of the per-layer route at
+batch 8, 480 x 640; ``head`` bf16 at batch 64 and at the HA export's
+80 views of 30 x 40 cells) it prints, in ms per call:
+
+* ``wrapper``: CUDA events around one call of the wrapper, median of 20
+  (what the ``ms`` of ``chip_smoke.py``'s kernel rows measures);
+* ``back_to_back``: events around 20 calls in a row, over 20;
+* ``device``: the kernels the profiler (``torch.profiler``, CUDA
+  activity) saw in 20 calls, over 20, each by its symbol; the kernel's
+  own symbol apart from the padding and packing launches of a raw call.
+
+Raw calls (weights packed on every call) always; calls on operands
+prepared once (``prepare_dot``, ``prepare_head``) where the wrappers
+offer them. Inputs are seeded; weights random. ``--out`` writes the
+results as JSON. Without a card it exits non-zero.
+
+``--routes`` times the serving routes end to end instead, through the
+public entry points only (``build_inference``, ``ServingSuperPoint``),
+so that the same script can time two versions of the package in one
+call: ms per request (host clock around a request that ends in a
+synchronize, median of 10 after 2 warm-ups) and frames/s at batch 64
+(int8, bf16, mixed, fused) and batch 8 (int8 and bf16 per-layer), 480 x
+640, full-width SuperPoint from seed 0, det_thresh 0.015, top_k 1024;
+and the forward of HA's mixed route (MagicPoint, 80 views of 240 x 320,
+CUDA events, median of 5).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+REPS = 20
+
+
+def _events_ms(fn, reps: int, per_call: bool) -> float:
+    """Median over ``reps`` single calls (``per_call``), or one span of
+    ``reps`` calls in a row over ``reps``; CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    if not per_call:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_kernels(fn, reps: int = REPS) -> dict:
+    """{kernel symbol: (device ms per call, launches per call seen)} of
+    what ``fn`` launches, from ``torch.profiler`` over ``reps`` calls
+    (after one warm-up call). The profiler may drop a few of a short
+    kernel's records, so a symbol's time per call is its mean time per
+    record seen times its whole launches per call (at least one). An
+    empty dict if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    seen = {}
+    for event in prof.key_averages():
+        us = getattr(event, "self_device_time_total", None)
+        if us is None:
+            us = getattr(event, "self_cuda_time_total", 0)
+        if us > 0:
+            total, n = seen.get(event.key, (0.0, 0))
+            seen[event.key] = (total + us / 1e3, n + event.count)
+    return {key: (total / n * max(1, round(n / reps)), n / reps)
+            for key, (total, n) in seen.items()}
+
+
+def device_ms(fn, symbol: str | None = None, reps: int = REPS):
+    """(device ms per call, how): the profiler's time of the kernels whose
+    symbol holds ``symbol`` (all kernels when None), with the launches
+    per call it saw of them; where it sees no device time, CUDA events
+    around ``reps`` calls in a row."""
+    kernels = device_kernels(fn, reps)
+    if kernels:
+        mine = [v for name, v in kernels.items()
+                if symbol is None or symbol in name]
+        return (sum(ms for ms, _ in mine),
+                f"profiler, {sum(n for _, n in mine):g} launches per call "
+                "seen")
+    return _events_ms(fn, reps, per_call=False), "events"
+
+
+def _short(symbol: str) -> str:
+    name = symbol.replace("(anonymous namespace)::", "").replace("void ", "")
+    return name.split("(")[0][:90]
+
+
+def _cases(gen_seed: int = 0):
+    """(label, raw call, prepared call or None, kernel symbol)."""
+    from spnerf_tpu_torch.kernels import conv_stack as S
+    from spnerf_tpu_torch.kernels import tail_fused as T
+
+    rng = np.random.default_rng(gen_seed)
+
+    def t(a, dtype=None):
+        x = torch.from_numpy(np.ascontiguousarray(a)).cuda()
+        return x if dtype is None else x.to(dtype)
+
+    def act(shape, dtype):
+        if dtype == torch.int8:
+            return t(rng.integers(-127, 128, shape).astype(np.int8))
+        return t(rng.uniform(0, 1, shape).astype(np.float32), dtype)
+
+    def weights(shape, dtype):
+        if dtype == torch.int8:
+            return t(rng.integers(-127, 128, shape).astype(np.int8))
+        return t((rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1])))
+                 .astype(np.float32), dtype)
+
+    def mb(c):
+        return (t(rng.uniform(2e-5, 1e-4, c).astype(np.float32)),
+                t(rng.uniform(-1, 1, c).astype(np.float32)))
+
+    prep_dot = getattr(S, "prepare_dot", None)
+    prep_conv1 = getattr(S, "prepare_conv1", None)
+    prep_head = getattr(T, "prepare_head", None)
+    M = 8 * 60 * 80
+    for dtype, name in ((torch.int8, "int8"), (torch.bfloat16, "bf16")):
+        for cout in (65, 256):
+            x, w = act((M, 256), dtype), weights((256, cout), dtype)
+            m, b = mb(cout)
+            ops = prep_dot(w, m, b) if prep_dot else None
+            yield (f"dot_bias_act[{name}-256-{cout}] M {M}",
+                   lambda x=x, w=w, m=m, b=b: S.dot_bias_act(x, w, m, b),
+                   None if ops is None else
+                   (lambda x=x, ops=ops: S.dot_bias_act(x, ops)), "dot")
+    image = t(rng.uniform(0, 1, (8, 480, 640, 1)).astype(np.float32))
+    w1 = t((rng.standard_normal((3, 3, 1, 64)) / 3).astype(np.float32))
+    ones, b1 = torch.ones(64, device="cuda"), mb(64)[1]
+    ops1 = prep_conv1(w1, ones, b1) if prep_conv1 else None
+    kw = {"out_dtype": torch.bfloat16}
+    yield ("conv1_packed[f32-9-64-relu] M 2457600",
+           lambda: S.conv1_packed(image, w1, ones, b1, **kw),
+           None if ops1 is None else
+           (lambda: S.conv1_packed(image, ops1, **kw)), "dot")
+    for (B, Hc, Wc), cout, soft in (((64, 60, 80), 65, True),
+                                    ((64, 60, 80), 256, False),
+                                    ((80, 30, 40), 65, False)):
+        x = act((B, Hc, Wc, 128), torch.bfloat16)
+        w3 = weights((3, 3, 128, 256), torch.bfloat16)
+        wh = weights((256, cout), torch.bfloat16)
+        ones3, b3 = torch.ones(256, device="cuda"), mb(256)[1]
+        onesh, bh = torch.ones(cout, device="cuda"), mb(cout)[1]
+        raw = (w3, ones3, b3, wh, onesh, bh)
+        kw = {"softmax_lanes": cout} if soft else {}
+        ops = prep_head(*raw) if prep_head else None
+        label = (f"head[bf16-{cout}{'-softmax' if soft else ''}] "
+                 f"{B}x{Hc}x{Wc}")
+        yield (label, lambda x=x, raw=raw, kw=kw: T.head(x, *raw, **kw),
+               None if ops is None else
+               (lambda x=x, ops=ops, kw=kw: T.head(x, ops, **kw)), "head")
+
+
+ROUTES = [  # label, mode, fused, batch
+    ("slice", "int8", True, 64), ("slice-bf16", "bf16", True, 64),
+    ("slice-mixed", "mixed", True, 64), ("slice-unfused", "int8", False, 8),
+    ("slice-unfused", "bf16", False, 8)]
+
+
+def route_times() -> list:
+    """ms per request of each route of ROUTES, and HA's mixed forward."""
+    import time
+
+    from spnerf_tpu_torch.kernels import _build
+    from spnerf_tpu_torch.models.superpoint import (
+        SuperPointConfig,
+        init_superpoint,
+    )
+    from spnerf_tpu_torch.ops.fast_inference import build_inference
+    from spnerf_tpu_torch.ops.serving import ServingSuperPoint
+
+    _build.build_all(["conv12_fused", "double_conv3x3", "head", "conv3x3",
+                      "dot_bias_act"])
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cfg = SuperPointConfig(det_thresh=0.015)
+    model = init_superpoint(0, cfg, device="cuda")
+    images = torch.rand((64, 480, 640, 1), generator=gen, device="cuda")
+    rows = []
+    for label, mode, fused, batch in ROUTES:
+        infer = build_inference(cfg, model, images[:8], mode=mode,
+                                fused_mid=fused, fused_tail=fused,
+                                device="cuda", top_k=1024)
+        x = images[:batch].contiguous()
+        times = []
+        for i in range(12):
+            t0 = time.perf_counter()
+            infer(x)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        rows.append({"route": label, "mode": mode, "batch": batch,
+                     "ms_per_request": ms, "frames_per_s": batch / ms * 1e3,
+                     "ms_all": times})
+        print(json.dumps(rows[-1]), flush=True)
+        del infer
+    mp_cfg = SuperPointConfig(model_name="magicpoint")
+    mp = init_superpoint(3, mp_cfg, device="cuda")
+    views = torch.rand((80, 240, 320, 1), generator=gen, device="cuda")
+    sp = ServingSuperPoint.build(mp_cfg, mp, views[:8], mode="mixed",
+                                 device="cuda")
+    with torch.no_grad():
+        fwd = [_events_ms(lambda: sp(views), 1, per_call=True)
+               for _ in range(5)]
+    rows.append({"route": "ha-mixed-forward", "mode": "mixed", "batch": 80,
+                 "ms_per_forward": statistics.median(fwd), "ms_all": fwd})
+    print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--out", help="write the results here as JSON")
+    parser.add_argument("--routes", action="store_true",
+                        help="time the serving routes end to end")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    if args.routes:
+        results = route_times()
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"card": card, "routes": results}, f, indent=1)
+        return 0
+    results = []
+    for label, raw, prepared, symbol in _cases():
+        for kind, fn in (("raw", raw), ("prepared", prepared)):
+            if fn is None:
+                continue
+            kernels = device_kernels(fn)
+            own = sum(ms for k, (ms, _) in kernels.items() if symbol in k)
+            row = {"case": label, "call": kind,
+                   "wrapper_ms": _events_ms(fn, REPS, per_call=True),
+                   "back_to_back_ms": _events_ms(fn, REPS, per_call=False),
+                   "device_ms": own if kernels else None,
+                   "device_all_ms": (sum(ms for ms, _ in kernels.values())
+                                     if kernels else None),
+                   "kernels": {_short(k): v for k, v in kernels.items()}}
+            results.append(row)
+            print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "results": results}, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -608,3 +608,177 @@ def test_desc_sample_raises_on_what_the_kernel_does_not_take(card):
         sample_descriptors_fused(
             torch.zeros(1 * 4 * 4 * 8 + 1, device="cuda")[1:].reshape(
                 1, 4, 4, 8), pts)
+
+
+# the tensor-core instances of head.cu (bf16) and dot_bias_act.cu (int8,
+# bf16) and its float32 conv1 instance: shapes of the serving path and
+# ragged ones (H not a multiple of the 8 x 16 tile, M not a multiple of
+# the 64- or 256-row tile)
+HEAD_TC_SHAPES = {"2x60x80": (2, 60, 80), "1x30x40": (1, 30, 40),
+                  "3x12x20": (3, 12, 20), "1x7x13": (1, 7, 13)}
+HEAD_TC_KINDS = {"65-softmax": (65, True), "65": (65, False),
+                 "256": (256, False)}
+DOT_TC_ROWS = (1, 63, 65, 129, 37920, 38400)
+CONV1_SHAPES = {"M1": (1, 1, 1), "M63": (1, 7, 9), "M65": (1, 5, 13),
+                "M129": (1, 3, 43), "M37920": (8, 60, 79)}
+
+
+def _bf16_card(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).cuda().to(torch.bfloat16)
+
+
+def _head_tc_operands(rng, cout):
+    w3 = _bf16_card(rng.standard_normal((3, 3, 128, 256)) / np.sqrt(9 * 128))
+    w1 = _bf16_card(rng.standard_normal((256, cout)) / 16)
+    b3 = torch.from_numpy((rng.standard_normal(256) * 0.1).astype(np.float32))
+    b1 = torch.from_numpy(rng.uniform(-1, 1, cout).astype(np.float32) * 10)
+    return (w3, torch.ones(256, device="cuda"), b3.cuda(), w1,
+            torch.ones(cout, device="cuda"), b1.cuda())
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int8), b.view(torch.int8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(HEAD_TC_SHAPES))
+@pytest.mark.parametrize("kind", list(HEAD_TC_KINDS))
+def test_head_tc_matches_plain_on_card(card, kind, shape):
+    """The bf16 head on the tensor cores against its plain version: within
+    2 ulps, at most 0.1% beyond 1, at the chains' floor of 1/4 of the
+    largest magnitude (the bf16 mid); prepared and raw calls, and two
+    launches, give the same bits."""
+    from spnerf_tpu_torch.kernels import _build
+    from spnerf_tpu_torch.kernels.tail_fused import prepare_head
+
+    cout, softmax = HEAD_TC_KINDS[kind]
+    rng = np.random.default_rng(30 + cout)
+    x = _bf16_card(rng.uniform(0, 1, (*HEAD_TC_SHAPES[shape], 128)))
+    raw = _head_tc_operands(rng, cout)
+    kw = {"softmax_lanes": 65} if softmax else {}
+    ops = prepare_head(*raw)
+    before = sum(_build.launch_counts.values())
+    got = head(x, ops, **kw)
+    again = head(x, ops, **kw)
+    from_raw = head(x, *raw, **kw)
+    torch.cuda.synchronize()
+    assert sum(_build.launch_counts.values()) == before + 3
+    assert _same_bits(got, again) and _same_bits(got, from_raw)
+    want = head_plain(x, *raw, **kw)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    d = _bf16_scaled_ulps(got, want, 2.0 ** -2)
+    share = float((d > 1).float().mean())
+    print(f"head {kind} {shape}: max {float(d.max())} ulps, {share:.3e} "
+          "beyond 1")
+    assert float(d.max()) <= 2 and share <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", DOT_TC_ROWS)
+@pytest.mark.parametrize("cout", [65, 256])
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+def test_dot_tc_matches_plain_on_card(card, dtype, cout, M):
+    """``dot_bias_act`` on the tensor cores against its plain version: int8
+    equal, bf16 within 2 ulps with at most 0.1% beyond 1 (floor 1/256);
+    prepared and raw calls, and two launches, give the same bits."""
+    from spnerf_tpu_torch.kernels import conv_stack as S
+
+    rng = np.random.default_rng(M + cout)
+    if dtype == "int8":
+        x = torch.from_numpy(_int8(rng, (M, 256))).cuda()
+        w = torch.from_numpy(_int8(rng, (256, cout))).cuda()
+        m, b = (torch.from_numpy(a).cuda() for a in _mb(rng, cout, 2e-5, 1e-4))
+    else:
+        x = _bf16_card(rng.uniform(0, 1, (M, 256)))
+        w = _bf16_card(rng.standard_normal((256, cout)) / 16)
+        m = torch.ones(cout, device="cuda")
+        b = torch.from_numpy((rng.standard_normal(cout) * 0.1).astype(
+            np.float32)).cuda()
+    ops = S.prepare_dot(w, m, b)
+    got = S.dot_bias_act(x, ops)
+    again = S.dot_bias_act(x, ops)
+    from_raw = S.dot_bias_act(x, w, m, b)
+    torch.cuda.synchronize()
+    assert _same_bits(got, again) and _same_bits(got, from_raw)
+    want = S.dot_bias_act_plain(x, w, m, b)
+    assert got.shape == want.shape == (M, cout)
+    if dtype == "int8":
+        assert torch.equal(got, want)
+        return
+    d = _bf16_scaled_ulps(got, want, 2.0 ** -8)
+    share = float((d > 1).float().mean())
+    assert float(d.max()) <= 2 and share <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", ["bf16", "int8"])
+@pytest.mark.parametrize("shape", list(CONV1_SHAPES))
+def test_conv1_f32_matches_plain_on_card(card, shape, out):
+    """conv1's float32 patch product: bf16 out within 2 ulps (floor
+    1/256), at most 0.1% beyond 1; int8 out within 1 (float32 FMAs in tap
+    order against float64 sums rounded once: a value a rounding away from
+    a half rounds the other way); prepared and raw calls, and two
+    launches, give the same bits."""
+    from spnerf_tpu_torch.kernels import conv_stack as S
+
+    rng = np.random.default_rng(50)
+    B, H, W = CONV1_SHAPES[shape]
+    image = torch.from_numpy(rng.uniform(0, 1, (B, H, W, 1)).astype(
+        np.float32)).cuda()
+    w1 = torch.from_numpy((rng.standard_normal((3, 3, 1, 64)) / 3).astype(
+        np.float32)).cuda()
+    if out == "bf16":
+        dt, m = torch.bfloat16, torch.ones(64, device="cuda")
+        b = torch.from_numpy((rng.standard_normal(64) * 0.1).astype(
+            np.float32)).cuda()
+    else:
+        dt = torch.int8
+        m = torch.full((64,), 40.0, device="cuda")
+        b = torch.from_numpy((rng.standard_normal(64) * 5).astype(
+            np.float32)).cuda()
+    ops = S.prepare_conv1(w1, m, b)
+    got = S.conv1_packed(image, ops, out_dtype=dt)
+    again = S.conv1_packed(image, ops, out_dtype=dt)
+    from_raw = S.conv1_packed(image, w1, m, b, out_dtype=dt)
+    torch.cuda.synchronize()
+    assert _same_bits(got, again) and _same_bits(got, from_raw)
+    want = S.conv1_packed_plain(image, w1, m, b, out_dtype=dt)
+    assert got.shape == want.shape == (B, H, W, 64)
+    if out == "int8":
+        assert int((got.int() - want.int()).abs().max()) <= 1
+        return
+    d = _bf16_scaled_ulps(got, want, 2.0 ** -8)
+    assert float(d.max()) <= 2 and float((d > 1).float().mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_tc_head_and_dot_raise_on_what_they_do_not_take(card):
+    from spnerf_tpu_torch.kernels import conv_stack as S
+    from spnerf_tpu_torch.kernels.tail_fused import prepare_head
+
+    rng = np.random.default_rng(60)
+    x = torch.zeros(1, 8, 16, 128, dtype=torch.bfloat16, device="cuda")
+    raw = _head_tc_operands(rng, 256)
+    with pytest.raises(ValueError, match="no kernel"):
+        head(x, *raw, softmax_lanes=256)  # the softmax takes 65 lanes
+    w3, m3, b3 = _bf16_card(np.zeros((3, 3, 128, 128))), *raw[1:3]
+    with pytest.raises(ValueError, match="no kernel"):
+        head(x, w3, m3[:128], b3[:128], raw[3][:128], *raw[4:])  # CM 128
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        head(x, prepare_head(*(t.cpu() for t in raw)))
+    ones, zeros = torch.ones(256, device="cuda"), torch.zeros(256, device="cuda")
+    xb = torch.zeros(5, 256, dtype=torch.bfloat16, device="cuda")
+    for cin, cout in ((256, 100), (128, 64)):  # no N 100; no K 128
+        with pytest.raises(ValueError, match="no kernel"):
+            S.dot_bias_act(xb[:, :cin],
+                           torch.zeros(cin, cout, dtype=torch.bfloat16,
+                                       device="cuda"), ones[:cout],
+                           zeros[:cout])
+    with pytest.raises(ValueError, match="no kernel"):  # no int8 out
+        S.dot_bias_act(xb, torch.zeros(256, 64, dtype=torch.bfloat16,
+                                       device="cuda"), ones[:64], zeros[:64],
+                       out_dtype=torch.int8)
+    with pytest.raises(ValueError, match="no kernel"):  # float32 takes K 9
+        S.dot_bias_act(torch.zeros(5, 12, device="cuda"),
+                       torch.zeros(12, 64, device="cuda"), ones[:64],
+                       zeros[:64])
