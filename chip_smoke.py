@@ -36,11 +36,14 @@ Phases, each of which raises on failure (nothing is caught):
    ``library_device_ms``): the device time alone, by ``torch.profiler``
    over 20 calls, beside the wrapper's ``ms`` (CUDA events around one
    call, host work included);
-5b'. hold the tensor-core head (bf16, at 80 x 30 x 40 and 1 x 7 x 13) and
+5b'. hold the tensor-core head (bf16, at 80 x 30 x 40 and 1 x 7 x 13),
    ``dot_bias_act`` (int8 equal, bf16; and conv1's float32 instance; at
-   M 1, 63, 65, 129 and 37,920) against their plain versions, on
-   operands prepared once, a call on raw weights and a second launch
-   giving the same bits;
+   M 1, 63, 65, 129 and 37,920) and ``conv12_fused`` on the int8 tensor
+   cores (equal; at 1 x 7 x 13 unpooled, 2 x 40 x 56 pooled and not, 3 x
+   34 x 632 pooled) against their plain versions, on operands prepared
+   once, a call on raw weights and a second launch giving the same bits;
+   and the warp at W 52-55 and 131 (N = 3 B, a zero denominator) within
+   1e-6;
 5c. hold the bf16, mixed and unfused graphs on the card against the CPU
    plain path at 2 x 32 x 64 and 2 x 32 x 56;
 5d. count the images of the int8 requests that hold a run of equal
@@ -76,8 +79,9 @@ Phases, each of which raises on failure (nothing is caught):
    images/s and split one batch into its parts by CUDA events;
 7. hold the warp kernel against its plain version on the operands HA
    gives it (image warp and probability unwarp, bf16 and int8), and the
-   int8 kernels on the shapes route (b) gives them, with times, bounds
-   and ``F.grid_sample`` as the warp's yardstick;
+   int8 kernels on the shapes route (b) gives them, with times (around
+   the call and the device time alone), bounds and ``F.grid_sample`` as
+   the warp's yardstick;
 8. run HA on 2 images of 64 x 80 by the int8 route on the card and on
    the CPU plain path (same weights, scales and homographies): heatmaps
    within 1e-6, keypoint sets equal;
@@ -162,6 +166,7 @@ from spnerf_tpu_torch.kernels import desc_sample as ds
 from spnerf_tpu_torch.kernels import descriptor_loss as dl
 from spnerf_tpu_torch.kernels import render as rk
 from spnerf_tpu_torch.kernels import tail_fused
+from spnerf_tpu_torch.kernels import conv12_fused as c12
 from spnerf_tpu_torch.kernels.conv12_fused import conv12_fused_plain
 from spnerf_tpu_torch.kernels.mid_fused import double_conv3x3_plain
 from spnerf_tpu_torch.kernels.tail_fused import head_plain
@@ -493,12 +498,13 @@ def nbytes(*tensors) -> int:
 
 def raw_args(args) -> tuple:
     """A call's arguments with prepared operands (``DotOperands``,
-    ``HeadOperands``) expanded into their raw tensors."""
+    ``HeadOperands``, ``Conv12Operands``) expanded into their raw
+    tensors."""
     out = []
     for a in args:
         if isinstance(a, conv_stack.DotOperands):
             out += [a.w, a.mult, a.bias]
-        elif isinstance(a, tail_fused.HeadOperands):
+        elif isinstance(a, (tail_fused.HeadOperands, c12.Conv12Operands)):
             out += list(a.raw)
         else:
             out.append(a)
@@ -941,13 +947,20 @@ def phase_slice_routes(model, cfg, requests, peaks):
 # not a multiple of their 64- or 256-row tiles
 REDESIGNED_HEAD_SHAPES = [(80, 30, 40), (1, 7, 13)]
 REDESIGNED_DOT_ROWS = [1, 63, 65, 129, 37920]
+# conv12 on the int8 tensor cores off the 16 x 32 output tile ((B, H, W),
+# pool): odd H and W unpooled, ragged tiles, W 632 of the narrow route;
+# the warp at W % 4 in {0, 1, 2, 3} around its 128-column tile, 19 rows
+REDESIGNED_CONV12 = [((1, 7, 13), False), ((2, 40, 56), True),
+                     ((2, 40, 56), False), ((3, 34, 632), True)]
+REDESIGNED_WARP_WIDTHS = [52, 53, 54, 55, 131]
 
 
 def phase_redesigned():
     """Each redesigned instance against its plain version (int8 products
-    equal; bf16 by ``compare``'s bounds, the head at the chains' floor),
-    on operands prepared once; a call on the raw weights and a second
-    launch must give the same bits."""
+    and conv12 equal; bf16 by ``compare``'s bounds, the head at the
+    chains' floor), on operands prepared once; a call on the raw weights
+    and a second launch must give the same bits. Then the warp at
+    REDESIGNED_WARP_WIDTHS (N = 3 B, a zero denominator) within 1e-6."""
     rng = np.random.default_rng(SEED + 12)
 
     def card(a, dtype=None):
@@ -965,6 +978,8 @@ def phase_redesigned():
         if kind == "int8" and not torch.equal(got, want):
             raise AssertionError(f"{label}: int8 product differs from its "
                                  "plain version")
+        if got.dtype == torch.int8:
+            return f"{label} equal"
         _, share, over_1 = compare(label, got, want, float_operands=True,
                                    chain=kind == "head")
         return f"{label} {share:.2e}/{over_1:.2e}"
@@ -1010,9 +1025,39 @@ def phase_redesigned():
                     conv_stack.dot_bias_act, conv_stack.dot_bias_act_plain,
                     x, conv_stack.prepare_dot(*raw), raw,
                     {"relu": dtype == "f32"}, dtype))
+    s1 = np.float32(0.02)
+    for (B, h, w), pool in REDESIGNED_CONV12:
+        image = card(rng.uniform(0, 1, (B, h, w, 1)).astype(np.float32))
+        raw = (card((rng.standard_normal((3, 3, 1, 64)) * 0.3).astype(
+                   np.float32)),
+               card(np.full((64,), np.float32(1.0) / (np.float32(127.0) * s1))),
+               card((rng.standard_normal(64) * 0.1 / s1).astype(np.float32)),
+               card(rng.integers(-127, 128, (3, 3, 64, 64)).astype(np.int8)),
+               card(rng.uniform(1e-4, 6e-4, 64).astype(np.float32)),
+               card(rng.uniform(-20, 20, 64).astype(np.float32)))
+        notes.append(held(
+            f"conv12_fused{'[pool]' if pool else ''} {B}x{h}x{w}",
+            c12.conv12_fused, conv12_fused_plain, image,
+            c12.prepare_conv12(*raw), raw, {"pool": pool}, "int8"))
+    for width in REDESIGNED_WARP_WIDTHS:
+        img = card(rng.uniform(0, 1, (2, 19, width, 1)).astype(np.float32))
+        hs = np.tile(np.eye(3, dtype=np.float32), (6, 1, 1))
+        hs[:, :2] += rng.normal(0, 0.1, (6, 2, 3)).astype(np.float32)
+        hs[:, :2, 2] *= 10
+        hs[:, 2, :2] = rng.normal(0, 1e-3, (6, 2)).astype(np.float32)
+        hs[0] = [[1, 0, 0], [0, 1, 0], [1 / 16, 0, 1]]  # d = 0 on x = 16
+        hinv = invert_homographies(card(hs))
+        for dtype in (torch.bfloat16, torch.int8):
+            got = warp_by_inverse(img, hinv, dtype)
+            want = warp_by_inverse_plain(img, hinv, dtype)
+            err = float((got - want).abs().max())
+            if not err <= 1e-6:
+                raise AssertionError(f"warp {dtype} 2x19x{width}: max |err| "
+                                     f"{err} > 1e-6")
+            notes.append(f"warp {str(dtype)[6:]} 6x19x{width} {err:.1e}")
     log("[redesigned] against their plain versions, prepared = raw = "
-        "second launch, bit for bit (share differing / beyond 1 bf16 ulp): "
-        + "; ".join(notes))
+        "second launch, bit for bit (share differing / beyond 1 bf16 ulp; "
+        "the warp's max |err|): " + "; ".join(notes))
 
 
 def phase_modes_small(sp_cuda_int8, cfg):
@@ -1304,7 +1349,8 @@ def phase_ha_split(model, images, route, config, serving_calls=None):
 
 def phase_warp_kernels(calls, peaks):
     """The warp kernel against its plain version on HA's operands, with
-    times, the bound and F.grid_sample on the same images."""
+    times (around one call and the device time alone), the bound and
+    F.grid_sample on the same images."""
     _, mem_rate, f32_rate = peaks[:3]
     rows = []
     for label, (image, hinv, dtype) in calls:
@@ -1318,6 +1364,8 @@ def phase_warp_kernels(calls, peaks):
             raise AssertionError(f"{key} {label}: max |err| {err} > 1e-6")
         ms = cuda_ms(lambda: warp_by_inverse(image, hinv, dtype), reps=20,
                      warmup=3)
+        dev_ms, how = device_ms(lambda: warp_by_inverse(image, hinv, dtype),
+                                "warp_")
         plain_ms = cuda_ms(lambda: warp_by_inverse_plain(image, hinv, dtype),
                            reps=3)
         N, B = hinv.shape[0], image.shape[0]
@@ -1326,9 +1374,11 @@ def phase_warp_kernels(calls, peaks):
         grid = torch.stack([sx * (2.0 / (HA_W - 1)) - 1.0,
                             sy * (2.0 / (HA_H - 1)) - 1.0], -1)
         grid = torch.where(torch.isfinite(grid), grid, -2.0)
-        lib_ms = cuda_ms(lambda: F.grid_sample(
-            src, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=True), reps=20, warmup=3)
+        def lib():
+            return F.grid_sample(src, grid, mode="bilinear",
+                                 padding_mode="zeros", align_corners=True)
+        lib_ms = cuda_ms(lib, reps=20, warmup=3)
+        lib_dev_ms = device_ms(lib)[0]
         moved = nbytes(image, got) + N * 9 * 4  # and H^-1, read once
         ops = N * HA_H * HA_W * WARP_FLOPS_PER_PIXEL
         t_ops, t_bytes = ops / f32_rate * 1e3, moved / mem_rate * 1e3
@@ -1339,15 +1389,17 @@ def phase_warp_kernels(calls, peaks):
             "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib_ms,
+            "library_ms": lib_ms, "device_ms": dev_ms,
+            "library_device_ms": lib_dev_ms,
         })
         log(f"[kernel] {key} {label}: {B} images -> {N} warps "
             f"{HA_H}x{HA_W}, max_abs_err {err} ({share:.3e} of values "
-            f"differ), kernel {ms:.4f} ms (median of 20), plain "
-            f"{plain_ms:.4f} ms, grid_sample {lib_ms:.4f} ms, bound "
+            f"differ), kernel {ms:.4f} ms (median of 20; device "
+            f"{dev_ms:.4f} ms by {how}), plain {plain_ms:.4f} ms, "
+            f"grid_sample {lib_ms:.4f} ms (device {lib_dev_ms:.4f}), bound "
             f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}, "
             f"{moved / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)")
-        del got, want, src, grid
+        del got, want, src, grid, lib
         torch.cuda.empty_cache()
     return rows
 

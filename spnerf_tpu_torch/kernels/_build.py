@@ -155,15 +155,17 @@ def pack_slabs(w: torch.Tensor) -> torch.Tensor:
     ``((n // 8) * (cin // 8) + k // 8) * 64 + (n % 8) * 8 + k % 8`` of its
     slab: the wgmma descriptor's leading byte offset (K) is 128, its
     stride byte offset (N) cin * 16. cin and cout must be multiples of
-    8. Any leading shape packs as slabs; int8 weights pack the same way
-    with core matrices of 8 x 16 values (e = 16 bytes of K: element at
-    ``((n // 8) * (cin // e) + k // e) * 8 e + (n % 8) * e + k % e``)."""
+    8. Any leading shape packs as slabs; f16 weights pack as bf16 do,
+    int8 weights the same way with core matrices of 8 x 16 values (e = 16
+    bytes of K: element at ``((n // 8) * (cin // e) + k // e) * 8 e +
+    (n % 8) * e + k % e``)."""
     cin, cout = w.shape[-2:]
     e = 16 // w.element_size()
-    if w.dtype not in (torch.bfloat16, torch.int8) or cin % e or cout % 8:
-        raise ValueError(f"pack_slabs: bf16 (or int8) weights with C_in and "
-                         f"C_out multiples of 8 (C_in of 16 for int8), not "
-                         f"{tuple(w.shape)} {w.dtype}")
+    if w.dtype not in (torch.bfloat16, torch.float16, torch.int8) \
+            or cin % e or cout % 8:
+        raise ValueError(f"pack_slabs: bf16, f16 or int8 weights with C_in "
+                         f"and C_out multiples of 8 (C_in of 16 for int8), "
+                         f"not {tuple(w.shape)} {w.dtype}")
     w = w.reshape(-1, cin // e, e, cout // 8, 8)  # [tap][kb][k][nb][n]
     return w.permute(0, 3, 1, 4, 2).contiguous()  # [tap][nb][kb][n][k]
 

@@ -33,7 +33,8 @@ import torch
 
 from spnerf_tpu_torch.kernels import _build
 
-_MODES = {torch.bfloat16: ("bf16", 0), torch.int8: ("int8", 1)}
+# compute dtype -> (launch key, kernel mode)
+_MODES = {torch.bfloat16: ("warp[bf16]", 0), torch.int8: ("warp[int8]", 1)}
 
 
 def _hat(s, t):
@@ -146,20 +147,23 @@ def warp_by_inverse(image, hinv, compute_dtype=torch.bfloat16):
     bilinear, zero outside -> (N, H, W, 1) float32.
 
     The kernel reads the float32 image and rounds it to ``compute_dtype``
-    as it loads. CPU tensors take the plain version.
+    as it loads; a float32 contiguous image and H^-1 are passed as they
+    are, without a copy. CPU tensors take the plain version.
     """
     if not image.is_cuda:
         return warp_by_inverse_plain(image, hinv, compute_dtype)
     _check(image, hinv, compute_dtype)
     B, H, W, _ = image.shape
     N = hinv.shape[0]
-    name, mode = _MODES[compute_dtype]
-    img = image.float().contiguous()
-    h = hinv.float().reshape(N, 9).contiguous()
-    out = torch.empty((N, H, W, 1), dtype=torch.float32, device=img.device)
-    _build.check_cuda("warp_by_inverse", image=img, hinv=h, out=out)
-    _build.launch("warp", "warp_launch", img, h, out, N, B, H, W, mode)
-    _build.launch_counts[f"warp[{name}]"] += 1
+    key, mode = _MODES[compute_dtype]
+    if image.dtype != torch.float32 or not image.is_contiguous():
+        image = image.float().contiguous()
+    if hinv.dtype != torch.float32 or not hinv.is_contiguous():
+        hinv = hinv.float().contiguous()
+    out = torch.empty((N, H, W, 1), dtype=torch.float32, device=image.device)
+    _build.check_cuda("warp_by_inverse", image=image, hinv=hinv)
+    _build.launch("warp", "warp_launch", image, hinv, out, N, B, H, W, mode)
+    _build.launch_counts[key] += 1
     return out
 
 

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from spnerf_tpu_torch.device import resolve_device
-from spnerf_tpu_torch.kernels.conv12_fused import conv12_fused
+from spnerf_tpu_torch.kernels.conv12_fused import conv12_fused, prepare_conv12
 from spnerf_tpu_torch.kernels.conv_stack import (
     conv1_packed,
     conv3x3,
@@ -133,9 +133,10 @@ class ServingSuperPoint:
         """Pack the heads' and conv1's kernel operands once per model
         (after calibration): the fused tail's ``head`` operands, or the
         per-layer route's 3x3 operands and 1x1 ``dot_bias_act`` operands;
-        in bf16 mode conv1's patch product. The heads' input scale is
-        block 8's in int8 mode (the chain's last), none in bf16 and mixed
-        (the dequantized bf16 input)."""
+        in bf16 mode conv1's patch product, else ``conv12_fused``'s
+        (blocks 1-2). The heads' input scale is block 8's in int8 mode
+        (the chain's last), none in bf16 and mixed (the dequantized bf16
+        input)."""
         s_in = (self.act_scales["backbone/block8"] if self.mode == "int8"
                 else None)
         self.head_ops = {}
@@ -145,11 +146,21 @@ class ServingSuperPoint:
             self.head_ops[key] = (
                 prepare_head(w, mult, bias, wh, mh, bh) if self.fused_tail
                 else ((w, mult, bias), prepare_dot(wh, mh, bh)))
-        self.conv1_ops = None
+        self.conv1_ops = self.conv12_ops = None
         if self.mode == "bf16":
             node = self.params["backbone/block1"]
             self.conv1_ops = prepare_conv1(
                 node["kernel"], torch.ones_like(node["bias"]), node["bias"])
+        else:
+            s1 = self.act_scales["backbone/block1"]
+            w2q, ws2 = self.weights_q["backbone/block2"]
+            s2 = self.act_scales["backbone/block2"]
+            n1 = self.params["backbone/block1"]
+            b2 = self.params["backbone/block2"]["bias"]
+            mult1 = (1.0 / (127.0 * s1)).expand(64)
+            self.conv12_ops = prepare_conv12(n1["kernel"], mult1,
+                                             n1["bias"] / s1, w2q,
+                                             s1 * ws2 / s2, b2 / s2)
 
     # ------------------------------------------------------------ building
 
@@ -274,15 +285,8 @@ class ServingSuperPoint:
             x, s_prev = self._conv1(image), None
         else:
             # image -> conv1 -> conv2 -> pool in one kernel
-            s1 = self.act_scales["backbone/block1"]
-            w2q, ws2 = self.weights_q["backbone/block2"]
-            s2 = self.act_scales["backbone/block2"]
-            n1 = self.params["backbone/block1"]
-            b2 = self.params["backbone/block2"]["bias"]
-            mult1 = (1.0 / (127.0 * s1)).expand(64)
-            x = conv12_fused(image, n1["kernel"], mult1, n1["bias"] / s1,
-                             w2q, s1 * ws2 / s2, b2 / s2, pool=True)
-            s_prev = s2
+            x = conv12_fused(image, self.conv12_ops, pool=True)
+            s_prev = self.act_scales["backbone/block2"]
             backbone = _BACKBONE[1:]
         if self.fused_tail:
             backbone = backbone[:-2]  # blocks 7-8 run in the fused tail

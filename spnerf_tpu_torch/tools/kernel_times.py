@@ -1,11 +1,16 @@
-"""Device time of the serving heads' kernels apart from their wrappers'
+"""Device time of the serving and HA kernels apart from their wrappers'
 host work, on the card.
 
     python -m spnerf_tpu_torch.tools.kernel_times [--out PATH] [--routes]
+        [--match SUBSTRINGS]
 
-For each case (``dot_bias_act`` at the shapes of the per-layer route at
-batch 8, 480 x 640; ``head`` bf16 at batch 64 and at the HA export's
-80 views of 30 x 40 cells) it prints, in ms per call:
+For each case (``conv12_fused`` at batch 64, 480 x 640 and at the HA
+export's 80 views of 240 x 320; the HA warp and unwarp of one chunk,
+bf16 and int8, each beside ``F.grid_sample`` on the same sources;
+``dot_bias_act`` at the shapes of the per-layer route at batch 8, 480 x
+640; ``head`` bf16 at batch 64 and at HA's 80 views of 30 x 40 cells;
+``--match conv12,warp`` keeps the cases whose label holds one of the
+substrings) it prints, in ms per call:
 
 * ``wrapper``: CUDA events around one call of the wrapper, median of 20
   (what the ``ms`` of ``chip_smoke.py``'s kernel rows measures);
@@ -15,9 +20,9 @@ batch 8, 480 x 640; ``head`` bf16 at batch 64 and at the HA export's
   own symbol apart from the padding and packing launches of a raw call.
 
 Raw calls (weights packed on every call) always; calls on operands
-prepared once (``prepare_dot``, ``prepare_head``) where the wrappers
-offer them. Inputs are seeded; weights random. ``--out`` writes the
-results as JSON. Without a card it exits non-zero.
+prepared once (``prepare_conv12``, ``prepare_dot``, ``prepare_head``)
+where the wrappers offer them. Inputs are seeded; weights random.
+``--out`` writes the results as JSON. Without a card it exits non-zero.
 
 ``--routes`` times the serving routes end to end instead, through the
 public entry points only (``build_inference``, ``ServingSuperPoint``),
@@ -26,8 +31,8 @@ call: ms per request (host clock around a request that ends in a
 synchronize, median of 10 after 2 warm-ups) and frames/s at batch 64
 (int8, bf16, mixed, fused) and batch 8 (int8 and bf16 per-layer), 480 x
 640, full-width SuperPoint from seed 0, det_thresh 0.015, top_k 1024;
-and the forward of HA's mixed route (MagicPoint, 80 views of 240 x 320,
-CUDA events, median of 5).
+and the forwards of HA's int8 and mixed routes, (b) and (d) (MagicPoint,
+80 views of 240 x 320, CUDA events, median of 5).
 """
 
 from __future__ import annotations
@@ -115,6 +120,79 @@ def _short(symbol: str) -> str:
     return name.split("(")[0][:90]
 
 
+# HA's warps (``magicpoint_coco_export.yaml``): one chunk of 10 views of
+# a batch of 8 at 240 x 320
+HA_SHAPE, HA_BATCH, HA_CHUNK = (240, 320), 8, 10
+HA_PARAMS = {"translation": True, "rotation": True, "scaling": True,
+             "perspective": True, "scaling_amplitude": 0.2,
+             "perspective_amplitude_x": 0.2, "perspective_amplitude_y": 0.2,
+             "allow_artifacts": True, "patch_ratio": 0.85, "max_angle": 1.57}
+
+
+def _warp_cases(rng, t):
+    """The image warp (8 images -> 80 views) and the probability unwarp
+    (80 -> 80) of one HA chunk, bf16 and int8, each with
+    ``F.grid_sample`` on the same sources and source coordinates (grid
+    built ahead) as its yardstick."""
+    import torch.nn.functional as F
+
+    from spnerf_tpu_torch.geometry.homography import HomographyConfig
+    from spnerf_tpu_torch.kernels.warp import (
+        invert_homographies,
+        source_coords,
+        warp_by_inverse,
+    )
+    from spnerf_tpu_torch.ops.homography_adaptation import image_homographies
+
+    h, w = HA_SHAPE
+    homs = image_homographies(0, range(HA_BATCH), HA_CHUNK, HA_SHAPE,
+                              HomographyConfig.from_dict(HA_PARAMS))
+    invs = invert_homographies(homs.cuda().transpose(0, 1))
+    h_inv = invs.reshape(-1, 3, 3).contiguous()
+    h_inv_inv = invert_homographies(invs).reshape(-1, 3, 3).contiguous()
+    n = h_inv.shape[0]
+    images = t(rng.uniform(0, 1, (HA_BATCH, h, w, 1)).astype(np.float32))
+    probs = t(rng.uniform(0, 1, (n, h, w, 1)).astype(np.float32))
+    for label, src, hinv in (("image warp", images, h_inv),
+                             ("unwarp", probs, h_inv_inv)):
+        for dtype, name in ((torch.bfloat16, "bf16"), (torch.int8, "int8")):
+            yield (f"warp[{name}] {label} {src.shape[0]}->{n}x{h}x{w}",
+                   lambda src=src, hinv=hinv, dtype=dtype:
+                   warp_by_inverse(src, hinv, dtype), None, "warp_")
+        rep = src.permute(0, 3, 1, 2).repeat(n // src.shape[0], 1, 1, 1)
+        sx, sy = source_coords(hinv, HA_SHAPE)
+        grid = torch.stack([sx * (2.0 / (w - 1)) - 1.0,
+                            sy * (2.0 / (h - 1)) - 1.0], -1)
+        grid = torch.where(torch.isfinite(grid), grid, -2.0)
+        yield (f"grid_sample {label} {n}x{h}x{w}",
+               lambda rep=rep, grid=grid: F.grid_sample(
+                   rep, grid, mode="bilinear", padding_mode="zeros",
+                   align_corners=True), None, "")
+
+
+def _conv12_cases(rng, t, mb):
+    """``conv12_fused`` (int8, pooled) at a ``[slice]`` request's batch
+    64 x 480 x 640 and at HA's forward of 80 views of 240 x 320."""
+    from spnerf_tpu_torch.kernels import conv12_fused as K
+
+    prep = getattr(K, "prepare_conv12", None)
+    s1 = np.float32(0.02)
+    for B, h, w in ((64, 480, 640), (80, 240, 320)):
+        image = t(rng.uniform(0, 1, (B, h, w, 1)).astype(np.float32))
+        raw = (t((rng.standard_normal((3, 3, 1, 64)) * 0.3).astype(
+                   np.float32)),
+               t(np.full((64,), np.float32(1.0) / (np.float32(127.0) * s1))),
+               t((rng.standard_normal(64) * 0.1 / s1).astype(np.float32)),
+               t(rng.integers(-127, 128, (3, 3, 64, 64)).astype(np.int8)),
+               *mb(64, 1e-4, 6e-4))
+        ops = prep(*raw) if prep else None
+        yield (f"conv12_fused[pool] {B}x{h}x{w}",
+               lambda image=image, raw=raw: K.conv12_fused(image, *raw),
+               None if ops is None else
+               (lambda image=image, ops=ops: K.conv12_fused(image, ops)),
+               "conv12_")
+
+
 def _cases(gen_seed: int = 0):
     """(label, raw call, prepared call or None, kernel symbol)."""
     from spnerf_tpu_torch.kernels import conv_stack as S
@@ -137,9 +215,12 @@ def _cases(gen_seed: int = 0):
         return t((rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1])))
                  .astype(np.float32), dtype)
 
-    def mb(c):
-        return (t(rng.uniform(2e-5, 1e-4, c).astype(np.float32)),
+    def mb(c, lo=2e-5, hi=1e-4):
+        return (t(rng.uniform(lo, hi, c).astype(np.float32)),
                 t(rng.uniform(-1, 1, c).astype(np.float32)))
+
+    yield from _conv12_cases(rng, t, mb)
+    yield from _warp_cases(rng, t)
 
     prep_dot = getattr(S, "prepare_dot", None)
     prep_conv1 = getattr(S, "prepare_conv1", None)
@@ -227,14 +308,17 @@ def route_times() -> list:
     mp_cfg = SuperPointConfig(model_name="magicpoint")
     mp = init_superpoint(3, mp_cfg, device="cuda")
     views = torch.rand((80, 240, 320, 1), generator=gen, device="cuda")
-    sp = ServingSuperPoint.build(mp_cfg, mp, views[:8], mode="mixed",
-                                 device="cuda")
-    with torch.no_grad():
-        fwd = [_events_ms(lambda: sp(views), 1, per_call=True)
-               for _ in range(5)]
-    rows.append({"route": "ha-mixed-forward", "mode": "mixed", "batch": 80,
-                 "ms_per_forward": statistics.median(fwd), "ms_all": fwd})
-    print(json.dumps(rows[-1]), flush=True)
+    for mode in ("int8", "mixed"):  # HA routes (b) and (d)
+        sp = ServingSuperPoint.build(mp_cfg, mp, views[:8], mode=mode,
+                                     device="cuda")
+        with torch.no_grad():
+            fwd = [_events_ms(lambda: sp(views), 1, per_call=True)
+                   for _ in range(5)]
+        rows.append({"route": f"ha-{mode}-forward", "mode": mode,
+                     "batch": 80, "ms_per_forward": statistics.median(fwd),
+                     "ms_all": fwd})
+        print(json.dumps(rows[-1]), flush=True)
+        del sp
     return rows
 
 
@@ -243,6 +327,9 @@ def main(argv=None) -> int:
     parser.add_argument("--out", help="write the results here as JSON")
     parser.add_argument("--routes", action="store_true",
                         help="time the serving routes end to end")
+    parser.add_argument("--match", default="",
+                        help="comma-separated substrings: time only the "
+                             "cases whose label holds one of them")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
@@ -257,8 +344,14 @@ def main(argv=None) -> int:
             with open(args.out, "w") as f:
                 json.dump({"card": card, "routes": results}, f, indent=1)
         return 0
+    from spnerf_tpu_torch.kernels import _build
+
+    _build.build_all(["conv12_fused", "head", "dot_bias_act", "warp"])
+    match = [m for m in args.match.split(",") if m]
     results = []
     for label, raw, prepared, symbol in _cases():
+        if match and not any(m in label for m in match):
+            continue
         for kind, fn in (("raw", raw), ("prepared", prepared)):
             if fn is None:
                 continue

@@ -782,3 +782,140 @@ def test_tc_head_and_dot_raise_on_what_they_do_not_take(card):
         S.dot_bias_act(torch.zeros(5, 12, device="cuda"),
                        torch.zeros(12, 64, device="cuda"), ones[:64],
                        zeros[:64])
+
+
+# row 1 on the int8 tensor cores: ragged shapes against the 16 x 32 output
+# tile (H, W not multiples of it, W 632 of the narrow serving route, odd
+# H and W without the pool), whole tiles, and more tiles than the
+# persistent grid holds at once
+CONV12_SHAPES = {"1x7x13": (1, 7, 13), "2x40x56": (2, 40, 56),
+                 "3x34x632": (3, 34, 632), "1x16x32": (1, 16, 32),
+                 "2x18x66": (2, 18, 66), "40x48x96": (40, 48, 96)}
+
+
+def _conv12_raw(rng, k1_scale=0.3, w2=None, mult2=(1e-4, 6e-4)):
+    """Raw conv12 operands on the card: conv1 kernel, its requant at an
+    activation scale of 0.02, int8 conv2 weights with per-channel
+    multipliers in ``mult2`` and biases in +-20."""
+    t = lambda a: torch.from_numpy(np.asarray(a)).cuda()  # noqa: E731
+    s1 = np.float32(0.02)
+    return (t((rng.standard_normal((3, 3, 1, 64)) * k1_scale).astype(
+                np.float32)),
+            t(np.full((64,), np.float32(1.0) / (np.float32(127.0) * s1))),
+            t((rng.standard_normal(64) * 0.1 / s1).astype(np.float32)),
+            t(_int8(rng, (3, 3, 64, 64)) if w2 is None else w2),
+            *(t(a) for a in _mb(rng, 64, *mult2)))
+
+
+def _conv12_held(image, raw, pool, relu=True):
+    """Prepared call, a second launch and a raw call: the same bits, and
+    equal to the plain version; returns the output."""
+    from spnerf_tpu_torch.kernels import _build
+    from spnerf_tpu_torch.kernels.conv12_fused import prepare_conv12
+
+    ops = prepare_conv12(*raw)
+    before = sum(_build.launch_counts.values())
+    got = conv12_fused(image, ops, pool=pool, relu=relu)
+    again = conv12_fused(image, ops, pool=pool, relu=relu)
+    from_raw = conv12_fused(image, *raw, pool=pool, relu=relu)
+    torch.cuda.synchronize()
+    assert sum(_build.launch_counts.values()) == before + 3
+    assert torch.equal(got, again) and torch.equal(got, from_raw)
+    want = conv12_fused_plain(image, *raw, pool=pool, relu=relu)
+    assert got.shape == want.shape and got.dtype == torch.int8
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [True, False])
+@pytest.mark.parametrize("shape", list(CONV12_SHAPES))
+def test_conv12_tc_matches_plain_on_card(card, shape, pool):
+    """``conv12_fused`` on the int8 tensor cores equal to its plain
+    version, prepared = raw = a second launch, at ragged and whole-tile
+    shapes; pooling an odd H or W raises."""
+    B, H, W = CONV12_SHAPES[shape]
+    rng = np.random.default_rng(70 + H + W)
+    image = torch.from_numpy(rng.uniform(0, 1, (B, H, W, 1)).astype(
+        np.float32)).cuda()
+    raw = _conv12_raw(rng)
+    if pool and (H % 2 or W % 2):
+        with pytest.raises(ValueError, match="even"):
+            conv12_fused(image, *raw, pool=True)
+        return
+    got = _conv12_held(image, raw, pool)
+    assert (got > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["zero_and_one", "half_boundary",
+                                  "saturating", "zero_channels"])
+def test_conv12_tc_edge_values_on_card(card, kind):
+    """Images at 0 and 1; images whose x * 127 is a .5 tie in float32
+    (rintf to even); conv1 and conv2 saturating at +-127 (large weights
+    and multipliers, with and without the ReLU); conv1 channels whose
+    weights are all 0 (the 1e-12 scale floor)."""
+    rng = np.random.default_rng(90)
+    B, H, W = 2, 20, 36
+    if kind == "zero_and_one":
+        img = rng.integers(0, 2, (B, H, W, 1)).astype(np.float32)
+    else:
+        # float32 x with x * 127 == k + 0.5 exactly, k in 0..126
+        ks = np.arange(127, dtype=np.float32)
+        x = ((ks + np.float32(0.5)) / np.float32(127)).astype(np.float32)
+        x = x[(x * np.float32(127)) == ks + np.float32(0.5)]
+        assert len(x) > 10
+        img = rng.choice(x, (B, H, W, 1)).astype(np.float32)
+        if kind != "half_boundary":
+            img = rng.uniform(0, 1, (B, H, W, 1)).astype(np.float32)
+    image = torch.from_numpy(img).cuda()
+    if kind == "saturating":
+        w2 = np.where(rng.uniform(size=(3, 3, 64, 64)) < 0.5, -127,
+                      127).astype(np.int8)
+        raw = _conv12_raw(rng, 3.0, w2, (1e-2, 5e-2))
+        for relu in (True, False):
+            got = _conv12_held(image, raw, True, relu)
+            assert (got == 127).any() and (relu or (got == -127).any())
+        return
+    raw = list(_conv12_raw(rng))
+    if kind == "zero_channels":
+        raw[0][..., ::7] = 0
+    for pool in (True, False):
+        _conv12_held(image, raw, pool)
+
+
+# row 9: widths with W % 4 in {0, 1, 2, 3} around the 128-column tile,
+# three homographies per image (N = 3 B), one with a zero denominator
+WARP_WIDTHS = [52, 53, 54, 55, 128, 131]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", WARP_WIDTHS)
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_warp_tile_edges_on_card(card, mode, width):
+    """The warp kernel's 16-byte stores and their scalar tails: within
+    1e-6 of the plain version at W % 4 in {0, 1, 2, 3}, H not a multiple
+    of the 8-row tile, N = 3 B with a zero denominator in the first
+    homography."""
+    from spnerf_tpu_torch.kernels.warp import (
+        warp_image_fused,
+        warp_image_fused_plain,
+    )
+
+    rng = np.random.default_rng(18 + width)
+    B, H = 2, 19
+    img = rng.uniform(0, 1, (B, H, width, 1)).astype(np.float32)
+    Hs = np.tile(np.eye(3, dtype=np.float32), (3 * B, 1, 1))
+    Hs[:, :2] += rng.normal(0, 0.1, (3 * B, 2, 3)).astype(np.float32)
+    Hs[:, :2, 2] *= 10
+    Hs[:, 2, :2] = rng.normal(0, 1e-3, (3 * B, 2)).astype(np.float32)
+    Hs[0] = [[1, 0, 0], [0, 1, 0], [1 / 16, 0, 1]]  # d = 0 on x = 16
+    dtype = torch.int8 if mode == "int8" else torch.bfloat16
+    img, Hs = torch.from_numpy(img).cuda(), torch.from_numpy(Hs).cuda()
+    got = warp_image_fused(img, Hs, dtype)
+    torch.cuda.synchronize()
+    want = warp_image_fused_plain(img, Hs, dtype)
+    assert got.shape == want.shape == (3 * B, H, width, 1)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-6
+    assert float((want > 0).float().mean()) > 0.3
