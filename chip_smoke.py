@@ -167,6 +167,7 @@ from spnerf_tpu_torch.kernels import descriptor_loss as dl
 from spnerf_tpu_torch.kernels import render as rk
 from spnerf_tpu_torch.kernels import tail_fused
 from spnerf_tpu_torch.kernels import conv12_fused as c12
+from spnerf_tpu_torch.kernels import mid_fused
 from spnerf_tpu_torch.kernels.conv12_fused import conv12_fused_plain
 from spnerf_tpu_torch.kernels.mid_fused import double_conv3x3_plain
 from spnerf_tpu_torch.kernels.tail_fused import head_plain
@@ -498,13 +499,14 @@ def nbytes(*tensors) -> int:
 
 def raw_args(args) -> tuple:
     """A call's arguments with prepared operands (``DotOperands``,
-    ``HeadOperands``, ``Conv12Operands``) expanded into their raw
-    tensors."""
+    ``HeadOperands``, ``Conv12Operands``, ``DoubleConvOperands``) expanded
+    into their raw tensors."""
     out = []
     for a in args:
         if isinstance(a, conv_stack.DotOperands):
             out += [a.w, a.mult, a.bias]
-        elif isinstance(a, (tail_fused.HeadOperands, c12.Conv12Operands)):
+        elif isinstance(a, (tail_fused.HeadOperands, c12.Conv12Operands,
+                            mid_fused.DoubleConvOperands)):
             out += list(a.raw)
         else:
             out.append(a)
@@ -953,14 +955,21 @@ REDESIGNED_DOT_ROWS = [1, 63, 65, 129, 37920]
 REDESIGNED_CONV12 = [((1, 7, 13), False), ((2, 40, 56), True),
                      ((2, 40, 56), False), ((3, 34, 632), True)]
 REDESIGNED_WARP_WIDTHS = [52, 53, 54, 55, 131]
+# the int8 double conv and head on the int8 tensor cores off their 16 x
+# 16 and 8 x 16 tiles ((B, H, W), pool): odd H and W unpooled, ragged
+# tiles pooled; the head also at HA's 80 x 30 x 40 in logits mode
+REDESIGNED_S8_DOUBLE = [((1, 7, 13), False), ((2, 30, 40), False),
+                        ((2, 30, 40), True), ((3, 34, 62), True)]
+REDESIGNED_S8_HEAD_SHAPES = [(80, 30, 40), (1, 7, 13), (3, 34, 62)]
 
 
 def phase_redesigned():
-    """Each redesigned instance against its plain version (int8 products
-    and conv12 equal; bf16 by ``compare``'s bounds, the head at the
-    chains' floor), on operands prepared once; a call on the raw weights
-    and a second launch must give the same bits. Then the warp at
-    REDESIGNED_WARP_WIDTHS (N = 3 B, a zero denominator) within 1e-6."""
+    """Each redesigned instance against its plain version (int8 products,
+    conv12 and the int8 double convs equal; the int8 heads' logits equal,
+    their softmax within 1 bf16 ulp; bf16 by ``compare``'s bounds, the
+    head at the chains' floor), on operands prepared once; a call on the
+    raw weights and a second launch must give the same bits. Then the warp
+    at REDESIGNED_WARP_WIDTHS (N = 3 B, a zero denominator) within 1e-6."""
     rng = np.random.default_rng(SEED + 12)
 
     def card(a, dtype=None):
@@ -980,7 +989,8 @@ def phase_redesigned():
                                  "plain version")
         if got.dtype == torch.int8:
             return f"{label} equal"
-        _, share, over_1 = compare(label, got, want, float_operands=True,
+        _, share, over_1 = compare(label, got, want,
+                                   float_operands=kind != "head-int8",
                                    chain=kind == "head")
         return f"{label} {share:.2e}/{over_1:.2e}"
 
@@ -1039,6 +1049,42 @@ def phase_redesigned():
             f"conv12_fused{'[pool]' if pool else ''} {B}x{h}x{w}",
             c12.conv12_fused, conv12_fused_plain, image,
             c12.prepare_conv12(*raw), raw, {"pool": pool}, "int8"))
+    for (B, h, w), pool in REDESIGNED_S8_DOUBLE:
+        insts = ([(64, 64), (64, 128), (128, 128)] if pool else [(128, 128)])
+        for cin, cm in insts:
+            x = card(rng.integers(0, 128, (B, h, w, cin)).astype(np.int8))
+            raw = (card(rng.integers(-127, 128, (3, 3, cin, cm)).astype(np.int8)),
+                   card(rng.uniform(5e-5, 4e-4, cm).astype(np.float32)),
+                   card(rng.uniform(-20, 20, cm).astype(np.float32)),
+                   card(rng.integers(-127, 128, (3, 3, cm, cm)).astype(np.int8)),
+                   card(rng.uniform(-4e-4, 4e-4, cm).astype(np.float32)),
+                   card(rng.uniform(-20, 20, cm).astype(np.float32)))
+            for relu in (True, False):
+                notes.append(held(
+                    f"double_conv3x3[{cin}-{cm}-{cm}{'-pool' if pool else ''}]"
+                    f"{'' if relu else ' relu off'} {B}x{h}x{w}",
+                    mid_fused.double_conv3x3, double_conv3x3_plain, x,
+                    mid_fused.prepare_double_conv(*raw), raw,
+                    {"pool": pool, "relu": relu}, "int8"))
+    for B, h, w in REDESIGNED_S8_HEAD_SHAPES:
+        x = card(rng.integers(0, 128, (B, h, w, 128)).astype(np.int8))
+        for cout, soft in ((65, True), (65, False), (256, False)):
+            raw = (card(rng.integers(-127, 128, (3, 3, 128, 256)).astype(np.int8)),
+                   card(rng.uniform(5e-5, 4e-4, 256).astype(np.float32)),
+                   card(rng.uniform(-20, 20, 256).astype(np.float32)),
+                   card(rng.integers(-127, 128, (256, cout)).astype(np.int8)),
+                   card(rng.uniform(-1e-4, 1e-4, cout).astype(np.float32)),
+                   card(rng.uniform(-1, 1, cout).astype(np.float32)))
+            kw = {"softmax_lanes": cout} if soft else {}
+            label = f"head[{cout}{'-softmax' if soft else ''}] {B}x{h}x{w}"
+            prepared = tail_fused.prepare_head(*raw)
+            notes.append(held(label, tail_fused.head, head_plain, x, prepared,
+                              raw, kw, "head-int8"))
+            if not soft:  # int32 sums and the same float32 affine
+                got = tail_fused.head(x, prepared, **kw)
+                if not torch.equal(got, head_plain(x, *raw, **kw)):
+                    raise AssertionError(f"{label}: logits differ from "
+                                         "their plain version")
     for width in REDESIGNED_WARP_WIDTHS:
         img = card(rng.uniform(0, 1, (2, 19, width, 1)).astype(np.float32))
         hs = np.tile(np.eye(3, dtype=np.float32), (6, 1, 1))

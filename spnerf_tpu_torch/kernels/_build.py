@@ -171,18 +171,20 @@ def pack_slabs(w: torch.Tensor) -> torch.Tensor:
 
 
 def pack_head_1x1(w: torch.Tensor, coutp: int) -> torch.Tensor:
-    """bf16 (256, cout) 1x1 weights of a head -> the ring slabs of
-    ``csrc/head.cu``'s tensor-core instance: zero-padded to ``coutp``
-    output channels (72 or 256) and cut into ``kc`` K-chunks (1 at 72, 2
-    at 256), each a ``pack_slabs`` slab of (256 / kc) x coutp. Element
-    (k, n) lies at ``((n // 8) * (K // 8) + (k % K) // 8) * 64 + (n % 8)
-    * 8 + k % 8`` of slab ``k // K``, K = 256 / kc."""
+    """bf16 or int8 (256, cout) 1x1 weights of a head -> the ring slabs of
+    ``csrc/head.cu``'s tensor-core instances: zero-padded to ``coutp``
+    output channels (bf16: 72 or 256; int8: 80 or 256) and cut into ``kc``
+    K-chunks (1 at 72 or 80, 2 at 256), each a ``pack_slabs`` slab of
+    (256 / kc) x coutp. With e = 16 bytes of K (8 bf16 or 16 int8 values)
+    element (k, n) lies at ``((n // 8) * (K // e) + (k % K) // e) * 8 e +
+    (n % 8) * e + k % e`` of slab ``k // K``, K = 256 / kc."""
     cin, cout = w.shape
-    if w.dtype != torch.bfloat16 or cin != 256 or coutp not in (72, 256) \
+    widths = {torch.bfloat16: (72, 256), torch.int8: (80, 256)}
+    if w.dtype not in widths or cin != 256 or coutp not in widths[w.dtype] \
             or cout > coutp:
-        raise ValueError(f"pack_head_1x1: bf16 (256, <= {coutp}) weights, "
-                         f"not {tuple(w.shape)} {w.dtype}")
-    kc = 1 if coutp == 72 else 2
+        raise ValueError(f"pack_head_1x1: bf16 or int8 (256, <= {coutp}) "
+                         f"weights, not {tuple(w.shape)} {w.dtype}")
+    kc = 2 if coutp == 256 else 1
     w = torch.nn.functional.pad(w, (0, coutp - cout))
     return pack_slabs(w.reshape(kc, cin // kc, coutp))
 

@@ -1,9 +1,10 @@
 // Shared device code of the SuperPoint serving kernels (sm_90a): the
-// int8 instances of conv12_fused.cu, double_conv3x3.cu, conv3x3.cu and
-// head.cu, and the epilogue helpers (affine, cast_out, store_vals) of
-// every instance. The bf16 instances run on the tensor cores through
-// conv_tc.cuh (3x3 convs, head.cu) or mma.sync (dot_bias_act.cu); their
-// headers state their numerics.
+// __dp4a conv stages of conv3x3.cu's int8 instance, and the epilogue
+// helpers (affine, cast_out, store_vals) of every instance. The other
+// instances run on the tensor cores through conv_tc.cuh (bf16 3x3 convs,
+// head.cu), conv_tc_s8.cuh (int8: conv12_fused.cu, double_conv3x3.cu,
+// head.cu) or mma.sync (dot_bias_act.cu); their headers state their
+// numerics.
 //
 // Layout: NHWC int8 activations. Weights are pre-packed by the Python
 // wrappers as 32-bit words [tap][cin / 4][cout], each word holding 4

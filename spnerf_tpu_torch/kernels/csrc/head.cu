@@ -14,12 +14,33 @@
 // 1.50 GMAC per image, descriptor 1.73) against ~0.6 MB read (1.2 MB in
 // bf16) and <2.5 MB written per image: bf16 0.1935 and 0.2239 ms.
 //
-// int8 instance (head_launch): one block of 256 threads per (image,
-// 8 x 16 cell tile). The input tile with a one-cell halo sits in shared
-// memory; the 3x3 conv runs with __dp4a, its output (128 x CM int8)
-// stays in shared memory; the 1x1 dot then gives each warp whole pixels,
-// so the softmax's max and sum are warp shuffles.
-//
+// int8 instance (head_launch), on the int8 tensor cores through
+// conv_tc_s8.cuh: one block of two warpgroups per (image, 8 x 16 cell
+// tile), warpgroup w the 8 x 8 cell block of columns 8 w .. 8 w + 7 as its
+// 64-row M-tile (a core matrix is one block row of 8 cells, stride byte
+// offset one input-tile row). The input tile with its one-cell halo
+// lands by cp.async in planes of 16 channels, zeros outside the image.
+// The 3x3 (128 -> 256) is 9 taps x 4 k-steps of wgmma m64n256k32
+// .s32.s8.s8 into one int32 accumulator (128 registers a thread: n256
+// reads A once for all 256 channels, 80 bytes of shared memory a tensor
+// clock against n64's 128); its 32 KB tap slabs (pack_slabs) stream through a ring of
+// three buffers by cp.async.bulk, one tap at a time, and the 1x1's
+// weights (detector: one 256 x 80 slab; descriptor: two 128 x 256
+// K-halves) follow them into the ring during the last taps. The mid,
+// relu(affine) cast to int8 (1.5 * 2^23 rounding, half to even), goes to
+// shared memory in planes of 16 channels (64 cells x 16 bytes each), and
+// the 1x1 reads it there as its A operand: detector wgmma m64n80k32 (N 80,
+// the narrowest int8 width above 65 lanes: N steps by 16 above 32),
+// descriptor m64n256k32, 8 k-steps each. (The mid cannot
+// feed the 1x1 from registers as in the bf16 instance: an s32 m64nN
+// accumulator does not have the layout of an s8 m64k32 A fragment.)
+// int8 products and int32 sums are exact; the epilogue is the bf16
+// instance's: float32 affine (no ReLU), the detector's softmax over lanes
+// [0, n_real) with IEEE expf and division (max and sum quad shuffles),
+// bf16 to nearest even, only the n_store real lanes and the cells inside
+// the image stored. Shared memory: ring 98,304 + input 23,040 + mid
+// 32,768 + affines 2,688 or 4,096 + barriers: one block per SM.
+
 // bf16 instance (head_bf16_launch), on the tensor cores: one block of
 // two warpgroups per (image, 8 x 16 cell tile), one 64-row M-tile each
 // (tile rows 0-3 and 4-7). The 3x3 (128 -> 256) is conv_tc.cuh's
@@ -45,7 +66,7 @@
 // partials for the 1x1; ptxas (sm_90a) gives the detector's instances
 // 254 and the descriptor's 192, no spills.
 #include "conv_common.cuh"
-#include "conv_tc.cuh"
+#include "conv_tc_s8.cuh"
 
 #include <math_constants.h>
 
@@ -55,116 +76,256 @@ using namespace spnerf;
 
 constexpr int TH = 8, TW = 16, NP = TH * TW;
 
-template <typename T, int CIN, int CM, int COUTP, bool SOFTMAX>
-__global__ void __launch_bounds__(kThreads)
-head_kernel(const T* __restrict__ x, const int* __restrict__ w3,
-            const float* __restrict__ m3, const float* __restrict__ b3,
-            const int* __restrict__ w1, const float* __restrict__ m1,
-            const float* __restrict__ b1, __nv_bfloat16* __restrict__ out, int H, int W,
-            int n_real, int n_store, int tiles_x) {
-  extern __shared__ __align__(16) int8_t smem[];
-  constexpr int S = sizeof(T);
-  int8_t* s_in = smem;                                  // (TH+2) x (TW+2) x CIN
-  int8_t* s_mid = smem + (TH + 2) * (TW + 2) * CIN * S;  // NP x CM
-  const int b = blockIdx.y;
-  const int y0 = (blockIdx.x / tiles_x) * TH, x0 = (blockIdx.x % tiles_x) * TW;
-  load_tile<CIN * S>(reinterpret_cast<const int8_t*>(x) + static_cast<size_t>(b) * H * W * CIN * S,
-                     H, W, y0 - 1, x0 - 1, TH + 2, TW + 2, s_in);
-  __syncthreads();
-  // the 3x3 output at out-of-image tile positions is never stored, so it
-  // needs no zeroing
-  conv3x3_requant_stage<T, CIN, CM>(s_in, TW + 2, TW, NP, w3, m3, b3,
-                                    reinterpret_cast<T*>(s_mid),
-                                    [](int, int) { return false; });
-  __syncthreads();
+// ---- int8 instance on the tensor cores ----
 
-  constexpr int Q = COUTP / 32, P = 32 / Q;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float mq[Q], bq[Q];
-  #pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    mq[q] = __ldg(m1 + lane * Q + q);
-    bq[q] = __ldg(b1 + lane * Q + q);
+constexpr int kHeadRing = 3;                  // slab buffers
+constexpr int HIW = TW + 2, HNIN = (TH + 2) * HIW;
+constexpr int HPIN = HNIN * 16;               // bytes of an input plane
+constexpr int HPMID = 64 * 16;                // bytes of a mid plane: 64 cells
+constexpr int SLAB3 = 128 * 256;              // a tap's 128 x 256 int8 slab
+
+template <int COUTP>
+struct S8Head {
+  static constexpr int KC = COUTP == 256 ? 2 : 1;  // the 1x1's K-chunks (slabs)
+  static constexpr int SLAB1 = 256 / KC * COUTP;
+  static constexpr int OFF_IN = kHeadRing * SLAB3;
+  static constexpr int OFF_MID = OFF_IN + 8 * HPIN;
+  static constexpr int OFF_AFF = OFF_MID + 2 * 16 * HPMID;
+  static constexpr int OFF_BAR = OFF_AFF + 128 * 16 + 2 * COUTP * 4;
+  static constexpr int SMEM = OFF_BAR + kHeadRing * 8;
+  static_assert(SLAB1 <= SLAB3 && SMEM <= 232448, "ring slabs and shared memory");
+};
+
+// k-steps K .. 7 of the detector's 1x1 (N 80, one slab): A planes 2 K,
+// 2 K + 1 of the mid, B rows 32 K ..
+template <int K = 0>
+__device__ __forceinline__ void s8_1x1_n80(int (&d)[40], uint64_t da, uint64_t db) {
+  if constexpr (K < 8) {
+    tc::wgmma_s8_ss_n80<2 * K * HPMID / 16, K * 256 / 16>(d, da, db, K);
+    s8_1x1_n80<K + 1>(d, da, db);
   }
-  __nv_bfloat16* o = out + static_cast<size_t>(b) * H * W * n_store;
-  for (int p0 = warp * P; p0 < NP; p0 += kWarps * P) {
-    int base[P];
+}
+
+// k-steps K .. 7 of the descriptor's 1x1 (N 256): k-steps 0-3 in the
+// first K-half's slab (db0), 4-7 in the second (db1)
+template <int K = 0>
+__device__ __forceinline__ void s8_1x1_n256(int (&d)[128], uint64_t da, uint64_t db0,
+                                            uint64_t db1) {
+  if constexpr (K < 8) {
+    tc::wgmma_s8_ss_n256<2 * K * HPMID / 16, (K % 4) * 256 / 16>(d, da, K < 4 ? db0 : db1, K);
+    s8_1x1_n256<K + 1>(d, da, db0, db1);
+  }
+}
+
+// two bf16 values of lanes c, c + 1 of a cell's n_store lanes at p
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, int c, int n_store, float v0,
+                                           float v1) {
+  if (n_store % 2 == 0 && c + 1 < n_store) {
+    *reinterpret_cast<uint32_t*>(p + c) = tc::pack_bf16x2(v0, v1);
+  } else {
+    if (c < n_store) p[c] = __float2bfloat16_rn(v0);
+    if (c + 1 < n_store) p[c + 1] = __float2bfloat16_rn(v1);
+  }
+}
+
+// The 1x1's epilogue for NCH output channels of a warp's two rows (cells
+// (y, x) and (y + 1, x)): float32 affine (no ReLU), the softmax over lanes
+// [0, n_real) when SOFTMAX, bf16 stores of lanes < n_store of the cells
+// inside the image. d[4 j + 2 h + e]: row h, channel 8 j + 2 (lane % 4) +
+// e.
+template <int NCH, bool SOFTMAX>
+__device__ __forceinline__ void s8_head_out(const int (&d)[NCH / 2], const float* m1,
+                                            const float* b1, __nv_bfloat16* out, int H, int W,
+                                            int y, int x, int n_real, int n_store) {
+  const int t4 = threadIdx.x % 4;
+  if constexpr (!SOFTMAX) {
     #pragma unroll
-    for (int p = 0; p < P; ++p) base[p] = p0 + p;
-    typename Op<T>::Acc acc[P][Q] = {};
-    conv_acc<T, CM, COUTP, P, 1>(s_mid, TW, base, w1, lane, acc);
-    #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      float v[Q];
+    for (int h = 0; h < 2; ++h) {
+      if (y + h >= H || x >= W) continue;
+      __nv_bfloat16* p = out + (static_cast<size_t>(y + h) * W + x) * n_store;
       #pragma unroll
-      for (int q = 0; q < Q; ++q) v[q] = affine(acc[p][q], mq[q], bq[q]);
-      if constexpr (SOFTMAX) {
-        float mx = -CUDART_INF_F;
-        #pragma unroll
-        for (int q = 0; q < Q; ++q)
-          if (lane * Q + q < n_real) mx = fmaxf(mx, v[q]);
-        #pragma unroll
-        for (int d = 16; d > 0; d >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
-        float sum = 0.f;
-        #pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          v[q] = lane * Q + q < n_real ? expf(__fsub_rn(v[q], mx)) : 0.f;
-          sum = __fadd_rn(sum, v[q]);
-        }
-        #pragma unroll
-        for (int d = 16; d > 0; d >>= 1) sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, d));
-        #pragma unroll
-        for (int q = 0; q < Q; ++q) v[q] = __fdiv_rn(v[q], sum);
+      for (int j = 0; j < NCH / 8; ++j) {
+        const int c = 8 * j + 2 * t4;
+        store_pair(p, c, n_store, affine(d[4 * j + 2 * h], m1[c], b1[c]),
+                   affine(d[4 * j + 2 * h + 1], m1[c + 1], b1[c + 1]));
       }
-      const int gy = y0 + (p0 + p) / TW, gx = x0 + (p0 + p) % TW;
-      if (gy >= H || gx >= W) continue;
-      __nv_bfloat16* dst = o + (static_cast<size_t>(gy) * W + gx) * n_store;
+    }
+  } else {
+    float v[2][NCH / 4];
+    #pragma unroll
+    for (int j = 0; j < NCH / 8; ++j) {
       #pragma unroll
-      for (int q = 0; q < Q; ++q)
-        if (lane * Q + q < n_store) dst[lane * Q + q] = __float2bfloat16(v[q]);
+      for (int h = 0; h < 2; ++h) {
+        #pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * t4 + e;
+          v[h][2 * j + e] = affine(d[4 * j + 2 * h + e], m1[c], b1[c]);
+        }
+      }
+    }
+    #pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -CUDART_INF_F;
+      #pragma unroll
+      for (int i = 0; i < NCH / 4; ++i)
+        if (8 * (i / 2) + 2 * t4 + i % 2 < n_real) mx = fmaxf(mx, v[h][i]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      float sum = 0.f;
+      #pragma unroll
+      for (int i = 0; i < NCH / 4; ++i) {
+        v[h][i] = 8 * (i / 2) + 2 * t4 + i % 2 < n_real ? expf(__fsub_rn(v[h][i], mx)) : 0.f;
+        sum = __fadd_rn(sum, v[h][i]);
+      }
+      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 1));
+      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 2));
+      #pragma unroll
+      for (int i = 0; i < NCH / 4; ++i) v[h][i] = __fdiv_rn(v[h][i], sum);
+      if (y + h >= H || x >= W) continue;
+      __nv_bfloat16* p = out + (static_cast<size_t>(y + h) * W + x) * n_store;
+      #pragma unroll
+      for (int j = 0; j < NCH / 8; ++j)
+        store_pair(p, 8 * j + 2 * t4, n_store, v[h][2 * j], v[h][2 * j + 1]);
     }
   }
 }
 
-template <typename T, int CIN, int CM, int COUTP, bool SOFTMAX>
-cudaError_t launch(const T* x, const int* w3, const float* m3, const float* b3,
-                   const int* w1, const float* m1, const float* b1, __nv_bfloat16* out,
-                   int B, int H, int W, int n_real, int n_store, cudaStream_t stream) {
-  const int smem = ((TH + 2) * (TW + 2) * CIN + NP * CM) * sizeof(T);
-  auto kern = head_kernel<T, CIN, CM, COUTP, SOFTMAX>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int COUTP, bool SOFTMAX>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+head_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w3,
+               const float* __restrict__ m3, const float* __restrict__ b3,
+               const int8_t* __restrict__ w1, const float* __restrict__ m1,
+               const float* __restrict__ b1, __nv_bfloat16* __restrict__ out, int H, int W,
+               int n_real, int n_store, int tiles_x) {
+  using namespace tc;
+  using L = S8Head<COUTP>;
+  extern __shared__ __align__(128) int8_t smem[];
+  // m3/b3 per channel pair c = 2 i: {m3[c], m3[c + 1], b3[c], b3[c + 1]}
+  float4* s_a3 = reinterpret_cast<float4*>(smem + L::OFF_AFF);
+  float* s_m1 = reinterpret_cast<float*>(s_a3 + 128);
+  float* s_b1 = s_m1 + COUTP;
+  const S8Ring<kHeadRing> ring{smem, SLAB3, reinterpret_cast<uint64_t*>(smem + L::OFF_BAR)};
+  const int wg = threadIdx.x / kWG, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int b = blockIdx.y;
+  const int y0 = (blockIdx.x / tiles_x) * TH, x0 = (blockIdx.x % tiles_x) * TW;
+  const uint32_t in_base = smem_u32(smem + L::OFF_IN);
+  int8_t* s_mid = smem + L::OFF_MID + wg * 16 * HPMID;  // this warpgroup's 64 cells
+  constexpr int n_slabs = 9 + L::KC;  // the 3x3's taps, then the 1x1's K-chunks
+  auto fill = [&](int s) {
+    if (s < 9)
+      ring.fill(s, w3 + s * SLAB3, SLAB3);
+    else
+      ring.fill(s, w1 + (s - 9) * L::SLAB1, L::SLAB1);
+  };
+  if (threadIdx.x == 0) {
+    ring.init();
+    for (int s = 0; s < kHeadRing; ++s) fill(s);
+  }
+  for (int i = threadIdx.x; i < 128; i += blockDim.x)
+    s_a3[i] = make_float4(m3[2 * i], m3[2 * i + 1], b3[2 * i], b3[2 * i + 1]);
+  for (int i = threadIdx.x; i < COUTP; i += blockDim.x) {
+    s_m1[i] = m1[i];
+    s_b1[i] = b1[i];
+  }
+  load_planes_async<128>(x + static_cast<size_t>(b) * H * W * 128, H, W, y0 - 1, x0 - 1, TH + 2,
+                         HIW, in_base, HPIN, threadIdx.x, blockDim.x);
+  cp_async_wait_all();
+  fence_async_smem();
+  __syncthreads();
+
+  // the 3x3: M-row m = 8 r + c of this warpgroup's block is cell (r, 8 wg
+  // + c) of the tile, its tap (dy, dx) input tile pixel (r + dy, 8 wg + c
+  // + dx); one wgmma m64n256k32 a k-step
+  int acc[128];
+  #pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    const uint32_t slab = ring.wait(tap);
+    const uint32_t a = in_base + ((tap / 3) * HIW + tap % 3 + 8 * wg) * 16;
+    wgmma_fence();
+    s8_tap_issue<128, HPIN, HIW * 16, 256>(a, slab, acc, tap);
+    wgmma_commit();
+    // once every warpgroup is done with the previous tap's slab, refill
+    // its buffer kHeadRing slabs ahead
+    wgmma_wait<1>();
+    __syncthreads();
+    if (threadIdx.x == 0 && tap >= 1 && tap - 1 + kHeadRing < n_slabs) fill(tap - 1 + kHeadRing);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  // the mid: relu(affine) as int8, channel 8 j + 2 tq (+ 1) of M-row m at
+  // plane j / 2, byte 16 m + 8 (j % 2) + 2 tq
+  #pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = warp * 16 + g + 8 * h;
+    #pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const float4 mb = s_a3[4 * j + tq];
+      const int v0 = s8_cast_bits(affine(acc[4 * j + 2 * h], mb.x, mb.z), true);
+      const int v1 = s8_cast_bits(affine(acc[4 * j + 2 * h + 1], mb.y, mb.w), true);
+      *reinterpret_cast<uint16_t*>(s_mid + (j / 2) * HPMID + m * 16 + 8 * (j % 2) + 2 * tq) =
+          s8_pack2(v0, v1);
+    }
+  }
+  // the warpgroup's mid was written by its threads and is read by its
+  // tensor cores
+  fence_async_smem();
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kWG) : "memory");
+
+  // the 1x1: A the mid planes (leading byte offset one plane, stride byte
+  // offset 8 cells), B the ring's 1x1 slabs
+  uint32_t b1s[L::KC];
+  #pragma unroll
+  for (int c = 0; c < L::KC; ++c) b1s[c] = ring.wait(9 + c);
+  const uint64_t da = smem_desc(smem_u32(s_mid), HPMID, 128);
+  // row g (h 0) and g + 8 (h 1) of warp w: cells (2 w + h, g) of the block
+  const int y = y0 + 2 * warp, xc = x0 + 8 * wg + g;
+  __nv_bfloat16* o = out + static_cast<size_t>(b) * H * W * n_store;
+  int d[COUTP / 2];
+  wgmma_fence();
+  if constexpr (COUTP == 80)
+    s8_1x1_n80(d, da, smem_desc(b1s[0], 128, 256 * 8));
+  else
+    s8_1x1_n256(d, da, smem_desc(b1s[0], 128, 128 * 8), smem_desc(b1s[1], 128, 128 * 8));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(d);
+  s8_head_out<COUTP, SOFTMAX>(d, s_m1, s_b1, o, H, W, y, xc, n_real, n_store);
+}
+
+template <int COUTP, bool SOFTMAX>
+cudaError_t launch_s8(const void* x, const void* w3, const void* m3, const void* b3,
+                      const void* w1, const void* m1, const void* b1, void* out, int B, int H,
+                      int W, int n_real, int n_store, cudaStream_t stream) {
+  auto kern = head_s8_kernel<COUTP, SOFTMAX>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         S8Head<COUTP>::SMEM);
   if (err != cudaSuccess) return err;
   const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
-  kern<<<dim3(tiles_x * tiles_y, B), kThreads, smem, stream>>>(
-      x, w3, m3, b3, w1, m1, b1, out, H, W, n_real, n_store, tiles_x);
+  kern<<<dim3(tiles_x * tiles_y, B), tc::kThreads, S8Head<COUTP>::SMEM, stream>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w3),
+      static_cast<const float*>(m3), static_cast<const float*>(b3),
+      static_cast<const int8_t*>(w1), static_cast<const float*>(m1),
+      static_cast<const float*>(b1), static_cast<__nv_bfloat16*>(out), H, W, n_real, n_store,
+      tiles_x);
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* x, const void* w3, const void* m3, const void* b3, const void* w1,
-             const void* m1, const void* b1, void* out, int B, int H, int W, int cin, int cm,
-             int coutp, int n_real, int n_store, int softmax, void* stream) {
+int dispatch_s8(const void* x, const void* w3, const void* m3, const void* b3, const void* w1,
+                const void* m1, const void* b1, void* out, int B, int H, int W, int cin, int cm,
+                int coutp, int n_real, int n_store, int softmax, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  auto X = static_cast<const T*>(x);
-  auto W3 = static_cast<const int*>(w3), W1 = static_cast<const int*>(w1);
-  auto M3 = static_cast<const float*>(m3), B3 = static_cast<const float*>(b3);
-  auto M1 = static_cast<const float*>(m1), B1 = static_cast<const float*>(b1);
-  auto O = static_cast<__nv_bfloat16*>(out);
-  if (cin != 128 || cm != 256 || n_store > coutp || n_real > coutp)
+  if (cin != 128 || cm != 256 || n_store > coutp || n_real > coutp || B < 0 || H < 0 || W < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (coutp == 128 && softmax)
-    return launch<T, 128, 256, 128, true>(X, W3, M3, B3, W1, M1, B1, O, B, H, W, n_real,
-                                          n_store, s);
-  if (coutp == 128 && !softmax)
-    return launch<T, 128, 256, 128, false>(X, W3, M3, B3, W1, M1, B1, O, B, H, W, n_real,
-                                           n_store, s);
+  if (B == 0 || H == 0 || W == 0) return static_cast<int>(cudaSuccess);
+  if (coutp == 80 && softmax)
+    return launch_s8<80, true>(x, w3, m3, b3, w1, m1, b1, out, B, H, W, n_real, n_store, s);
+  if (coutp == 80 && !softmax)
+    return launch_s8<80, false>(x, w3, m3, b3, w1, m1, b1, out, B, H, W, n_real, n_store, s);
   if (coutp == 256 && !softmax)
-    return launch<T, 128, 256, 256, false>(X, W3, M3, B3, W1, M1, B1, O, B, H, W, n_real,
-                                           n_store, s);
+    return launch_s8<256, false>(x, w3, m3, b3, w1, m1, b1, out, B, H, W, n_real, n_store, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
-
 
 // ---- bf16 instance on the tensor cores ----
 
@@ -372,16 +533,19 @@ int dispatch_tc(const void* x, const void* w3, const void* m3, const void* b3, c
 
 }  // namespace
 
-// x (B, H, W, 128) int8; w3 packed [9][32][256] int32; m3/b3 (256,);
-// w1 packed [64][coutp] int32 (zero-padded to coutp = 128 or 256);
-// m1/b1 (coutp,) float32; out (B, H, W, n_store) bf16. softmax: over
-// lanes [0, n_real), storing the first n_store = n_real - 1 lanes.
+// x (B, H, W, 128) int8; w3 the (3, 3, 128, 256) int8 weights packed by
+// pack_slabs ([9][256/8][128/16][8][16]); m3/b3 (256,); w1 packed by
+// pack_head_1x1 (zero-padded to coutp = 80: one [80/8][256/16][8][16]
+// slab; coutp = 256: two K-halves [2][256/8][128/16][8][16]); m1/b1
+// (coutp,) float32; out (B, H, W, n_store) bf16. softmax (coutp 80):
+// over lanes [0, n_real), storing the first n_store = n_real - 1 lanes.
+// B, H or W 0 launches nothing.
 extern "C" int head_launch(const void* x, const void* w3, const void* m3, const void* b3,
                            const void* w1, const void* m1, const void* b1, void* out,
                            int B, int H, int W, int cin, int cm, int coutp, int n_real,
                            int n_store, int softmax, void* stream) {
-  return dispatch<int8_t>(x, w3, m3, b3, w1, m1, b1, out, B, H, W, cin, cm, coutp, n_real,
-                          n_store, softmax, stream);
+  return dispatch_s8(x, w3, m3, b3, w1, m1, b1, out, B, H, W, cin, cm, coutp, n_real, n_store,
+                     softmax, stream);
 }
 
 // The same with bf16 x and mid on the tensor cores: w3 packed by

@@ -3,10 +3,10 @@
 ``double_conv3x3`` (blocks 7-8) is the shared double-conv kernel of
 ``mid_fused``. ``head`` replaces ``spnerf_tpu/kernels/tail_fused_pallas.py:
 head_pallas`` with the CUDA kernel ``csrc/head.cu`` (see its header for
-the bound and the design): an int8 instance (``__dp4a``) and a bf16
-instance on the tensor cores (``wgmma``). ``prepare_head`` packs a head's
-weights once (``HeadOperands``); ``head`` takes those or the raw weights,
-which it packs on every call.
+the bound and the design): an int8 and a bf16 instance, both on the
+tensor cores (``wgmma``). ``prepare_head`` packs a head's weights once
+(``HeadOperands``); ``head`` takes those or the raw weights, which it
+packs on every call.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ class HeadOperands:
     weights, multipliers and biases (what the plain version reads) and,
     where a kernel instance takes their shapes, the kernel's layout of
     them: ``w3p``, ``w1p`` packed, ``m1p``, ``b1p`` float32 zero-padded
-    to ``coutp`` lanes (int8: 128 or 256; bf16: 72 or 256)."""
+    to ``coutp`` lanes (int8: 80 or 256; bf16: 72 or 256)."""
 
     w3: torch.Tensor
     mult3: torch.Tensor
@@ -58,16 +58,16 @@ def _head_width(dtype, cin, cm, cout):
     if cin != 128 or cm != 256:
         return None
     if dtype == torch.int8:
-        return 128 if cout <= 128 else 256 if cout <= 256 else None
+        return 80 if cout <= 80 else 256 if cout <= 256 else None
     if dtype == torch.bfloat16:
         return 72 if cout <= 72 else 256 if cout <= 256 else None
     return None
 
 
 def prepare_head(w3, mult3, bias3, w1, mult1, bias1) -> HeadOperands:
-    """Pack a head's weights for ``head`` once: int8 as ``pack_words``
-    words, bf16 as the tensor cores' slabs (``pack_slabs``,
-    ``pack_head_1x1``); ``mult1`` and ``bias1`` float32, zero-padded.
+    """Pack a head's weights for ``head`` once, as the tensor cores' slabs
+    (``pack_slabs``, ``pack_head_1x1``); ``mult1`` and ``bias1`` float32,
+    zero-padded.
     Shapes no kernel instance takes keep only the raw operands (the plain
     version runs them; the kernel raises)."""
     if w1.dtype != w3.dtype:
@@ -79,10 +79,7 @@ def prepare_head(w3, mult3, bias3, w1, mult1, bias1) -> HeadOperands:
     if coutp is None or w3.shape != (3, 3, cin, cm) or w1.shape != (cm, cout):
         return HeadOperands(*raw)
     pad = (0, coutp - cout)
-    if w3.dtype == torch.int8:
-        w3p, w1p = _build.pack_words(w3), _build.pack_words(w1, coutp)
-    else:
-        w3p, w1p = _build.pack_slabs(w3), _build.pack_head_1x1(w1, coutp)
+    w3p, w1p = _build.pack_slabs(w3), _build.pack_head_1x1(w1, coutp)
     m1p, b1p = (torch.nn.functional.pad(a.float(), pad).contiguous()
                 for a in (mult1, bias1))
     return HeadOperands(*raw, w3p=w3p, m3p=mult3.float().contiguous(),
@@ -145,7 +142,7 @@ def head(x, *operands, softmax_lanes: int | None = None) -> torch.Tensor:
         ops = prepare_head(w3, mult3, bias3, w1, mult1, bias1)
     bf16 = x.dtype == torch.bfloat16
     if ops.coutp == 0 or (softmax_lanes is not None
-                          and ops.coutp != (72 if bf16 else 128)):
+                          and ops.coutp != (72 if bf16 else 80)):
         raise ValueError(f"head: no kernel for {x.dtype} {cin} -> {cm} -> "
                          f"{cout}" + (" with softmax" if softmax_lanes else ""))
     x = x.contiguous()

@@ -41,7 +41,10 @@ from spnerf_tpu_torch.kernels.conv_stack import (
     prepare_conv1,
     prepare_dot,
 )
-from spnerf_tpu_torch.kernels.mid_fused import double_packed_conv3x3
+from spnerf_tpu_torch.kernels.mid_fused import (
+    double_packed_conv3x3,
+    prepare_double_conv,
+)
 from spnerf_tpu_torch.kernels.requant import affine, cast_out, maxpool2x2
 from spnerf_tpu_torch.kernels.tail_fused import (
     double_conv3x3,
@@ -130,13 +133,26 @@ class ServingSuperPoint:
         return heads
 
     def _prepare(self):
-        """Pack the heads' and conv1's kernel operands once per model
-        (after calibration): the fused tail's ``head`` operands, or the
-        per-layer route's 3x3 operands and 1x1 ``dot_bias_act`` operands;
-        in bf16 mode conv1's patch product, else ``conv12_fused``'s
-        (blocks 1-2). The heads' input scale is block 8's in int8 mode
-        (the chain's last), none in bf16 and mixed (the dequantized bf16
-        input)."""
+        """Pack the kernels' operands once per model (after calibration):
+        the fused mid's and tail's ``double_conv3x3`` operands (blocks 3-4,
+        5-6, 7-8); the fused tail's ``head`` operands, or the per-layer
+        route's 3x3 operands and 1x1 ``dot_bias_act`` operands; in bf16
+        mode conv1's patch product, else ``conv12_fused``'s (blocks 1-2).
+        Each block's input scale is its predecessor's output scale (none
+        in bf16 mode); the heads' is block 8's in int8 mode (the chain's
+        last), none in bf16 and mixed (the dequantized bf16 input)."""
+        s = self._scale("backbone/block2")
+        pairs = []
+        for a, b in (("backbone/block3", "backbone/block4"),
+                     ("backbone/block5", "backbone/block6"),
+                     ("backbone/block7", "backbone/block8")):
+            wa, ma, ba, sa = self._wmb(a, s)
+            wb, mb, bb, s = self._wmb(b, sa)
+            pairs.append((wa, ma, ba, wb, mb, bb))
+        self.mid_ops = ([prepare_double_conv(*p) for p in pairs[:2]]
+                        if self.fused_mid else None)
+        self.tail_ops = (prepare_double_conv(*pairs[2]) if self.fused_tail
+                         else None)
         s_in = (self.act_scales["backbone/block8"] if self.mode == "int8"
                 else None)
         self.head_ops = {}
@@ -226,6 +242,10 @@ class ServingSuperPoint:
         mult = s_in * ws / s_out
         return wq, mult, bias / s_out, s_out
 
+    def _scale(self, name):
+        """The output scale of conv ``name`` (None in bf16 mode)."""
+        return None if self.mode == "bf16" else self.act_scales[name]
+
     def _head_wmb(self, name, s_in):
         """1x1 head dot scaling to float: (w (Cm, Cout), mult, bias). The
         kernels pad Cout (convPb's 65 logits) inside."""
@@ -298,12 +318,9 @@ class ServingSuperPoint:
         while i < len(backbone):
             name, c64, pool = backbone[i]
             if fused_mid and name == "backbone/block3":
-                for a, b in (("backbone/block3", "backbone/block4"),
-                             ("backbone/block5", "backbone/block6")):
-                    wa, ma, ba, sa = self._wmb(a, s_prev)
-                    wb, mb, bb, s_prev = self._wmb(b, sa)
-                    x = double_packed_conv3x3(x, wa, ma, ba, wb, mb, bb,
-                                              pool=True)
+                for ops in self.mid_ops:  # blocks 3-4, 5-6
+                    x = double_packed_conv3x3(x, ops, pool=True)
+                s_prev = self._scale("backbone/block6")
                 i += 4
                 continue
             w, mult, bias, s_prev = self._wmb(name, s_prev)
@@ -312,9 +329,8 @@ class ServingSuperPoint:
             i += 1
 
         if self.fused_tail:
-            w7, m7, b7, s7 = self._wmb("backbone/block7", s_prev)
-            w8, m8, b8, s_prev = self._wmb("backbone/block8", s7)
-            x = double_conv3x3(x, w7, m7, b7, w8, m8, b8)
+            x = double_conv3x3(x, self.tail_ops)  # blocks 7-8
+            s_prev = self._scale("backbone/block8")
         if self.mode == "mixed":
             # dequantize once in front of the bf16 heads, rounded as the
             # reference rounds it: a bf16 product of bf16 operands

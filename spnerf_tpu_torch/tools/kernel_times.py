@@ -6,11 +6,13 @@ host work, on the card.
 
 For each case (``conv12_fused`` at batch 64, 480 x 640 and at the HA
 export's 80 views of 240 x 320; the HA warp and unwarp of one chunk,
-bf16 and int8, each beside ``F.grid_sample`` on the same sources;
-``dot_bias_act`` at the shapes of the per-layer route at batch 8, 480 x
-640; ``head`` bf16 at batch 64 and at HA's 80 views of 30 x 40 cells;
-``--match conv12,warp`` keeps the cases whose label holds one of the
-substrings) it prints, in ms per call:
+bf16 and int8, each beside ``F.grid_sample`` on the same sources; the
+int8 ``double_conv3x3`` of blocks 3-4, 5-6 and 7-8 and the int8 ``head``
+(detector with softmax, descriptor) at those two shapes' activations
+(HA's detector in logits mode); ``dot_bias_act`` at the shapes of the
+per-layer route at batch 8, 480 x 640; ``head`` bf16 at batch 64 and at
+HA's 80 views of 30 x 40 cells; ``--match conv12,warp`` keeps the cases
+whose label holds one of the substrings) it prints, in ms per call:
 
 * ``wrapper``: CUDA events around one call of the wrapper, median of 20
   (what the ``ms`` of ``chip_smoke.py``'s kernel rows measures);
@@ -20,8 +22,8 @@ substrings) it prints, in ms per call:
   own symbol apart from the padding and packing launches of a raw call.
 
 Raw calls (weights packed on every call) always; calls on operands
-prepared once (``prepare_conv12``, ``prepare_dot``, ``prepare_head``)
-where the wrappers offer them. Inputs are seeded; weights random.
+prepared once (``prepare_conv12``, ``prepare_double_conv``,
+``prepare_dot``, ``prepare_head``) where the wrappers offer them. Inputs are seeded; weights random.
 ``--out`` writes the results as JSON. Without a card it exits non-zero.
 
 ``--routes`` times the serving routes end to end instead, through the
@@ -193,6 +195,48 @@ def _conv12_cases(rng, t, mb):
                "conv12_")
 
 
+def _s8_cases(rng, t, mb):
+    """The int8 ``double_conv3x3`` instances and heads of a ``[slice]``
+    request (batch 64, 480 x 640) and of HA's forward of 80 views of 240
+    x 320 (the detector in logits mode), on seeded activations and
+    weights."""
+    from spnerf_tpu_torch.kernels import mid_fused as M
+    from spnerf_tpu_torch.kernels import tail_fused as T
+
+    prep_dc = getattr(M, "prepare_double_conv", None)
+    prep_head = getattr(T, "prepare_head", None)
+
+    def i8(shape, lo=-127):
+        return t(rng.integers(lo, 128, shape).astype(np.int8))
+
+    for B, h, w in ((64, 480, 640), (80, 240, 320)):
+        for cin, cm, pool, s in ((64, 64, True, 2), (64, 128, True, 4),
+                                 (128, 128, False, 8)):
+            x = i8((B, h // s, w // s, cin), 0)
+            raw = (i8((3, 3, cin, cm)), *mb(cm, 5e-5, 4e-4),
+                   i8((3, 3, cm, cm)), *mb(cm, 5e-5, 4e-4))
+            ops = prep_dc(*raw) if prep_dc else None
+            kw = {"pool": pool}
+            yield (f"double_conv3x3[{cin}-{cm}-{cm}{'-pool' if pool else ''}] "
+                   f"{B}x{h // s}x{w // s}",
+                   lambda x=x, raw=raw, kw=kw: M.double_conv3x3(x, *raw, **kw),
+                   None if ops is None else
+                   (lambda x=x, ops=ops, kw=kw: M.double_conv3x3(x, ops, **kw)),
+                   "double_conv3x3_")
+        x = i8((B, h // 8, w // 8, 128), 0)
+        for cout, soft in (((65, True), (256, False)) if B == 64
+                           else ((65, False),)):
+            raw = (i8((3, 3, 128, 256)), *mb(256, 5e-5, 4e-4), i8((256, cout)),
+                   *mb(cout))
+            ops = prep_head(*raw) if prep_head else None
+            kw = {"softmax_lanes": cout} if soft else {}
+            yield (f"head[{cout}{'-softmax' if soft else ''}] "
+                   f"{B}x{h // 8}x{w // 8}",
+                   lambda x=x, raw=raw, kw=kw: T.head(x, *raw, **kw),
+                   None if ops is None else
+                   (lambda x=x, ops=ops, kw=kw: T.head(x, ops, **kw)), "head_")
+
+
 def _cases(gen_seed: int = 0):
     """(label, raw call, prepared call or None, kernel symbol)."""
     from spnerf_tpu_torch.kernels import conv_stack as S
@@ -220,6 +264,7 @@ def _cases(gen_seed: int = 0):
                 t(rng.uniform(-1, 1, c).astype(np.float32)))
 
     yield from _conv12_cases(rng, t, mb)
+    yield from _s8_cases(rng, t, mb)
     yield from _warp_cases(rng, t)
 
     prep_dot = getattr(S, "prepare_dot", None)
@@ -346,7 +391,8 @@ def main(argv=None) -> int:
         return 0
     from spnerf_tpu_torch.kernels import _build
 
-    _build.build_all(["conv12_fused", "head", "dot_bias_act", "warp"])
+    _build.build_all(["conv12_fused", "double_conv3x3", "head", "dot_bias_act",
+                      "warp"])
     match = [m for m in args.match.split(",") if m]
     results = []
     for label, raw, prepared, symbol in _cases():

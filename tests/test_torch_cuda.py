@@ -919,3 +919,156 @@ def test_warp_tile_edges_on_card(card, mode, width):
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 1e-6
     assert float((want > 0).float().mean()) > 0.3
+
+
+# the int8 instances of double_conv3x3 and head on the int8 tensor cores:
+# ragged and odd shapes against the 16 x 16 output tile (8 x 16 cell tile
+# for the head), whole tiles, HA's 80 x 30 x 40 logits; prepared = raw = a
+# second launch, int8 outputs and the head's logits equal to the plain
+# version, its softmax within 1 bf16 ulp
+S8_DC_INSTANCES = {"64-64-64-pool": (64, 64, True), "64-128-128-pool": (64, 128, True),
+                   "128-128-128": (128, 128, False), "128-128-128-pool": (128, 128, True)}
+S8_SHAPES = {"1x7x13": (1, 7, 13), "2x30x40": (2, 30, 40), "3x34x62": (3, 34, 62)}
+S8_HEAD_SHAPES = {**S8_SHAPES, "80x30x40": (80, 30, 40)}
+S8_HEAD_KINDS = {"65-softmax": (65, True), "65": (65, False), "256": (256, False)}
+
+
+def _s8_held(wrapper, plain, prepare, x, raw, kw, exact=True):
+    """Prepared call, a second launch and a raw call: the same bits, and
+    equal to the plain version (within 1 bf16 ulp unless ``exact``);
+    returns the output."""
+    from spnerf_tpu_torch.kernels import _build
+
+    ops = prepare(*raw)
+    before = sum(_build.launch_counts.values())
+    got, again = wrapper(x, ops, **kw), wrapper(x, ops, **kw)
+    from_raw = wrapper(x, *raw, **kw)
+    torch.cuda.synchronize()
+    assert sum(_build.launch_counts.values()) == before + 3
+    assert torch.equal(got, again) and torch.equal(got, from_raw)
+    want = plain(x, *raw, **kw)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if exact:
+        assert torch.equal(got, want)
+    else:
+        assert bf16_ulp_diff(got.cpu(), want.cpu()) <= 1
+    return got
+
+
+def _s8_dc_raw(rng, cin, cm, mult_b=(-4e-4, 4e-4)):
+    """int8 weights, conv_a's multipliers positive, conv_b's of both
+    signs by default; biases in +-20."""
+    t = lambda a: torch.from_numpy(np.asarray(a)).cuda()  # noqa: E731
+    return (t(_int8(rng, (3, 3, cin, cm))), *(t(a) for a in _mb(rng, cm, 5e-5, 4e-4)),
+            t(_int8(rng, (3, 3, cm, cm))), *(t(a) for a in _mb(rng, cm, *mult_b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(S8_SHAPES))
+@pytest.mark.parametrize("instance", list(S8_DC_INSTANCES))
+def test_s8_double_conv_matches_plain_on_card(card, instance, shape):
+    """Each int8 instance, ReLU on and off, negative multipliers: equal to
+    the plain version; pooling an odd H or W raises."""
+    from spnerf_tpu_torch.kernels.mid_fused import prepare_double_conv
+
+    cin, cm, pool = S8_DC_INSTANCES[instance]
+    B, H, W = S8_SHAPES[shape]
+    rng = np.random.default_rng(110 + H + cm)
+    x = torch.from_numpy(_int8(rng, (B, H, W, cin), 0, 128)).cuda()
+    raw = _s8_dc_raw(rng, cin, cm)
+    if pool and (H % 2 or W % 2):
+        with pytest.raises(ValueError, match="even"):
+            double_conv3x3(x, *raw, pool=True)
+        return
+    for relu in (True, False):
+        got = _s8_held(double_conv3x3, double_conv3x3_plain, prepare_double_conv, x, raw,
+                       {"pool": pool, "relu": relu})
+        assert (got > 0).any() and (relu or (got < 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["saturating", "half_tie", "zero_channels"])
+def test_s8_double_conv_edge_values_on_card(card, kind):
+    """Inputs and weights at +-127 with large multipliers (every cast
+    saturating, with and without the ReLU); sums on a .5 tie of both
+    affines (multipliers 0.5, integer biases: rintf to even); channels of
+    the input and of both convs' weights all zero."""
+    from spnerf_tpu_torch.kernels.mid_fused import prepare_double_conv
+
+    rng = np.random.default_rng(120)
+    t = lambda a: torch.from_numpy(np.asarray(a)).cuda()  # noqa: E731
+    for cin, cm, pool in S8_DC_INSTANCES.values():
+        B, H, W = 2, 18, 34
+        if kind == "saturating":
+            x = np.where(rng.uniform(size=(B, H, W, cin)) < 0.5, -127, 127).astype(np.int8)
+            w = [np.where(rng.uniform(size=s) < 0.5, -127, 127).astype(np.int8)
+                 for s in ((3, 3, cin, cm), (3, 3, cm, cm))]
+            raw = (t(w[0]), *(t(a) for a in _mb(rng, cm, 1e-3, 1e-2)), t(w[1]),
+                   *(t(a) for a in _mb(rng, cm, -1e-2, 1e-2)))
+        elif kind == "half_tie":
+            x = _int8(rng, (B, H, W, cin), 0, 2)
+            raw = (t(_int8(rng, (3, 3, cin, cm), -1, 2)), t(np.full(cm, 0.5, np.float32)),
+                   t(rng.integers(-3, 4, cm).astype(np.float32)),
+                   t(_int8(rng, (3, 3, cm, cm), -1, 2)),
+                   t(np.where(rng.uniform(size=cm) < 0.5, -0.5, 0.5).astype(np.float32)),
+                   t(rng.integers(-3, 4, cm).astype(np.float32)))
+        else:
+            x = _int8(rng, (B, H, W, cin), 0, 128)
+            x[..., ::5] = 0
+            raw = list(_s8_dc_raw(rng, cin, cm))
+            raw[0][..., ::3] = 0
+            raw[0][:, :, ::7] = 0
+            raw[3][..., ::4] = 0
+        for relu in (True, False):
+            got = _s8_held(double_conv3x3, double_conv3x3_plain, prepare_double_conv,
+                           t(x) if isinstance(x, np.ndarray) else x, tuple(raw),
+                           {"pool": pool, "relu": relu})
+            if kind == "saturating":
+                assert (got == 127).any() and (relu or (got == -127).any())
+
+
+def _s8_head_raw(rng, cout, mult3=(5e-5, 4e-4), mult1=(2e-5, 1e-4)):
+    t = lambda a: torch.from_numpy(np.asarray(a)).cuda()  # noqa: E731
+    return (t(_int8(rng, (3, 3, 128, 256))), *(t(a) for a in _mb(rng, 256, *mult3)),
+            t(_int8(rng, (256, cout))), t(rng.uniform(*mult1, cout).astype(np.float32)),
+            t(rng.uniform(-1, 1, cout).astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(S8_HEAD_SHAPES))
+@pytest.mark.parametrize("kind", list(S8_HEAD_KINDS))
+def test_s8_head_matches_plain_on_card(card, kind, shape):
+    """The int8 head at ragged shapes and HA's 80 x 30 x 40: logits and
+    descriptors equal to the plain version (int32 sums, the same float32
+    affine), the softmax within 1 bf16 ulp."""
+    from spnerf_tpu_torch.kernels.tail_fused import prepare_head
+
+    cout, soft = S8_HEAD_KINDS[kind]
+    B, H, W = S8_HEAD_SHAPES[shape]
+    rng = np.random.default_rng(130 + H + cout)
+    x = torch.from_numpy(_int8(rng, (B, H, W, 128), 0, 128)).cuda()
+    raw = _s8_head_raw(rng, cout)
+    kw = {"softmax_lanes": cout} if soft else {}
+    got = _s8_held(head, head_plain, prepare_head, x, raw, kw, exact=not soft)
+    assert got.shape == (B, H, W, 64 if soft else cout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["saturating", "zero_channels"])
+def test_s8_head_edge_values_on_card(card, kind):
+    """The mid saturating at 127 (large multipliers) with negative 1x1
+    multipliers; input and weight channels all zero."""
+    from spnerf_tpu_torch.kernels.tail_fused import prepare_head
+
+    rng = np.random.default_rng(140)
+    for cout, soft in S8_HEAD_KINDS.values():
+        x = torch.from_numpy(_int8(rng, (2, 12, 20, 128), 0, 128)).cuda()
+        if kind == "saturating":
+            raw = _s8_head_raw(rng, cout, (1e-2, 5e-2), (-1e-4, 1e-4))
+        else:
+            raw = _s8_head_raw(rng, cout)
+            x[..., ::6] = 0
+            raw[0][..., ::5] = 0
+            raw[3][::3] = 0
+        kw = {"softmax_lanes": cout} if soft else {}
+        _s8_held(head, head_plain, prepare_head, x, raw, kw, exact=not soft)

@@ -149,7 +149,7 @@ def test_prepared_head_equals_raw(dtype, cout, softmax):
              np.float32)).to(torch.bfloat16))
     ops = T.prepare_head(*raw)
     assert ops.coutp == ((72 if cout == 65 else 256) if dtype == torch.bfloat16
-                         else (128 if cout == 65 else 256))
+                         else (80 if cout == 65 else 256))
     assert ops.m1p.shape == (ops.coutp,) and ops.m1p.dtype == torch.float32
     kw = {"softmax_lanes": cout} if softmax else {}
     got = T.head(x, ops, **kw)
