@@ -124,8 +124,8 @@ Phases, each of which raises on failure (nothing is caught):
    dB of dense, int8 within 0.3 dB of its plain version;
 14. hold each render kernel against its plain version on the operands the
    drive gives it: rgb and depth within the stated tolerances, two runs
-   bit-equal; times, the bound, and the three products alone through
-   ``torch.matmul`` in bf16 as a yardstick;
+   bit-equal; times around the call and on the device, the bound, and the
+   three products alone through ``torch.matmul`` in bf16 as a yardstick;
 15. render a few hundred rays on the card and by the plain path on the
    CPU, same weights and flags, at every width and operand type.
 
@@ -154,7 +154,6 @@ import torch.nn.functional as F
 
 from spnerf_tpu_torch import settings
 from spnerf_tpu_torch.data.loader import DataLoader
-from spnerf_tpu_torch.data.nerf_dataset import camera_intrinsics
 from spnerf_tpu_torch.geometry.homography import (
     HomographyConfig,
     sample_homographies,
@@ -178,14 +177,11 @@ from spnerf_tpu_torch.kernels.warp import (
     warp_by_inverse_plain,
 )
 from spnerf_tpu_torch.models.fused_tiny_nerf import (
-    TinyFieldConfig,
     direction_features,
     encode_rays,
-    make_encoding,
     render_fused_rays,
     render_fused_rays_packed,
 )
-from spnerf_tpu_torch.models.nerf import camera_rays
 from spnerf_tpu_torch.models.superpoint import (
     SuperPointConfig,
     init_superpoint,
@@ -218,9 +214,12 @@ from spnerf_tpu_torch.ops.photometric_device import (
     photometric_from_draws,
 )
 from spnerf_tpu_torch.tasks import export, train_task
-from spnerf_tpu_torch.tasks.nerf_task import pose_orbit
-from spnerf_tpu_torch.tools.import_jax_weights import tiny_field_from_jax
-from spnerf_tpu_torch.tools.kernel_times import device_ms
+from spnerf_tpu_torch.tools.kernel_times import (
+    RENDER_FIELDS,
+    device_ms,
+    load_field,
+    orbit_rays,
+)
 from spnerf_tpu_torch.train import loop
 from spnerf_tpu_torch.train.losses import (
     DescriptorLossConfig,
@@ -354,13 +353,10 @@ DESC_PAIR_FLOPS_FWD, DESC_PAIR_FLOPS_BWD = 13, 9
 SMALL_LOSS_RTOL = 2e-4
 SMALL_IMAGE_ATOL = 1e-5
 
-# the tiny NeRF sphere fields as bench_nerf.py renders them: width ->
-# (file, block, s_chunk); an orbit camera of 362 x 362 pixels padded to
-# 131,072 rays, 32 samples, bf16 weights, 10 renders per variant
-FIELD_DIR = Path(__file__).resolve().parent / "benchmarks" / "data"
-RENDER_FIELDS = {128: ("sphere_field.npz", 1024, 16),
-                 64: ("sphere_field_w64.npz", 512, 16),
-                 32: ("sphere_field_w32.npz", 2048, 8)}
+# the tiny NeRF sphere fields as bench_nerf.py renders them
+# (kernel_times.RENDER_FIELDS: width -> file, block, s_chunk); an orbit
+# camera of 362 x 362 pixels padded to 131,072 rays, 32 samples, bf16
+# weights, 10 renders per variant
 RENDER_RAYS = 131072
 RENDER_ITERS = 10
 RENDER_EPS = 1e-3
@@ -373,8 +369,11 @@ RENDER_REPLACES = {
     "render[w32]": "spnerf_tpu/kernels/render_pallas.py:726"}
 # kernel against plain version on the card: the same roundings and skips;
 # where the library's dots sum in another order, a sum on the other side of
-# a bf16 rounding moves one hidden activation by one ulp, some 1e-5 of rgb
-# (measured on an H100: equal at these shapes, 1.4e-6 at small ones)
+# a bf16 rounding moves one hidden activation by one ulp, which through the
+# committed fields moves rgb by up to 8e-4, so the bf16 kernel sums again
+# in the library's order (FMAs in k order) wherever the order could decide
+# a rounding (measured on an H100: equal at these shapes but for the dense
+# head's last ulps)
 RENDER_RGB_TOL = 1e-4
 RENDER_DEPTH_TOL = 1e-3
 # held-out rays of the analytic sphere: the reference package's renderer
@@ -1947,20 +1946,6 @@ def phase_train_small():
         f"{lr}) where the gradient is clear; last loss {out[DEV][1]['loss']:.4f}")
 
 
-def orbit_rays(n_rays: int):
-    """A camera's ray bundle, as bench_nerf.py makes it: an orbit pose at
-    radius 4 looking at the origin, 60 degrees, int(sqrt(n)) pixels a side,
-    padded to ``n_rays`` with its first rays. (origins, directions) on the
-    card."""
-    side = int(np.sqrt(n_rays))
-    K = torch.from_numpy(camera_intrinsics((side, side), 60.0)).cuda()
-    pose = torch.from_numpy(pose_orbit(8, radius=4.0, height=0.4)[0]).cuda()
-    o, d = camera_rays((side, side), K, pose)
-    pad = n_rays - side * side
-    return (torch.cat([o, o[:pad]]).contiguous(),
-            torch.cat([d, d[:pad]]).contiguous())
-
-
 def sphere_scene(seed: int, n: int, near=2.0, far=6.0):
     """Rays from a shell of radius 4 toward the unit sphere, coloured by
     its normal on a black background (the analytic scene the committed
@@ -1983,19 +1968,6 @@ def sphere_scene(seed: int, n: int, near=2.0, far=6.0):
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in
                  (o.astype(np.float32), d.astype(np.float32),
                   rgb.astype(np.float32), t.astype(np.float32), hit))
-
-
-def load_field(width: int):
-    """A committed sphere field in bf16 with its configuration, encoding
-    matrix on the card and bench_nerf.py's block and s_chunk."""
-    name, block, s_chunk = RENDER_FIELDS[width]
-    with np.load(FIELD_DIR / name) as data:
-        params = tiny_field_from_jax({k: data[k] for k in data.files},
-                                     "cuda", torch.bfloat16)
-    cfg = TinyFieldConfig(n_samples=32, width=width)
-    A, c = (torch.from_numpy(t).cuda() for t in make_encoding(cfg))
-    return types.SimpleNamespace(width=width, params=params, cfg=cfg, A=A,
-                                 c=c, block=block, s_chunk=s_chunk)
 
 
 def encoded(field, o, d):
@@ -2253,6 +2225,7 @@ def phase_render_kernels(fields, ops, peaks):
         share = float((got[0] != want_rgb).float().mean())
         ms = cuda_ms(kernel, reps=20, warmup=3)
         plain_ms = cuda_ms(plain, reps=3)
+        dev_ms, how = device_ms(kernel, "render")
         # the products of the (ray, sample) pairs this run's flags and early
         # stop leave: two W x W layers and the (W, 4) head that holds sigma
         # and rgb (the TPU kernel's full-width head would make it 3 W^2)
@@ -2275,7 +2248,8 @@ def phase_render_kernels(fields, ops, peaks):
             f"{composited / (n * kw['n_samples']):.4f} of the (ray, sample) "
             f"pairs composited; max_abs_err rgb {rgb_err:.3e} depth "
             f"{depth_err:.3e} ({share:.3e} of rgb values differ), two runs "
-            f"bit-equal, kernel {ms:.4f} ms (median of 20), plain "
+            f"bit-equal, kernel {ms:.4f} ms (median of 20; "
+            f"device {dev_ms:.4f} ms by {how}), plain "
             f"{plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
             f"({'operations' if t_ops >= t_bytes else 'bytes'}: "
             f"{ops_done / 1e9:.2f} GFLOP at the {unit} tensor-core rate, "
@@ -2287,7 +2261,7 @@ def phase_render_kernels(fields, ops, peaks):
             "max_abs_err": max(rgb_err, depth_err), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
+            "library_ms": None, "device_ms": dev_ms,
         })
         del got, again, want_rgb, want_depth
         torch.cuda.empty_cache()

@@ -1,5 +1,5 @@
-"""Device time of the serving and HA kernels apart from their wrappers'
-host work, on the card.
+"""Device time of the serving, HA and render kernels apart from their
+wrappers' host work, on the card.
 
     python -m spnerf_tpu_torch.tools.kernel_times [--out PATH] [--routes]
         [--match SUBSTRINGS]
@@ -11,8 +11,12 @@ int8 ``double_conv3x3`` of blocks 3-4, 5-6 and 7-8 and the int8 ``head``
 (detector with softmax, descriptor) at those two shapes' activations
 (HA's detector in logits mode); ``dot_bias_act`` at the shapes of the
 per-layer route at batch 8, 480 x 640; ``head`` bf16 at batch 64 and at
-HA's 80 views of 30 x 40 cells; ``--match conv12,warp`` keeps the cases
-whose label holds one of the substrings) it prints, in ms per call:
+HA's 80 views of 30 x 40 cells; the render kernels at the operands of
+``chip_smoke.py``'s render drive: the committed sphere fields in bf16 on
+131,072 orbit rays x 32 samples, width 128 dense, with the early stop and
+with cached occupancy flags and the early stop, widths 64 and 32 and int8
+with the early stop; ``--match conv12,warp`` keeps the cases whose label
+holds one of the substrings) it prints, in ms per call:
 
 * ``wrapper``: CUDA events around one call of the wrapper, median of 20
   (what the ``ms`` of ``chip_smoke.py``'s kernel rows measures);
@@ -44,6 +48,7 @@ import json
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -237,6 +242,119 @@ def _s8_cases(rng, t, mb):
                    (lambda x=x, ops=ops, kw=kw: T.head(x, ops, **kw)), "head_")
 
 
+# the render drive of chip_smoke.py (bench_nerf.py's protocol): width ->
+# (committed field, block, s_chunk), orbit rays, samples
+FIELD_DIR = Path(__file__).resolve().parents[2] / "benchmarks" / "data"
+RENDER_FIELDS = {128: ("sphere_field.npz", 1024, 16),
+                 64: ("sphere_field_w64.npz", 512, 16),
+                 32: ("sphere_field_w32.npz", 2048, 8)}
+RENDER_RAYS, RENDER_SAMPLES, RENDER_EPS = 131072, 32, 1e-3
+
+
+def orbit_rays(n_rays: int):
+    """A camera's ray bundle, as bench_nerf.py makes it: an orbit pose at
+    radius 4 looking at the origin, 60 degrees, int(sqrt(n)) pixels a side,
+    padded to ``n_rays`` with its first rays. (origins, directions) on the
+    card."""
+    from spnerf_tpu_torch.data.nerf_dataset import camera_intrinsics
+    from spnerf_tpu_torch.models.nerf import camera_rays
+    from spnerf_tpu_torch.tasks.nerf_task import pose_orbit
+
+    side = int(np.sqrt(n_rays))
+    K = torch.from_numpy(camera_intrinsics((side, side), 60.0)).cuda()
+    pose = torch.from_numpy(pose_orbit(8, radius=4.0, height=0.4)[0]).cuda()
+    o, d = camera_rays((side, side), K, pose)
+    pad = n_rays - side * side
+    return (torch.cat([o, o[:pad]]).contiguous(),
+            torch.cat([d, d[:pad]]).contiguous())
+
+
+def load_field(width: int):
+    """A committed sphere field in bf16 with its configuration, encoding
+    matrix on the card and bench_nerf.py's block and s_chunk."""
+    import types
+
+    from spnerf_tpu_torch.models.fused_tiny_nerf import (
+        TinyFieldConfig,
+        make_encoding,
+    )
+    from spnerf_tpu_torch.tools.import_jax_weights import tiny_field_from_jax
+
+    name, block, s_chunk = RENDER_FIELDS[width]
+    with np.load(FIELD_DIR / name) as data:
+        params = tiny_field_from_jax({k: data[k] for k in data.files},
+                                     "cuda", torch.bfloat16)
+    cfg = TinyFieldConfig(n_samples=RENDER_SAMPLES, width=width)
+    A, c = (torch.from_numpy(t).cuda() for t in make_encoding(cfg))
+    return types.SimpleNamespace(width=width, params=params, cfg=cfg, A=A,
+                                 c=c, block=block, s_chunk=s_chunk)
+
+
+def render_drive():
+    """The operands of the render drive: (orbit origins, directions), and
+    per width ``load_field``'s namespace with the bf16 weights ``ws``, the
+    encodings (oe, de, df) of those rays and the render keywords ``kw``
+    (early stop on)."""
+    from spnerf_tpu_torch.models.fused_tiny_nerf import (
+        direction_features,
+        encode_rays,
+    )
+
+    o, d = orbit_rays(RENDER_RAYS)
+    fields = {}
+    for width in RENDER_FIELDS:
+        f = load_field(width)
+        f.ws = [f.params[k] for k in ("w1", "w2", "w3")]
+        f.oe, f.de = encode_rays(o, d, f.A, f.c)
+        f.df = direction_features(f.params, d, f.A, f.c)
+        f.kw = dict(jitter=0.5, n_samples=RENDER_SAMPLES, near=f.cfg.near,
+                    far=f.cfg.far, block=f.block, s_chunk=f.s_chunk,
+                    early_stop_eps=RENDER_EPS)
+        fields[width] = f
+    return o, d, fields
+
+
+def _render_cases():
+    """The render kernels at the drive's operands (after every other
+    case, so that the seeded draws of those stay as they were)."""
+    from spnerf_tpu_torch.kernels import render as R
+    from spnerf_tpu_torch.ops.occupancy import (
+        chunk_flags,
+        field_integral_volume,
+    )
+
+    o, d, fields = render_drive()
+    n = f"{RENDER_RAYS}x{RENDER_SAMPLES}"
+    for width in (64, 32):
+        f = fields[width]
+        yield (f"render[w{width}] early stop {n}",
+               lambda f=f, width=width: R.render_fused_packed(
+                   f.oe, f.de, *f.ws, f.df, width=width, **f.kw),
+               None, "render")
+    f = fields[128]
+    ivol = field_integral_volume(
+        {k: v.float() for k, v in f.params.items()}, f.cfg)
+    flags = chunk_flags(o, d, ivol, block=f.kw["block"],
+                        n_samples=RENDER_SAMPLES, s_chunk=f.kw["s_chunk"],
+                        near=f.cfg.near, far=f.cfg.far, extent=float(f.cfg.far))
+    for label, extra in (("dense", dict(early_stop_eps=0.0)),
+                         ("early stop", {}),
+                         ("cached flags + early stop", dict(flags=flags))):
+        kw = {**f.kw, **extra}
+        yield (f"render[bf16] {label} {n}",
+               lambda kw=kw: R.render_fused(f.oe, f.de, *f.ws, f.df, **kw),
+               None, "render")
+    calib = 4096
+    qf = R.qfield_to(R.quantize_field(
+        {k: v.float().cpu().numpy() for k, v in f.params.items()},
+        f.oe[:calib].cpu().numpy(), f.de[:calib].cpu().numpy(),
+        f.df[:calib].cpu().numpy(), n_samples=RENDER_SAMPLES,
+        near=f.cfg.near, far=f.cfg.far), "cuda")
+    yield (f"render[int8] early stop {n}",
+           lambda: R.render_fused_int8(f.oe, f.de, qf, f.df, **f.kw), None,
+           "render")
+
+
 def _cases(gen_seed: int = 0):
     """(label, raw call, prepared call or None, kernel symbol)."""
     from spnerf_tpu_torch.kernels import conv_stack as S
@@ -305,6 +423,7 @@ def _cases(gen_seed: int = 0):
         yield (label, lambda x=x, raw=raw, kw=kw: T.head(x, *raw, **kw),
                None if ops is None else
                (lambda x=x, ops=ops, kw=kw: T.head(x, ops, **kw)), "head")
+    yield from _render_cases()
 
 
 ROUTES = [  # label, mode, fused, batch
@@ -392,7 +511,7 @@ def main(argv=None) -> int:
     from spnerf_tpu_torch.kernels import _build
 
     _build.build_all(["conv12_fused", "double_conv3x3", "head", "dot_bias_act",
-                      "warp"])
+                      "warp", "render"])
     match = [m for m in args.match.split(",") if m]
     results = []
     for label, raw, prepared, symbol in _cases():

@@ -341,6 +341,186 @@ def test_render_wrappers_raise_on_what_the_kernel_does_not_take(card):
         R.render_fused_packed(oe, de, w1, w2, w3, df, width=128)
 
 
+# The bf16 render on the tensor cores (csrc/render.cu render_tc_kernel):
+# a block of warpgroups shares a tile of tile_rays(width) rays, each
+# warpgroup owning groups of 32 rays (64-row M-tiles of two samples).
+# Cases: N below one group and one past a multiple of it; a tile that
+# spans two flag blocks and a group whose flags are all 0; the early stop
+# closing one group of a tile (which must go on for the others) and all
+# of another; weights resident in shared memory giving the same bits on
+# a launch after another field's.
+RENDER_TC_CASES = ["n_below_group", "n_group_plus_one", "flag_blocks",
+                   "one_group_stops", "second_launch"]
+
+
+def _render_tc_case(kind, width, rng):
+    """(bf16 weights, (oe, de, df), keywords) on the card."""
+    from spnerf_tpu_torch.kernels import render as R
+
+    tile = R.tile_rays(width)
+    n_samples, chunk = 16, 4
+    N = {"n_below_group": 20, "n_group_plus_one": 3 * 32 + 1,
+         "flag_blocks": 2 * tile + 45, "one_group_stops": 3 * tile + 7,
+         "second_launch": tile + 33}[kind]
+    p = {k: (rng.standard_normal((width, width)) * 0.1).astype(np.float32)
+         for k in ("w1", "w2", "w3")}
+    oe = rng.uniform(-3, 3, (N, width)).astype(np.float32)
+    de = rng.uniform(-2, 2, (N, width)).astype(np.float32)
+    oe[:, 0], de[:, 0] = np.pi / 2, 0.0  # the constant-one lane
+    df = (rng.standard_normal((N, width)) * 0.1).astype(np.float32)
+    block, flags, eps = 48, None, 0.0
+    if kind == "flag_blocks":
+        # 32-ray blocks, so that a tile spans several: group 1 of tile 0
+        # and group 2 of tile 1 never flagged, the others at random
+        block = 32
+        flags = rng.uniform(size=(-(-N // block), n_samples // chunk)) > 0.3
+        flags[1] = False
+        flags[(tile // 32) + 2] = False
+    if kind == "one_group_stops":
+        # sigma read from lane 1 alone; group 0 of every tile dense there,
+        # and the whole of tile 1: the early stop closes those rays in the
+        # first chunk, tile 1 stops, the others go on
+        p["w3"][:, 0] = 1e-3
+        p["w3"][1, 0] = 5.0
+        r = np.arange(N)
+        hot = ((r % tile) < 32) | (r // tile == 1)
+        df[:, 1] += np.where(hot, 6.0, -6.0).astype(np.float32)
+        eps = 1e-3
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    kw = dict(jitter=0.37, n_samples=n_samples, near=2.0, far=6.0,
+              block=block, early_stop_eps=eps,
+              s_chunk=chunk if width == 128 else chunk * width // 128,
+              flags=None if flags is None else t(flags.astype(np.int32)))
+    ws = [t(p[k]).to(torch.bfloat16) for k in ("w1", "w2", "w3")]
+    return ws, (t(oe), t(de), t(df)), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 64, 32])
+@pytest.mark.parametrize("kind", RENDER_TC_CASES)
+def test_render_tc_tiling_on_card(card, kind, width):
+    """The tensor-core render against its plain version at the edges of
+    its tiling, at the bf16 tolerances (rgb 1e-4, depth 1e-3), two runs
+    bit-equal."""
+    from spnerf_tpu_torch.kernels import _build
+    from spnerf_tpu_torch.kernels import render as R
+
+    rng = np.random.default_rng(23)
+    ws, (oe, de, df), kw = _render_tc_case(kind, width, rng)
+    if width == 128:
+        run = lambda fn, w: fn(oe, de, *w, df, **kw)  # noqa: E731
+        kernel, plain = R.render_fused, R.render_fused_plain
+        key = "render[bf16]"
+    else:
+        run = lambda fn, w: fn(oe, de, *w, df, width=width, **kw)  # noqa: E731
+        kernel, plain = R.render_fused_packed, R.render_fused_packed_plain
+        key = f"render[w{width}]"
+    before = _build.launch_counts[key]
+    got = run(kernel, ws)
+    if kind == "second_launch":  # another field in between
+        other = [(w.float() * -0.7).to(torch.bfloat16) for w in ws]
+        run(kernel, other)
+    again = run(kernel, ws)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[key] == before + (3 if kind == "second_launch"
+                                                  else 2)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    want = run(plain, ws)
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+    assert float(want[0].max()) > 0.05
+    rgb_err = float((got[0] - want[0]).abs().max())
+    depth_err = float((got[1] - want[1]).abs().max())
+    print(f"render tc {kind} w{width}: rgb {rgb_err:.3e} depth {depth_err:.3e}")
+    assert rgb_err <= 1e-4 and depth_err <= 1e-3
+    if kind == "flag_blocks":  # a ray never flagged stays black
+        never = ~kw["flags"].bool().any(1)
+        rays = never.repeat_interleave(kw["block"])[:oe.shape[0]]
+        assert float(got[0][rays].abs().max()) == 0.0
+    if kind == "one_group_stops":
+        # tile 1 and the 7 rays of tile 3 (all of group 0) skipped their
+        # last 3 chunks; every other tile went on
+        _, _, done = R.render_plain_counted(
+            oe, de, df, R.float_mlp_head(*ws, width != 128), width=width,
+            n_samples=16, chunk=4, near=2.0, far=6.0, jitter=0.37,
+            block=kw["block"], flags=None, early_stop_eps=1e-3,
+            packed=width != 128)
+        assert done == 16 * oe.shape[0] - 12 * (R.tile_rays(width) + 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 64, 32])
+def test_render_tc_on_the_sphere_fields_on_card(card, width):
+    """The tensor-core render against its plain version (cuBLAS's order of
+    sums) on a committed sphere field at the render drive's 131,072 orbit
+    rays x 32 samples, early stop on: where wgmma's own sums would put 13
+    to 46 rays beyond 1e-4 in rgb, the repair keeps every ray within 1e-4
+    (rgb) and 1e-3 (depth)."""
+    from spnerf_tpu_torch.kernels import render as R
+    from spnerf_tpu_torch.tools.kernel_times import render_drive
+
+    f = render_drive()[2][width]
+    if width == 128:
+        run = lambda fn: fn(f.oe, f.de, *f.ws, f.df, **f.kw)  # noqa: E731
+        kernel, plain = R.render_fused, R.render_fused_plain
+    else:
+        run = lambda fn: fn(f.oe, f.de, *f.ws, f.df, width=width, **f.kw)  # noqa: E731
+        kernel, plain = R.render_fused_packed, R.render_fused_packed_plain
+    got, want = run(kernel), run(plain)
+    assert float(want[0].max()) > 0.05
+    rgb_err = float((got[0] - want[0]).abs().max())
+    depth_err = float((got[1] - want[1]).abs().max())
+    print(f"render tc sphere w{width}: rgb {rgb_err:.3e} depth {depth_err:.3e}")
+    assert rgb_err <= 1e-4 and depth_err <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale_c", [0, 1])
+def test_tc_step_equals_the_tensor_cores_on_card(card, scale_c):
+    """``_render_tc.tc_step``, the tests' model of a wgmma k-step, against
+    the instruction itself (m64n8k16, bf16, float32 sums; the probe in
+    ``csrc/render_probe.cu``) on 512 problems of products spread over
+    2^-24 .. 2^8, both signs, with and without a running sum over
+    2^-10 .. 2^10: equal to the bit."""
+    from _render_tc import tc_step
+
+    from spnerf_tpu_torch.kernels import _build
+
+    rng = np.random.default_rng(30 + scale_c)
+    n = 512
+
+    def spread(shape):
+        m = rng.integers(128, 256, shape) / 128.0
+        return (rng.choice([-1.0, 1.0], shape) * m
+                * 2.0 ** rng.integers(-12, 5, shape)).astype(np.float32)
+
+    a = torch.from_numpy(spread((n, 64, 16))).to(torch.bfloat16).cuda()
+    b = torch.from_numpy(spread((n, 16, 8))).to(torch.bfloat16).cuda()
+    c = torch.from_numpy((rng.standard_normal((n, 64, 8))
+                          * 2.0 ** rng.integers(-10, 11, (n, 64, 8)))
+                         .astype(np.float32)).cuda()
+    d = torch.empty_like(c)
+    _build.launch("render_probe", "render_wgmma_probe", a, b, c, d, n,
+                  scale_c)
+    torch.cuda.synchronize()
+    a, b, c = a.cpu(), b.cpu(), c.cpu()
+    want = torch.stack([tc_step(a[i], b[i], c[i] if scale_c else None)
+                        for i in range(n)])
+    assert torch.equal(d.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_render_sine_equals_sinf_on_card(card):
+    """The kernels' register-only sine (``csrc/render_common.cuh``)
+    against CUDA's sinf on every float32 bit pattern, through the probe in
+    ``csrc/render_probe.cu``: equal to the bit (any NaN for any NaN)."""
+    from spnerf_tpu_torch.kernels import _build
+
+    count = torch.zeros(1, dtype=torch.int64, device="cuda")
+    _build.launch("render_probe", "render_sine_mismatches", count)
+    torch.cuda.synchronize()
+    assert int(count) == 0
+
+
 def _bf16_scaled_ulps(got, want, floor):
     from _torch_port import bf16_scaled_ulps
     return bf16_scaled_ulps(got.cpu(), want.cpu(), floor)
