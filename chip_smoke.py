@@ -498,11 +498,11 @@ def nbytes(*tensors) -> int:
 
 def raw_args(args) -> tuple:
     """A call's arguments with prepared operands (``DotOperands``,
-    ``HeadOperands``, ``Conv12Operands``, ``DoubleConvOperands``) expanded
-    into their raw tensors."""
+    ``ConvOperands``, ``HeadOperands``, ``Conv12Operands``,
+    ``DoubleConvOperands``) expanded into their raw tensors."""
     out = []
     for a in args:
-        if isinstance(a, conv_stack.DotOperands):
+        if isinstance(a, (conv_stack.DotOperands, conv_stack.ConvOperands)):
             out += [a.w, a.mult, a.bias]
         elif isinstance(a, (tail_fused.HeadOperands, c12.Conv12Operands,
                             mid_fused.DoubleConvOperands)):
@@ -960,6 +960,10 @@ REDESIGNED_WARP_WIDTHS = [52, 53, 54, 55, 131]
 REDESIGNED_S8_DOUBLE = [((1, 7, 13), False), ((2, 30, 40), False),
                         ((2, 30, 40), True), ((3, 34, 62), True)]
 REDESIGNED_S8_HEAD_SHAPES = [(80, 30, 40), (1, 7, 13), (3, 34, 62)]
+# conv3x3's int8 instance off its 16 x 16 tile ((B, H, W), pool): odd H
+# and W unpooled, ragged tiles and W % 16 == 8 pooled and not
+REDESIGNED_S8_CONV = [((1, 7, 13), False), ((2, 30, 40), False),
+                      ((2, 30, 40), True), ((3, 34, 62), True)]
 
 
 def phase_redesigned():
@@ -1065,6 +1069,21 @@ def phase_redesigned():
                     mid_fused.double_conv3x3, double_conv3x3_plain, x,
                     mid_fused.prepare_double_conv(*raw), raw,
                     {"pool": pool, "relu": relu}, "int8"))
+    for (B, h, w), pool in REDESIGNED_S8_CONV:
+        for cin, cout in ((64, 64), (64, 128), (128, 128), (128, 256)):
+            if pool and cout != cin:
+                continue  # the serving route pools 64-64 and 128-128 only
+            x = card(rng.integers(0, 128, (B, h, w, cin)).astype(np.int8))
+            raw = (card(rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8)),
+                   card(rng.uniform(-4e-4, 4e-4, cout).astype(np.float32)),
+                   card(rng.uniform(-20, 20, cout).astype(np.float32)))
+            wrapper = conv_stack.packed_conv3x3 if cin == 64 else conv_stack.conv3x3
+            for relu in (True, False):
+                notes.append(held(
+                    f"conv3x3[int8-{cin}-{cout}{'-pool' if pool else ''}]"
+                    f"{'' if relu else ' relu off'} {B}x{h}x{w}", wrapper,
+                    conv_stack.conv3x3_plain, x, conv_stack.prepare_conv3x3(*raw),
+                    raw, {"pool": pool, "relu": relu}, "int8"))
     for B, h, w in REDESIGNED_S8_HEAD_SHAPES:
         x = card(rng.integers(0, 128, (B, h, w, 128)).astype(np.int8))
         for cout, soft in ((65, True), (65, False), (256, False)):
@@ -2032,8 +2051,9 @@ def phase_render(fields, o, d):
     oe, de, df = encoded(f128, o, d)
     t0 = time.perf_counter()
     qf = calibrated_int8(f128, oe, de, df)
+    qops = rk.prepare_render_int8(qf)  # laid out once, as a server would
     log(f"[render] quantize_field on the first {INT8_CALIB_RAYS} rays (numpy "
-        f"on the host): {time.perf_counter() - t0:.4f} s")
+        f"on the host) and prepare_render_int8: {time.perf_counter() - t0:.4f} s")
     w128 = [f128.params[k] for k in ("w1", "w2", "w3")]
 
     def rays128(**kw):
@@ -2063,7 +2083,7 @@ def phase_render(fields, o, d):
         ("packed-w64", "render[w64]", lambda: packed(fields[64])),
         ("packed-w32", "render[w32]", lambda: packed(fields[32])),
         ("int8+early-stop", "render[int8]", lambda: rk.render_fused_int8(
-            oe, de, qf, df, **render_kw(f128, early_stop_eps=RENDER_EPS))),
+            oe, de, qops, df, **render_kw(f128, early_stop_eps=RENDER_EPS))),
     ]
     for _, _, fn in variants:  # warm-up: library handles, allocator pools
         fn()
@@ -2090,7 +2110,8 @@ def phase_render(fields, o, d):
         raise AssertionError(f"render: launches {counts}, expected one per "
                              f"render: {dict(expect)}")
     return counts, types.SimpleNamespace(o=o, d=d, oe=oe, de=de, df=df,
-                                         qf=qf, flags=cached, ivol=ivol)
+                                         qf=qf, qops=qops, flags=cached,
+                                         ivol=ivol)
 
 
 def psnr_and_depth_error(rgb, depth, scene):
@@ -2174,7 +2195,10 @@ def phase_render_kernels(fields, ops, peaks):
              ("render[w32]", "early stop", fields[32],
               dict(early_stop_eps=RENDER_EPS)),
              ("render[int8]", "early stop", f128,
-              dict(early_stop_eps=RENDER_EPS))]
+              dict(early_stop_eps=RENDER_EPS)),
+             ("render[int8]", "dense", f128, dict(early_stop_eps=0.0)),
+             ("render[int8]", "cached flags + early stop", f128,
+              dict(flags=ops.flags, early_stop_eps=RENDER_EPS))]
     rows = {}
     for key, label, f, extra in cases:
         W = f.width
@@ -2189,7 +2213,7 @@ def phase_render_kernels(fields, ops, peaks):
         if key == "render[int8]":
             weights = [ops.qf[k] for k in ("qw1", "qw2", "qw3", "m1", "m2", "r3")]
             head = rk.int8_mlp_head(ops.qf)
-            kernel = lambda: rk.render_fused_int8(oe, de, ops.qf, df, **kw)  # noqa: E731
+            kernel = lambda: rk.render_fused_int8(oe, de, ops.qops, df, **kw)  # noqa: E731
             rate, unit = int8_rate, "int8"
         else:
             weights = [f.params[k] for k in ("w1", "w2", "w3")]
@@ -2215,6 +2239,10 @@ def phase_render_kernels(fields, ops, peaks):
                                  f"{dict(_build.launch_counts - before)}")
         if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
             raise AssertionError(f"{key} {label}: two runs differ")
+        if key == "render[int8]":  # the quantize_field dict, laid out on the call
+            by_dict = rk.render_fused_int8(oe, de, ops.qf, df, **kw)
+            if not (torch.equal(got[0], by_dict[0]) and torch.equal(got[1], by_dict[1])):
+                raise AssertionError(f"{key} {label}: the dict route differs")
         want_rgb, want_depth, composited = plain()
         rgb_err = float((got[0] - want_rgb).abs().max())
         depth_err = float((got[1] - want_depth).abs().max())

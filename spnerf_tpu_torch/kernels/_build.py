@@ -128,25 +128,6 @@ def launch(lib_name: str, fn_name: str, *args) -> None:
         raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
 
 
-def pack_words(w: torch.Tensor, cout_pad: int | None = None,
-               cin_pad: int | None = None) -> torch.Tensor:
-    """int8, bf16 or float32 (..., cin, cout) weights -> int32 words
-    (taps, cin/per_word, cout_pad): each word holds per_word = 4, 2 or 1
-    consecutive input channels of one output channel, the operand layout
-    of the kernels' dot (``__dp4a`` for int8). Input and output channels
-    are zero-padded to ``cin_pad`` and ``cout_pad``."""
-    cin, cout = w.shape[-2:]
-    per = 4 // w.element_size()
-    w = w.reshape(-1, cin, cout)
-    pad_in = (cin_pad or cin) - cin
-    pad_out = (cout_pad or cout) - cout
-    if pad_in > 0 or pad_out > 0:
-        w = torch.nn.functional.pad(w, (0, max(pad_out, 0), 0, max(pad_in, 0)))
-    taps, cinp, coutp = w.shape
-    w = w.reshape(taps, cinp // per, per, coutp).permute(0, 1, 3, 2)
-    return w.contiguous().view(torch.int32)[..., 0]
-
-
 def pack_slabs(w: torch.Tensor) -> torch.Tensor:
     """bf16 (3, 3, cin, cout) weights -> the tensor-core layout of
     ``csrc/conv_tc.cuh``: (9, cout/8, cin/8, 8, 8), one tap's slab of

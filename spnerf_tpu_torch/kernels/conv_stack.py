@@ -5,11 +5,13 @@ Counterpart of ``spnerf_tpu/kernels/conv_stack_pallas.py``:
 * ``conv3x3`` replaces ``conv3x3_pallas`` (C_in 128) and
   ``packed_conv3x3`` replaces ``packed_conv3x3_pallas`` (C_in 64), both
   with the CUDA kernel ``csrc/conv3x3.cu``: a SAME 3x3 conv with the
-  affine, ReLU, optional 2x2 pool and cast in its epilogue (bf16 on the
-  tensor cores, weights by ``_build.pack_slabs``). The W-pair
-  packing of the second (``pack_pairs``, ``unpack_pairs``,
-  ``pack_weights_*``, ``maxpool2x2_packed``) is TPU layout: here both
-  take and return plain NHWC.
+  affine, ReLU, optional 2x2 pool and cast in its epilogue (int8 and bf16
+  on the tensor cores, weights by ``_build.pack_slabs``).
+  ``prepare_conv3x3`` packs its operands once (``ConvOperands``); raw
+  weights are packed on every call. The W-pair packing of the second
+  (``pack_pairs``, ``unpack_pairs``, ``pack_weights_*``,
+  ``maxpool2x2_packed``) is TPU layout: here both take and return plain
+  NHWC.
 * ``dot_bias_act`` replaces ``dot_bias_act_pallas`` with
   ``csrc/dot_bias_act.cu``: a per-row product with the same epilogue (the
   unfused heads' 1x1 convs on the tensor cores, and ``conv1_packed``'s
@@ -44,9 +46,45 @@ _DTYPE_NAME = {torch.int8: "int8", torch.bfloat16: "bf16",
                torch.float32: "f32"}
 
 
-def conv3x3_plain(x, w, mult, bias, *, relu=True, out_dtype=torch.int8,
-                  pool=False):
+@dataclasses.dataclass(frozen=True)
+class ConvOperands:
+    """``conv3x3``'s operands prepared once by ``prepare_conv3x3``: the raw
+    (3, 3, C_in, C_out) weights, multiplier and bias (what the plain
+    version reads) and, where the kernel takes their type, its layout of
+    them: ``packed`` (``pack_slabs``' tap slabs), ``m``, ``b`` float32."""
+
+    w: torch.Tensor
+    mult: torch.Tensor
+    bias: torch.Tensor
+    packed: torch.Tensor | None = None
+    m: torch.Tensor | None = None
+    b: torch.Tensor | None = None
+
+
+def prepare_conv3x3(w, mult, bias) -> ConvOperands:
+    """Pack ``conv3x3``'s weights, multiplier and bias once (int8 or bf16
+    weights with C_in a multiple of 16 and C_out of 8); other weights keep
+    only the raw operands (the plain version runs them; the kernel
+    raises)."""
+    cin, cout = w.shape[-2:]
+    if w.dtype not in (torch.int8, torch.bfloat16) or cin % 16 or cout % 8:
+        return ConvOperands(w, mult, bias)
+    return ConvOperands(w, mult, bias, _build.pack_slabs(w),
+                        mult.float().contiguous(), bias.float().contiguous())
+
+
+def _operands(kind, w, mult, bias):
+    """(``w`` if it holds prepared operands of type ``kind``, else None;
+    the raw (w, mult, bias))."""
+    if isinstance(w, kind):
+        return w, (w.w, w.mult, w.bias)
+    return None, (w, mult, bias)
+
+
+def conv3x3_plain(x, w, mult=None, bias=None, *, relu=True,
+                  out_dtype=torch.int8, pool=False):
     """Plain version of ``conv3x3``, on any device."""
+    _, (w, mult, bias) = _operands(ConvOperands, w, mult, bias)
     y = affine(conv3x3_acc(x, w), mult.float(), bias.float(), relu)
     if pool:  # pool the f32 values, as the reference does
         y = maxpool2x2(y)
@@ -54,6 +92,7 @@ def conv3x3_plain(x, w, mult, bias, *, relu=True, out_dtype=torch.int8,
 
 
 def _conv3x3(family, x, w, mult, bias, relu, out_dtype, pool):
+    ops, (w, mult, bias) = _operands(ConvOperands, w, mult, bias)
     B, H, W, cin = x.shape
     cout = w.shape[-1]
     if w.shape != (3, 3, cin, cout) or w.dtype != x.dtype:
@@ -68,36 +107,39 @@ def _conv3x3(family, x, w, mult, bias, relu, out_dtype, pool):
         raise ValueError(f"{family}: the kernel takes int8 or bf16 operands "
                          f"with an output of the same type, not {x.dtype} -> "
                          f"{out_dtype}")
-    m, b = mult.float().contiguous(), bias.float().contiguous()
-    wp = (_build.pack_words(w) if x.dtype == torch.int8
-          else _build.pack_slabs(w))
+    if ops is None:
+        ops = prepare_conv3x3(w, mult, bias)
+    if ops.packed is None:
+        raise ValueError(f"{family}: no kernel for {cin} -> {cout} channels")
     x = x.contiguous()
-    _build.check_cuda(family, x=x, w=wp, mult=m, bias=b)
+    _build.check_cuda(family, x=x, w=ops.packed, mult=ops.m, bias=ops.b)
     shape = (B, H // 2, W // 2, cout) if pool else (B, H, W, cout)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     fn = "conv3x3_launch" if x.dtype == torch.int8 else "conv3x3_bf16_launch"
-    _build.launch("conv3x3", fn, x, wp, m, b, out, B, H, W, cin, cout,
-                  int(pool), int(relu))
+    _build.launch("conv3x3", fn, x, ops.packed, ops.m, ops.b, out, B, H, W,
+                  cin, cout, int(pool), int(relu))
     # one count per template instance
     _build.launch_counts[f"{family}[{_DTYPE_NAME[x.dtype]}-{cin}-{cout}"
                          + ("-pool]" if pool else "]")] += 1
     return out
 
 
-def conv3x3(x, w, mult, bias, *, relu: bool = True, out_dtype=torch.int8,
-            pool: bool = False) -> torch.Tensor:
+def conv3x3(x, w, mult=None, bias=None, *, relu: bool = True,
+            out_dtype=torch.int8, pool: bool = False) -> torch.Tensor:
     """3x3 SAME conv: ``cast(relu(acc * mult + bias))``.
 
-    x (B, H, W, Cin) int8 or bf16, Cin 128 on the serving path; w
-    (3, 3, Cin, Cout) of x's type; mult/bias (Cout,) float32: for int8
-    mult carries s_in * s_w / s_out and bias the folded bias over s_out,
-    for bf16 mult is 1. ``pool=True`` takes the 2x2 max of the float32
-    values before the cast -> (B, H/2, W/2, Cout).
+    x (B, H, W, Cin) int8 or bf16, Cin 128 on the serving path; ``w`` a
+    ``ConvOperands`` from ``prepare_conv3x3`` (mult and bias then
+    omitted), or the raw (3, 3, Cin, Cout) weights of x's type with
+    mult/bias (Cout,) float32, packed on this call (the same bits): for
+    int8 mult carries s_in * s_w / s_out and bias the folded bias over
+    s_out, for bf16 mult is 1. ``pool=True`` takes the 2x2 max of the
+    float32 values before the cast -> (B, H/2, W/2, Cout).
     """
     return _conv3x3("conv3x3", x, w, mult, bias, relu, out_dtype, pool)
 
 
-def packed_conv3x3(x, w, mult, bias, *, relu: bool = True,
+def packed_conv3x3(x, w, mult=None, bias=None, *, relu: bool = True,
                    out_dtype=torch.int8, pool: bool = False) -> torch.Tensor:
     """``conv3x3`` for the C_in = 64 layers (blocks 2-5), the counterpart
     of ``packed_conv3x3_pallas`` on plain NHWC."""
@@ -160,17 +202,10 @@ def prepare_dot(w, mult, bias) -> DotOperands:
     return DotOperands(w, mult, bias, packed, mp, bp, coutp)
 
 
-def _dot_operands(w, mult, bias):
-    """(DotOperands or None, (w, mult, bias))."""
-    if isinstance(w, DotOperands):
-        return w, (w.w, w.mult, w.bias)
-    return None, (w, mult, bias)
-
-
 def dot_bias_act_plain(x, w, mult=None, bias=None, *, relu=False,
                        out_dtype=torch.bfloat16):
     """Plain version of ``dot_bias_act``, on any device."""
-    _, (w, mult, bias) = _dot_operands(w, mult, bias)
+    _, (w, mult, bias) = _operands(DotOperands, w, mult, bias)
     return cast_out(affine(dot_acc(x, w), mult.float(), bias.float(), relu),
                     out_dtype)
 
@@ -188,7 +223,7 @@ def dot_bias_act(x, w, mult=None, bias=None, *, relu: bool = False,
     ``out_dtype``. The kernel pads C_out inside; only the Cout real lanes
     are written.
     """
-    ops, (w, mult, bias) = _dot_operands(w, mult, bias)
+    ops, (w, mult, bias) = _operands(DotOperands, w, mult, bias)
     lead, cin = x.shape[:-1], x.shape[-1]
     cout = w.shape[-1]
     if w.shape != (cin, cout) or w.dtype != x.dtype:

@@ -2,9 +2,11 @@
 // of one 64-row M-tile of a SAME 3x3 conv as an implicit GEMM, both
 // operands from shared memory (wgmma.mma_async m64n64k32 .s32.s8.s8 with
 // an A and a B descriptor), for conv12_fused.cu's conv2 (all nine taps at
-// once, s8_conv3x3_issue) and the int8 instances of double_conv3x3.cu and
-// head.cu (one tap at a time, s8_tap_issue, with the M stride of the A
-// core matrices a parameter, and slabs streamed through S8Ring).
+// once, s8_conv3x3_issue) and the int8 instances of double_conv3x3.cu,
+// conv3x3.cu and head.cu (one tap at a time, s8_tap_issue, with the M
+// stride of the A core matrices a parameter, and slabs streamed through
+// S8Ring or resident), with the epilogue of an 8 x 8 output block
+// (s8_block_out).
 //
 // Per M-tile: 9 taps x CIN / 32 k-steps, each one wgmma m64n64k32 that
 // adds 64 rows x 32 input channels x 64 output channels into ONE int32
@@ -313,6 +315,91 @@ __device__ __forceinline__ int s8_cast_bits(float y, bool relu) {
 // two int8 values (low bytes of lo and hi) in 16 bits
 __device__ __forceinline__ uint16_t s8_pack2(int lo, int hi) {
   return static_cast<uint16_t>(__byte_perm(lo, hi, 0x0040));
+}
+
+// Issue the 9 taps of one M-tile and N output channels into acc as one
+// commit group and wait: A at a (tap (0, 0)), TW pixels a tile row, SBO
+// the M stride of its core matrices; the taps' slabs SLAB bytes apart
+// from b.
+template <int CIN, int TW, int PLANE, int SBO, int SLAB, int N = 64>
+__device__ __forceinline__ void s8_conv_tile(uint32_t a, uint32_t b, int (&acc)[N / 2]) {
+  wgmma_fence();
+  #pragma unroll
+  for (int tap = 0; tap < 9; ++tap)
+    s8_tap_issue<CIN, PLANE, SBO, N>(a + ((tap / 3) * TW + tap % 3) * 16, b + tap * SLAB, acc,
+                                     tap);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// bytes a staged pixel of NW channels (16 spare: no bank conflicts)
+template <int NW>
+constexpr int kStagePitch = NW + 16;
+
+// The epilogue of one M-tile that is an 8 x 8 output block (top-left
+// image pixel (y0, x0)) and NW output channels: warp w's rows are the
+// block's rows 2 w and 2 w + 1, lane (g, tq) column g. POOL: the 2 x 2
+// window's four int32 sums (this lane's two rows, then lane ^ 4), their
+// max where the multiplier is >= 0 and min below, then one affine:
+// affine, ReLU and the cast are monotone, so this is the pool of the
+// float32 values bit for bit. The int8 results go through the warp's
+// staging area (POOL ? 4 : 16 pixels) and leave as 16-byte stores to out,
+// the image's (pooled) output at the block's first channel, pitch bytes a
+// pixel. aff: {mult, mult, bias, bias} of channel pairs.
+template <int NW, bool POOL>
+__device__ __forceinline__ void s8_block_out(const int (&acc)[NW / 2], int y0, int x0,
+                                             const float4* aff, bool relu, int8_t* stage,
+                                             int8_t* __restrict__ out, int pitch, int H,
+                                             int W) {
+  constexpr int SP = kStagePitch<NW>, V = NW / 16;  // 16-byte chunks a pixel
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int sy = y0 + 2 * warp;
+  #pragma unroll
+  for (int j = 0; j < NW / 8; ++j) {
+    const int c = 8 * j + 2 * tq;
+    const float4 m = aff[4 * j + tq];
+    if constexpr (POOL) {
+      int hi[2], lo[2];
+      #pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        hi[e] = max(acc[4 * j + e], acc[4 * j + 2 + e]);
+        lo[e] = min(acc[4 * j + e], acc[4 * j + 2 + e]);
+        hi[e] = max(hi[e], __shfl_xor_sync(0xffffffffu, hi[e], 4));
+        lo[e] = min(lo[e], __shfl_xor_sync(0xffffffffu, lo[e], 4));
+      }
+      const int p0 = m.x >= 0.f ? hi[0] : lo[0], p1 = m.y >= 0.f ? hi[1] : lo[1];
+      if (g % 2 == 0)
+        *reinterpret_cast<uint16_t*>(stage + (g / 2) * SP + c) =
+            s8_pack2(s8_cast_bits(affine_rn(__int2float_rn(p0), m.x, m.z), relu),
+                     s8_cast_bits(affine_rn(__int2float_rn(p1), m.y, m.w), relu));
+    } else {
+      #pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint16_t*>(stage + (8 * h + g) * SP + c) = s8_pack2(
+            s8_cast_bits(affine_rn(__int2float_rn(acc[4 * j + 2 * h]), m.x, m.z), relu),
+            s8_cast_bits(affine_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), m.y, m.w), relu));
+    }
+  }
+  __syncwarp();
+  if constexpr (POOL) {
+    // 4 pooled pixels of V chunks: lane e < 4 V takes pixel e / V, chunk e % V
+    const int oy = sy / 2, ox = x0 / 2 + lane / V;
+    if (lane < 4 * V && oy < H / 2 && ox < W / 2)
+      *reinterpret_cast<int4*>(out + (static_cast<size_t>(oy) * (W / 2) + ox) * pitch +
+                               (lane % V) * 16) =
+          *reinterpret_cast<const int4*>(stage + (lane / V) * SP + (lane % V) * 16);
+  } else {
+    #pragma unroll
+    for (int k = 0; k < V / 2; ++k) {
+      const int e = lane + 32 * k, px = e / V;  // pixel (px / 8, px % 8) of the warp's rows
+      const int y = sy + px / 8, x = x0 + px % 8;
+      if (y < H && x < W)
+        *reinterpret_cast<int4*>(out + (static_cast<size_t>(y) * W + x) * pitch + (e % V) * 16) =
+            *reinterpret_cast<const int4*>(stage + px * SP + (e % V) * 16);
+    }
+  }
+  __syncwarp();
 }
 
 }  // namespace tc

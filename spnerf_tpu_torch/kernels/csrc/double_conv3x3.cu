@@ -168,87 +168,18 @@ __device__ __forceinline__ void s8_mid_out(const int (&acc)[NW / 2], int mt,
   }
 }
 
-// bytes a staged pixel of NW channels (16 spare: no bank conflicts)
-template <int NW>
-constexpr int kStagePitch = NW + 16;
+using tc::kStagePitch;
+using tc::s8_conv_tile;
 
-// conv_b's epilogue for one M-tile (8 x 8 output block) and its NW
-// output channels: warp w's rows are the block's rows 2 w and 2 w + 1,
-// lane (g, tq) column g. POOL: the 2 x 2 window's four int32 sums (this
-// lane's two rows, then lane ^ 4), their max where the multiplier is >=
-// 0 and min below, then one affine: affine, ReLU and the cast are
-// monotone, so this is the pool of the float32 values bit for bit. The
-// int8 results go through the warp's staging area (POOL ? 4 : 16 pixels)
-// and leave as 16-byte stores.
+// conv_b's epilogue for one M-tile (8 x 8 output block) and its NW output
+// channels (tc::s8_block_out; the 2 x 2 pool on the int32 sums)
 template <int NW, bool POOL>
 __device__ __forceinline__ void s8_out(const int (&acc)[NW / 2], int mt, const float4* aff,
                                        bool relu, int8_t* stage, int8_t* __restrict__ out,
                                        Tile t, int H, int W) {
-  constexpr int SP = kStagePitch<NW>, V = NW / 16;  // 16-byte chunks a pixel
-  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
-  const int sy = t.y0 + (mt / kS8BX) * 8 + 2 * warp, sx = t.x0 + (mt % kS8BX) * 8;
-  #pragma unroll
-  for (int j = 0; j < NW / 8; ++j) {
-    const int c = 8 * j + 2 * tq;
-    const float4 m = aff[4 * j + tq];
-    if constexpr (POOL) {
-      int hi[2], lo[2];
-      #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        hi[e] = max(acc[4 * j + e], acc[4 * j + 2 + e]);
-        lo[e] = min(acc[4 * j + e], acc[4 * j + 2 + e]);
-        hi[e] = max(hi[e], __shfl_xor_sync(0xffffffffu, hi[e], 4));
-        lo[e] = min(lo[e], __shfl_xor_sync(0xffffffffu, lo[e], 4));
-      }
-      const int p0 = m.x >= 0.f ? hi[0] : lo[0], p1 = m.y >= 0.f ? hi[1] : lo[1];
-      if (g % 2 == 0)
-        *reinterpret_cast<uint16_t*>(stage + (g / 2) * SP + c) =
-            tc::s8_pack2(tc::s8_cast_bits(affine(p0, m.x, m.z), relu),
-                         tc::s8_cast_bits(affine(p1, m.y, m.w), relu));
-    } else {
-      #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<uint16_t*>(stage + (8 * h + g) * SP + c) =
-            tc::s8_pack2(tc::s8_cast_bits(affine(acc[4 * j + 2 * h], m.x, m.z), relu),
-                         tc::s8_cast_bits(affine(acc[4 * j + 2 * h + 1], m.y, m.w), relu));
-    }
-  }
-  __syncwarp();
-  if constexpr (POOL) {
-    // 4 pooled pixels of V chunks: lane e < 4 V takes pixel e / V, chunk e % V
-    const int oy = sy / 2, ox = sx / 2 + lane / V;
-    if (lane < 4 * V && oy < H / 2 && ox < W / 2)
-      *reinterpret_cast<int4*>(out + ((static_cast<size_t>(t.b) * (H / 2) + oy) * (W / 2) + ox) *
-                                         NW + (lane % V) * 16) =
-          *reinterpret_cast<const int4*>(stage + (lane / V) * SP + (lane % V) * 16);
-  } else {
-    #pragma unroll
-    for (int k = 0; k < V / 2; ++k) {
-      const int e = lane + 32 * k, px = e / V;  // pixel (px / 8, px % 8) of the warp's rows
-      const int y = sy + px / 8, x = sx + px % 8;
-      if (y < H && x < W)
-        *reinterpret_cast<int4*>(out + ((static_cast<size_t>(t.b) * H + y) * W + x) * NW +
-                                 (e % V) * 16) =
-            *reinterpret_cast<const int4*>(stage + px * SP + (e % V) * 16);
-    }
-  }
-  __syncwarp();
-}
-
-// Issue the 9 taps of one M-tile and N output channels into acc as one
-// commit group and wait: A at a (tap (0, 0)), TW pixels a tile row, SBO
-// the M stride of its core matrices; the taps' slabs SLAB bytes apart
-// from b.
-template <int CIN, int TW, int PLANE, int SBO, int SLAB, int N = 64>
-__device__ __forceinline__ void s8_conv_tile(uint32_t a, uint32_t b, int (&acc)[N / 2]) {
-  tc::wgmma_fence();
-  #pragma unroll
-  for (int tap = 0; tap < 9; ++tap)
-    tc::s8_tap_issue<CIN, PLANE, SBO, N>(a + ((tap / 3) * TW + tap % 3) * 16, b + tap * SLAB,
-                                         acc, tap);
-  tc::wgmma_commit();
-  tc::wgmma_wait<0>();
-  tc::fence_regs(acc);
+  const size_t img = POOL ? static_cast<size_t>(H / 2) * (W / 2) : static_cast<size_t>(H) * W;
+  tc::s8_block_out<NW, POOL>(acc, t.y0 + (mt / kS8BX) * 8, t.x0 + (mt % kS8BX) * 8, aff, relu,
+                             stage, out + t.b * img * NW, NW, H, W);
 }
 
 // -- 64-64-64 pool (blocks 3-4): teams over resident weights --

@@ -9,10 +9,10 @@
 // kernels pad every tensor to 128 lanes, pack narrow fields block-
 // diagonally, read sigma with selector matmuls and turn the compositing
 // recurrence into triangular matmuls, all for the MXU. Here three kernels
-// serve them: render_tc_kernel the bf16 operands of every width (on the
-// tensor cores), render_kernel the float32 ones and render_int8_kernel the
-// int8 one (on the CUDA cores); the head is the (W, 4) product that holds
-// sigma and rgb, and the outputs are (N, 3) and (N,).
+// serve them: render_tc_kernel the bf16 operands of every width and
+// render_s8_kernel the int8 one (on the tensor cores), render_kernel the
+// float32 ones (on the CUDA cores); the head is the (W, 4) product that
+// holds sigma and rgb, and the outputs are (N, 3) and (N,).
 //
 // Bound on an H100 SXM: operations. A render of 131,072 rays x 32 samples
 // at width 128 needs 2 * (2 * 128^2 + 4 * 128) multiply-adds per sample,
@@ -21,7 +21,9 @@
 // stand 537 M sines (one per ray, sample and lane), some 25 CUDA-core
 // instructions each, which no tensor core takes: they and the repair of
 // undecided sums (below), not the products, set the pace of
-// render_tc_kernel.
+// render_tc_kernel. The int8 render's products take 0.14 ms at the int8
+// rate; its sines and its two requantizing epilogues (some 8 instructions
+// a hidden value) set its pace.
 //
 // render_tc_kernel (bf16). A block of four warpgroups stays on its SM and
 // walks tiles of 8192 / W consecutive rays (64, 128 or 256), all four on
@@ -59,8 +61,7 @@
 // stride rays + 4 words); a thread of the product loop owns 4 rays x 8
 // columns and runs float32 FMAs (the tensor cores form no exact float32
 // product), three barriers a sample. One thread per ray computes the
-// 4-wide head and carries the compositing state. render_int8_kernel is
-// the same with __dp4a on words of 4 int8 values.
+// 4-wide head and carries the compositing state.
 //
 // Skipping. A flag covers `block` consecutive rays and `chunk` samples; a
 // ray composites a chunk only if its own flag is set, whatever tile it is
@@ -84,13 +85,14 @@
 // values, the kernel sums that element again by FMAs in k order (see
 // "the library's order where it decides a rounding" below); the float32
 // kernel adds by FMAs in k order throughout.
-// int8: rintf (half to even), clip before the round, acc * m2 + df * ia2
-// as two rounded products and a rounded sum. No --use_fast_math.
+// int8: round half to even (rintf's rounding, by adding 1.5 * 2^23), clip
+// before the round, acc * m2 + df * ia2 as two rounded products and a
+// rounded sum; int32 sums are exact in any order. No --use_fast_math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "conv_tc.cuh"
+#include "conv_tc_s8.cuh"
 #include "render_common.cuh"
 
 namespace {
@@ -99,6 +101,7 @@ using spnerf::render::sine;
 using spnerf::render::stage_weights;
 using spnerf::render::wgmma_bf16;
 using spnerf::tc::fence_regs;
+using spnerf::tc::s8_cast_bits;
 using spnerf::tc::smem_desc;
 using spnerf::tc::smem_u32;
 using spnerf::tc::wgmma_commit;
@@ -834,7 +837,7 @@ render_tc_kernel(const float* __restrict__ oe, const float* __restrict__ de,
   }
 }
 
-// ---- float32 and int8 on the CUDA cores ----
+// ---- float32 on the CUDA cores ----
 
 template <int W>
 struct Tile {
@@ -1018,170 +1021,285 @@ render_kernel(const float* __restrict__ oe, const float* __restrict__ de,
   if (has_ray) comp.store(rgb_out, depth_out, my_ray);
 }
 
-// four int8 values, the first in the low byte (the order __dp4a reads)
-__device__ __forceinline__ int pack4(const int q[4]) {
-  const unsigned w = (static_cast<unsigned>(q[0]) & 0xFFu) |
-                     ((static_cast<unsigned>(q[1]) & 0xFFu) << 8) |
-                     ((static_cast<unsigned>(q[2]) & 0xFFu) << 16) |
-                     (static_cast<unsigned>(q[3]) << 24);
-  return static_cast<int>(w);
-}
+// ---- int8 on the int8 tensor cores ----
+//
+// render_s8_kernel: render_tc_kernel's frame at width 128 with int8
+// operands. A block of four warpgroups stays on its SM and walks tiles of
+// 64 rays; each M-tile is its warpgroup's 16 rays at 4 consecutive samples
+// (TcTile<128>). qw1, qw2 and qw3 sit in shared memory for the block's life
+// as the K-major B operands of wgmma m64nNk32 .s32.s8.s8 (N 128 for the
+// layers, 8 for the head, qw3's four columns at n = 0, 2, 4, 6), laid out
+// on the host (prepare_render_int8 in kernels/render.py). A thread (lane
+// 4 g + t4) holds rows g and g + 8, one ray at two samples; its m64k32 A
+// fragment is columns 16 e + 4 t4 + {0..3} of those rows (register 2 e +
+// h: row g + 8 h), so the encoding reads its oe and de as float4s of the
+// staged rays and writes round(127 sin) straight into the fragment.
+// An s32 accumulator holds columns 8 j + 2 t4 + {0, 1}, which are not a
+// fragment's columns; but A's column k of k-step s may hold any hidden
+// unit if B's row k holds the same one. So column 32 s + 16 e + 4 t4 + i
+// carries unit 32 s + 8 (2 e + i / 2) + 2 t4 + i % 2, which the thread's
+// accumulator holds, and qw2's and qw3's rows are permuted by that map on
+// the host (render.s8_hidden_order): int8 products and int32 sums are
+// exact in any order, so the layers equal the plain version's to the bit,
+// and the hidden activations never leave the registers. Each epilogue is
+// the plain version's rounded float32 operations on its own columns (m1,
+// m2 and df * ia2 by the unpermuted unit), the cast by adding 1.5 * 2^23
+// (round half to even) and taking the low byte. No barrier separates the
+// samples; the compositing is render_tc_kernel's.
 
-__device__ __forceinline__ int quant_act(float v) {
-  return static_cast<int>(rintf(fminf(fmaxf(v, 0.f), 127.f)));
-}
+// bytes of the B operands: qw1 and qw2 (128 x 128), qw3 (128 x 8)
+constexpr int kS8Weights = 2 * 128 * 128 + 128 * 8;
 
-// int8 layer of the tile: in and out hold words of 4 consecutive k, k-major
-// ([k / 4][ray]); wp holds words of 4 consecutive k per column
-// ([k / 4][column]). LAYER 1: q = round(clip(relu(acc) * mult, 0, 127));
-// LAYER 2: q = round(clip(relu(acc * mult + df * ia2), 0, 127)).
-template <int LAYER>
-__device__ __forceinline__ void int8_layer(const int* __restrict__ in,
-                                           const int* __restrict__ wp, int* __restrict__ out,
-                                           const float* __restrict__ mult,
-                                           const float* __restrict__ df, float ia2, int row0,
-                                           int N, ThreadPos p) {
-  constexpr int W = 128;
-  using T = Tile<W>;
-  int acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0;
-#pragma unroll 8
-  for (int k4 = 0; k4 < W / 4; ++k4) {
-    const int4 a = *reinterpret_cast<const int4*>(in + k4 * T::TRP + 4 * p.ty);
-    const int4 b0 = *reinterpret_cast<const int4*>(wp + k4 * W + 4 * p.tx);
-    const int4 b1 = *reinterpret_cast<const int4*>(wp + k4 * W + W / 2 + 4 * p.tx);
-    const int av[4] = {a.x, a.y, a.z, a.w};
-    const int bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
+struct S8Smem {
+  static constexpr int RS = 144;  // floats a staged ray: a quarter-warp's two rays in 32 banks
+  static constexpr int OFF_M = kS8Weights;                // m1, m2
+  static constexpr int OFF_RAYS = OFF_M + 2 * 128 * 4;     // oe, de, df * ia2
+  static constexpr int RAYS = TcTile<128>::TR * RS * 4;    // bytes of one staged array
+  static constexpr int SMEM = OFF_RAYS + 3 * RAYS;
+};
+
+// d (64 x N int32, the wgmma accumulator layout) = a (64 x 32 int8, the
+// m64k32 A fragment in registers) * the K-major B at desc, + d unless
+// scale_d is 0
+template <int N>
+__device__ __forceinline__ void wgmma_s8_rs(int (&d)[N / 2], const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+  static_assert(N == 128 || N == 8, "wgmma_s8_rs: N 128 or 8");
+  if constexpr (N == 128) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  } else {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
   }
+}
+
+// the product of the 4 k-steps of a (128 columns) into d, B at b
+template <int N>
+__device__ __forceinline__ void wgmma_s8_chain(int (&d)[N / 2], const uint32_t (&a)[4][4],
+                                               uint32_t b) {
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int c0 = half * (W / 2) + 4 * p.tx;
-    const float4 m4 = __ldg(reinterpret_cast<const float4*>(mult + c0));
-    const float m[4] = {m4.x, m4.y, m4.z, m4.w};
-    int words[4];
+  for (int ks = 0; ks < 4; ++ks) wgmma_s8_rs<N>(d, a[ks], smem_desc(b + ks * 256, 128, 1024), ks);
+}
+
+// int8 bits (the low byte) of rint(v) for v within [-127, 127] (as
+// s8_cast_bits, which clamps first)
+__device__ __forceinline__ int s8_bits(float v) {
+  return __float_as_int(__fadd_rn(v, 12582912.f));
+}
+// four int8 values (low bytes), the first in the low byte
+__device__ __forceinline__ uint32_t pack4(int b0, int b1, int b2, int b3) {
+  return __byte_perm(__byte_perm(b0, b1, 0x0040), __byte_perm(b2, b3, 0x0040), 0x5410);
+}
+
+// One layer's epilogue into the next product's A fragments: accumulator
+// register 4 j + 2 h + i (row g + 8 h, unit 8 j + 2 t4 + i) goes to byte
+// 2 (j % 2) + i of fragment register 2 ((j / 2) % 2) + h of k-step j / 4,
+// the slot the permuted B rows expect there. q(r, n) casts accumulator
+// register r of unit pair n (units n, n + 1).
+template <typename Q>
+__device__ __forceinline__ void s8_epilogue(const int (&acc)[64], uint32_t (&out)[4][4], Q q) {
+  const int t4 = threadIdx.x & 3;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-      if constexpr (LAYER == 2) {
-        const int ray = row0 + 4 * p.ty + i;
-        if (ray < N) {
-          const float4 d4 =
-              __ldg(reinterpret_cast<const float4*>(df + static_cast<size_t>(ray) * W + c0));
-          d[0] = d4.x; d[1] = d4.y; d[2] = d4.z; d[3] = d4.w;
-        }
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int b = 16 * s + 8 * e, n = 32 * s + 16 * e + 2 * t4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int2 lo = q(acc, b + 2 * h, n), hi = q(acc, b + 4 + 2 * h, n + 8);
+        out[s][2 * e + h] = pack4(lo.x, lo.y, hi.x, hi.y);
       }
-      int q[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int a = acc[i][half * 4 + j];
-        if constexpr (LAYER == 1)
-          q[j] = quant_act(__fmul_rn(static_cast<float>(max(a, 0)), m[j]));
-        else
-          q[j] = quant_act(fmaxf(
-              __fadd_rn(__fmul_rn(static_cast<float>(a), m[j]), __fmul_rn(d[j], ia2)), 0.f));
-      }
-      words[i] = pack4(q);
     }
-    *reinterpret_cast<int4*>(out + (c0 / 4) * T::TRP + 4 * p.ty) =
-        make_int4(words[0], words[1], words[2], words[3]);
+}
+
+// Stage rays [row0, row0 + TR) of a (N, 128) float32 array in shared
+// memory as they are (row r at r * RS), times scale when SCALE; rows past N
+// are zeros.
+template <bool SCALE>
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src, int row0, int N,
+                                           float* s, float scale) {
+  constexpr int W = 128;
+  for (int i = threadIdx.x; i < TcTile<W>::TR * W / 4; i += blockDim.x) {
+    const int r = i / (W / 4), c = 4 * (i % (W / 4)), ray = row0 + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (ray < N) v = __ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(ray) * W + c));
+    if constexpr (SCALE) {
+      v.x = __fmul_rn(v.x, scale);
+      v.y = __fmul_rn(v.y, scale);
+      v.z = __fmul_rn(v.z, scale);
+      v.w = __fmul_rn(v.w, scale);
+    }
+    *reinterpret_cast<float4*>(s + r * S8Smem::RS + c) = v;
   }
 }
 
-// int8 render at width 128: w1p, w2p (32, 128) and w3p (32, 4) words of 4
-// consecutive k; m1, m2 (128,) and r3 (4,) float32 rescales.
-__global__ void __launch_bounds__(kThreads, 1)
-render_int8_kernel(const float* __restrict__ oe, const float* __restrict__ de,
-                   const float* __restrict__ df, const int* __restrict__ w1p,
-                   const int* __restrict__ w2p, const int* __restrict__ w3p,
-                   const float* __restrict__ m1, const float* __restrict__ m2,
-                   const float* __restrict__ r3, const int* __restrict__ flags,
-                   float* __restrict__ rgb_out, float* __restrict__ depth_out, int N,
-                   int n_samples, int chunk, int block, int early_stop, float jitter,
-                   float near, float dt, float cut, float ia2) {
-  constexpr int W = 128;
-  using T = Tile<W>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int* w1s = reinterpret_cast<int*>(smem_raw);
-  int* w2s = w1s + W / 4 * W;
-  int* w3s = w2s + W / 4 * W;  // (W / 4, 4)
-  int* buf = w3s + W;  // two k-major buffers of W / 4 * TRP words
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * T::TR;
-  const ThreadPos p = thread_pos<W>();
-
-  for (int i = tid; i < W / 4 * W; i += kThreads) {
-    w1s[i] = w1p[i];
-    w2s[i] = w2p[i];
+// int8 render at width 128: w1b, w2b, w3b the B operands of
+// prepare_render_int8 (qw1; qw2 and qw3 with permuted rows, qw3 in 8
+// columns); m1, m2 (128,) and r3 (4,) float32 rescales.
+__global__ void __launch_bounds__(kNWG * kWG, 1)
+render_s8_kernel(const float* __restrict__ oe, const float* __restrict__ de,
+                 const float* __restrict__ df, const int8_t* __restrict__ w1b,
+                 const int8_t* __restrict__ w2b, const int8_t* __restrict__ w3b,
+                 const float* __restrict__ m1, const float* __restrict__ m2,
+                 const float* __restrict__ r3, const int* __restrict__ flags,
+                 float* __restrict__ rgb_out, float* __restrict__ depth_out, int N, int n_tiles,
+                 int n_chunks, int chunk, int block, int early_stop, float jitter, float near,
+                 float dt, float cut, float ia2) {
+  using T = TcTile<128>;  // 16 rays x 4 samples an M-tile, one group a warpgroup
+  constexpr int SPR = T::SPR;
+  const float* s_m = reinterpret_cast<const float*>(smem_tc + S8Smem::OFF_M);  // m1, m2
+  float* s_oe = reinterpret_cast<float*>(smem_tc + S8Smem::OFF_RAYS);
+  float* s_de = s_oe + T::TR * S8Smem::RS;
+  float* s_df = s_de + T::TR * S8Smem::RS;  // df * ia2
+  {
+    int4* w = reinterpret_cast<int4*>(smem_tc);
+    for (int i = threadIdx.x; i < kS8Weights / 16; i += blockDim.x) {
+      const int4* src = i < 1024 ? reinterpret_cast<const int4*>(w1b) + i
+                        : i < 2048 ? reinterpret_cast<const int4*>(w2b) + (i - 1024)
+                                   : reinterpret_cast<const int4*>(w3b) + (i - 2048);
+      w[i] = __ldg(src);
+    }
+    float* m = reinterpret_cast<float*>(smem_tc + S8Smem::OFF_M);
+    for (int i = threadIdx.x; i < 256; i += blockDim.x) m[i] = i < 128 ? m1[i] : m2[i - 128];
   }
-  for (int i = tid; i < W; i += kThreads) w3s[i] = w3p[i];
-
-  float4 oe_r[T::UNITS], de_r[T::UNITS];
-  load_units<W>(oe, de, row0, N, oe_r, de_r);
-
-  const int my_ray = row0 + tid;
-  const bool has_ray = tid < T::TR && my_ray < N;
-  const float4 r3v = __ldg(reinterpret_cast<const float4*>(r3));
-  Composite<false> comp;
-  const int n_chunks = n_samples / chunk;
-  int cur = 0;
+  // the generic stores above, before wgmma reads them through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
+  const uint32_t sbase = smem_u32(smem_tc);
 
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    const bool mine = has_ray && flag_set(flags, my_ray, block, n_chunks, ci);
-    const bool want = mine && (!early_stop || ci == 0 || comp.open(cut));
-    if (!__syncthreads_or(want)) continue;
-    for (int s = ci * chunk; s < (ci + 1) * chunk; ++s) {
-      const float t_s = sample_t(s, jitter, near, dt);
-      int* x = buf + cur * (W / 4 * T::TRP);
-      int* y = buf + (cur ^ 1) * (W / 4 * T::TRP);
-#pragma unroll
-      for (int i = 0; i < T::UNITS; ++i) {
-        const int u = tid + kThreads * i;
-        const int r = u % T::TR, k4 = u / T::TR;
-        const float o4[4] = {oe_r[i].x, oe_r[i].y, oe_r[i].z, oe_r[i].w};
-        const float d4[4] = {de_r[i].x, de_r[i].y, de_r[i].z, de_r[i].w};
-        int q[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)  // sin in [-1, 1]: times 127 is symmetric int8
-          q[j] = static_cast<int>(
-              rintf(__fmul_rn(sine(__fadd_rn(o4[j], __fmul_rn(t_s, d4[j]))), 127.f)));
-        x[k4 * T::TRP + r] = pack4(q);
-      }
-      __syncthreads();
-      int8_layer<1>(x, w1s, y, m1, nullptr, 0.f, row0, N, p);
-      __syncthreads();
-      int8_layer<2>(y, w2s, x, m2, df, ia2, row0, N, p);
-      __syncthreads();
-      if (mine) {
-        int acc[4] = {0, 0, 0, 0};
-#pragma unroll 8
-        for (int k4 = 0; k4 < W / 4; ++k4) {
-          const int a = x[k4 * T::TRP + tid];
-          const int4 b = *reinterpret_cast<const int4*>(w3s + 4 * k4);
-          acc[0] = __dp4a(a, b.x, acc[0]);
-          acc[1] = __dp4a(a, b.y, acc[1]);
-          acc[2] = __dp4a(a, b.z, acc[2]);
-          acc[3] = __dp4a(a, b.w, acc[3]);
-        }
-        const float head[4] = {__fmul_rn(static_cast<float>(acc[0]), r3v.x),
-                               __fmul_rn(static_cast<float>(acc[1]), r3v.y),
-                               __fmul_rn(static_cast<float>(acc[2]), r3v.z),
-                               __fmul_rn(static_cast<float>(acc[3]), r3v.w)};
-        comp.add(head, t_s, dt);
-      }
-      cur ^= 1;
+  const int wg = threadIdx.x / kWG, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const float r3t = __ldg(r3 + t4);  // lane t4 forms head column t4
+  // layer 1: q = rint(clamp(relu(acc) * m1, 0, 127))
+  auto q1 = [&](const int (&acc)[64], int r, int n) {
+    const float2 m = *reinterpret_cast<const float2*>(s_m + n);
+    return make_int2(s8_cast_bits(__fmul_rn(__int2float_rn(max(acc[r], 0)), m.x), true),
+                     s8_cast_bits(__fmul_rn(__int2float_rn(max(acc[r + 1], 0)), m.y), true));
+  };
+
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * T::TR;
+    const int rl = wg * T::RPM + T::group_ray(warp, g);  // the thread's ray in the tile
+    const int ray = row0 + rl;
+    __syncthreads();  // every warpgroup is done with the last tile's rows
+    stage_rows<false>(oe, row0, N, s_oe, 0.f);
+    stage_rows<false>(de, row0, N, s_de, 0.f);
+    stage_rows<true>(df, row0, N, s_df, ia2);
+    __syncthreads();
+    const int next = row0 + gridDim.x * T::TR;
+    if (threadIdx.x == 0 && next < N) {
+      const uint32_t bytes = static_cast<uint32_t>(min(T::TR, N - next)) * 128 * 4;
+      prefetch_l2(oe + static_cast<size_t>(next) * 128, bytes);
+      prefetch_l2(de + static_cast<size_t>(next) * 128, bytes);
+      prefetch_l2(df + static_cast<size_t>(next) * 128, bytes);
     }
+    const float* so = s_oe + rl * S8Smem::RS + 4 * t4;
+    const float* sd = s_de + rl * S8Smem::RS + 4 * t4;
+    const float* sf = s_df + rl * S8Smem::RS;
+    // layer 2: q = rint(clamp(relu(acc * m2 + df * ia2), 0, 127))
+    auto q2 = [&](const int (&acc)[64], int r, int n) {
+      const float2 m = *reinterpret_cast<const float2*>(s_m + 128 + n);
+      const float2 f = *reinterpret_cast<const float2*>(sf + n);
+      const float v0 = __fadd_rn(__fmul_rn(__int2float_rn(acc[r]), m.x), f.x);
+      const float v1 = __fadd_rn(__fmul_rn(__int2float_rn(acc[r + 1]), m.y), f.y);
+      return make_int2(s8_cast_bits(v0, true), s8_cast_bits(v1, true));
+    };
+    Composite<false> comp;
+#pragma unroll 1
+    for (int ci = 0; ci < n_chunks; ++ci) {
+      const bool mine = ray < N && flag_set(flags, ray, block, n_chunks, ci);
+      const bool want = mine && (!early_stop || ci == 0 || comp.open(cut));
+      if (!__syncthreads_or(want)) continue;
+      const int s_end = (ci + 1) * chunk;
+#pragma unroll 1
+      for (int s = ci * chunk; s < s_end; s += SPR) {
+        const float t[2] = {sample_t(s + T::row_sample(g, 0), jitter, near, dt),
+                            sample_t(s + T::row_sample(g, 1), jitter, near, dt)};
+        // the encoding: register 2 e + h of k-step ks is row g + 8 h (time
+        // t[h]) at columns 32 ks + 16 e + 4 t4 + {0..3}
+        uint32_t a[4][4];
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float4 o = *reinterpret_cast<const float4*>(so + 32 * ks + 16 * e);
+            const float4 d = *reinterpret_cast<const float4*>(sd + 32 * ks + 16 * e);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              auto enc = [&](float ov, float dv) {
+                return s8_bits(__fmul_rn(sine(__fadd_rn(ov, __fmul_rn(t[h], dv))), 127.f));
+              };
+              a[ks][2 * e + h] = pack4(enc(o.x, d.x), enc(o.y, d.y), enc(o.z, d.z),
+                                       enc(o.w, d.w));
+            }
+          }
+        int acc[64];
+        uint32_t hf[4][4];
+        wgmma_fence();
+        wgmma_s8_chain<128>(acc, a, sbase);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(acc);
+        s8_epilogue(acc, hf, q1);
+        wgmma_fence();
+        wgmma_s8_chain<128>(acc, hf, sbase + 128 * 128);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(acc);
+        s8_epilogue(acc, a, q2);
+        int hd[4];
+        wgmma_fence();
+        wgmma_s8_chain<8>(hd, a, sbase + 2 * 128 * 128);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(hd);
+        // lane 4 g + t4 holds head column t4 of rows g (hd 0) and g + 8
+        // (hd 2), samples s + row_sample(g, h), and forms part t4 of both;
+        // the parts of sample s + i of the thread's ray are in lanes
+        // 4 (g % 4 + 4 (i % 2)) + k, row i / 2
+        float own[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          own[h] = Composite<false>::part(__fmul_rn(__int2float_rn(hd[2 * h]), r3t), t4, dt);
+#pragma unroll
+        for (int i = 0; i < SPR; ++i) {
+          const int src = 4 * ((g & 3) + 4 * (i % 2));
+          const float part = i / 2 == 0 ? own[0] : own[1];
+          float p[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) p[k] = __shfl_sync(0xffffffffu, part, src + k);
+          if (mine && s + i < s_end) comp.add_parts(p, 0.f, sample_t(s + i, jitter, near, dt));
+        }
+      }
+    }
+    // one lane of the ray's lanes stores it
+    if (t4 == 0 && g < 4 && ray < N) comp.store(rgb_out, depth_out, ray);
   }
-
-  if (has_ray) comp.store(rgb_out, depth_out, my_ray);
 }
 
 struct RenderArgs {
@@ -1271,30 +1389,33 @@ extern "C" int render_launch(const void* oe, const void* de, const void* df, con
   return static_cast<int>(err);
 }
 
-// The int8 variant at width 128: w1p, w2p (32, 128) and w3p (32, 4) int32
-// words of 4 consecutive input channels; m1, m2 (128,), r3 (4,) float32.
+// The int8 variant at width 128 (render_s8_kernel): w1b, w2b (128 x 128)
+// and w3b (128 x 8) int8, the B operands of prepare_render_int8; m1, m2
+// (128,), r3 (4,) float32; ia2 the scale of df.
 extern "C" int render_int8_launch(const void* oe, const void* de, const void* df,
-                                  const void* w1p, const void* w2p, const void* w3p,
+                                  const void* w1b, const void* w2b, const void* w3b,
                                   const void* m1, const void* m2, const void* r3,
                                   const void* flags, void* rgb, void* depth, int N,
                                   int n_samples, int chunk, int block, int early_stop,
                                   float jitter, float near, float dt, float cut, float ia2,
                                   void* stream) {
   if (bad_sizes(N, n_samples, chunk, block)) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int W = 128;
-  using T = Tile<W>;
-  const size_t smem = sizeof(int) * (2 * (W / 4) * W + W + 2 * (W / 4) * T::TRP);
-  cudaError_t err = cudaFuncSetAttribute(render_int8_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(render_s8_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         S8Smem::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (N + T::TR - 1) / T::TR;
-  render_int8_kernel<<<tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (N + TcTile<128>::TR - 1) / TcTile<128>::TR;
+  render_s8_kernel<<<tiles < sms ? tiles : sms, kNWG * kWG, S8Smem::SMEM,
+                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(oe), static_cast<const float*>(de),
-      static_cast<const float*>(df), static_cast<const int*>(w1p),
-      static_cast<const int*>(w2p), static_cast<const int*>(w3p),
+      static_cast<const float*>(df), static_cast<const int8_t*>(w1b),
+      static_cast<const int8_t*>(w2b), static_cast<const int8_t*>(w3b),
       static_cast<const float*>(m1), static_cast<const float*>(m2),
       static_cast<const float*>(r3), static_cast<const int*>(flags),
-      static_cast<float*>(rgb), static_cast<float*>(depth), N, n_samples, chunk, block,
-      early_stop, jitter, near, dt, cut, ia2);
+      static_cast<float*>(rgb), static_cast<float*>(depth), N, tiles, n_samples / chunk, chunk,
+      block, early_stop, jitter, near, dt, cut, ia2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,6 +40,8 @@ and have no counterpart here.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -374,6 +376,61 @@ def qfield_to(qfield: dict, device) -> dict:
     return out
 
 
+def s8_hidden_order() -> torch.Tensor:
+    """(128,) int64: the hidden unit that column k of the int8 kernel's A
+    operand holds (``csrc/render.cu``, render_s8_kernel). In k-step s,
+    column 32 s + 16 e + 4 t + i carries unit 32 s + 8 (2 e + i // 2) +
+    2 t + i % 2: the units a thread's s32 accumulator holds (columns 8 j +
+    2 t + {0, 1}) in the slots of its m64k32 A fragment (columns 16 e +
+    4 t + {0..3}). B's rows are permuted by it, so the sums are the same."""
+    k = torch.arange(ENC)
+    s, c = k // 32, k % 32
+    e, t, i = c // 16, (c % 16) // 4, c % 4
+    return 32 * s + 8 * (2 * e + i // 2) + 2 * t + i % 2
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderInt8Operands:
+    """``render_fused_int8``'s operands prepared once by
+    ``prepare_render_int8``: ``q``, the ``quantize_field`` tensors the
+    plain version reads (``ia2`` a float), and the kernel's: ``w1b``, the
+    K-major B operand of qw1 (``_build.pack_slabs``' int8 core matrices);
+    ``w2b``, ``w3b`` the same of qw2 and of qw3's four head columns at n =
+    0, 2, 4, 6 of 8, their rows permuted by ``s8_hidden_order``; ``m1``,
+    ``m2`` (128,) and ``r3`` (4,) float32."""
+
+    q: dict
+    w1b: torch.Tensor
+    w2b: torch.Tensor
+    w3b: torch.Tensor
+    m1: torch.Tensor
+    m2: torch.Tensor
+    r3: torch.Tensor
+
+    @property
+    def ia2(self) -> float:
+        return self.q["ia2"]
+
+
+def prepare_render_int8(qfield, device=None) -> RenderInt8Operands:
+    """Lay out ``quantize_field``'s operands (numpy or tensors) for the
+    int8 render kernel once, on ``device`` (by default the device of
+    tensors given, else the card)."""
+    if device is None:
+        qw1 = qfield["qw1"]
+        device = qw1.device if isinstance(qw1, torch.Tensor) else "cuda"
+    q = qfield_to(qfield, device)
+    _check_int8(q)
+    order = s8_hidden_order().to(q["qw2"].device)
+    w3 = torch.zeros((ENC, 8), dtype=torch.int8, device=q["qw3"].device)
+    w3[:, 0:8:2] = q["qw3"][:, :4]
+    return RenderInt8Operands(
+        q=q, w1b=_build.pack_slabs(q["qw1"]),
+        w2b=_build.pack_slabs(q["qw2"][order]), w3b=_build.pack_slabs(w3[order]),
+        m1=q["m1"].contiguous(), m2=q["m2"].contiguous(),
+        r3=q["r3"][:4].contiguous())
+
+
 def _check_int8(q):
     for k in ("qw1", "qw2", "qw3"):
         if tuple(q[k].shape) != (ENC, ENC) or q[k].dtype != torch.int8:
@@ -392,6 +449,8 @@ def render_fused_int8_plain(oe, de, qfield, df=None, jitter=0.5, n_samples=32,
     df = _zeros_like_if_none(df, oe)
     _check_rays("render_fused_int8", oe, de, df, ENC, n_samples, s_chunk,
                 block, flags)
+    if isinstance(qfield, RenderInt8Operands):
+        qfield = qfield.q
     q = qfield_to(qfield, oe.device)
     _check_int8(q)
     return render_plain_counted(
@@ -403,10 +462,11 @@ def render_fused_int8_plain(oe, de, qfield, df=None, jitter=0.5, n_samples=32,
 def render_fused_int8(oe, de, qfield, df=None, jitter=0.5, n_samples=32,
                       near=2.0, far=6.0, block=512, s_chunk=16, flags=None,
                       early_stop_eps=1e-3):
-    """``render_fused`` through the int8-quantized field ``qfield`` (the
-    dict of ``quantize_field``, numpy or tensors): enc = round(127 sin) as
-    int8, int32 dots, the hidden activations requantized, the head and the
-    compositing in float32."""
+    """``render_fused`` through the int8-quantized field ``qfield``: the
+    dict of ``quantize_field`` (numpy or tensors, laid out on this call)
+    or ``RenderInt8Operands`` from ``prepare_render_int8``. enc =
+    round(127 sin) as int8, int32 dots, the hidden activations
+    requantized, the head and the compositing in float32."""
     if not oe.is_cuda:
         return render_fused_int8_plain(oe, de, qfield, df, jitter, n_samples,
                                        near, far, block, s_chunk, flags,
@@ -414,28 +474,23 @@ def render_fused_int8(oe, de, qfield, df=None, jitter=0.5, n_samples=32,
     df = _zeros_like_if_none(df, oe)
     _check_rays("render_fused_int8", oe, de, df, ENC, n_samples, s_chunk,
                 block, flags)
-    q = qfield_to(qfield, oe.device)
-    _check_int8(q)
+    ops = qfield if isinstance(qfield, RenderInt8Operands) \
+        else prepare_render_int8(qfield, oe.device)
     N = oe.shape[0]
     oe, de, df = oe.contiguous(), de.contiguous(), df.contiguous()
-    w1p = _build.pack_words(q["qw1"])
-    w2p = _build.pack_words(q["qw2"])
-    w3p = _build.pack_words(q["qw3"][:, :4].contiguous())
-    m1, m2 = q["m1"].contiguous(), q["m2"].contiguous()
-    r3 = q["r3"][:4].contiguous()
     flags = None if flags is None else flags.contiguous()
     rgb = torch.empty((N, 3), dtype=torch.float32, device=oe.device)
     depth = torch.empty((N,), dtype=torch.float32, device=oe.device)
-    tensors = dict(oe=oe, de=de, df=df, w1p=w1p, w2p=w2p, w3p=w3p, m1=m1,
-                   m2=m2, r3=r3, rgb=rgb, depth=depth)
+    tensors = dict(oe=oe, de=de, df=df, w1b=ops.w1b, w2b=ops.w2b, w3b=ops.w3b,
+                   m1=ops.m1, m2=ops.m2, r3=ops.r3, rgb=rgb, depth=depth)
     if flags is not None:
         tensors["flags"] = flags
     _build.check_cuda("render_fused_int8", **tensors)
     early = early_stop_eps > 0
-    _build.launch("render", "render_int8_launch", oe, de, df, w1p, w2p, w3p,
-                  m1, m2, r3, flags, rgb, depth, N, n_samples, s_chunk, block,
-                  int(early), float(jitter), float(near),
-                  (far - near) / n_samples,
-                  float(early_stop_eps) if early else 0.0, q["ia2"])
+    _build.launch("render", "render_int8_launch", oe, de, df, ops.w1b,
+                  ops.w2b, ops.w3b, ops.m1, ops.m2, ops.r3, flags, rgb, depth,
+                  N, n_samples, s_chunk, block, int(early), float(jitter),
+                  float(near), (far - near) / n_samples,
+                  float(early_stop_eps) if early else 0.0, ops.ia2)
     _build.launch_counts["render[int8]"] += 1
     return rgb, depth

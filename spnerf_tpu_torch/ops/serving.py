@@ -39,6 +39,7 @@ from spnerf_tpu_torch.kernels.conv_stack import (
     dot_bias_act,
     packed_conv3x3,
     prepare_conv1,
+    prepare_conv3x3,
     prepare_dot,
 )
 from spnerf_tpu_torch.kernels.mid_fused import (
@@ -135,20 +136,25 @@ class ServingSuperPoint:
     def _prepare(self):
         """Pack the kernels' operands once per model (after calibration):
         the fused mid's and tail's ``double_conv3x3`` operands (blocks 3-4,
-        5-6, 7-8); the fused tail's ``head`` operands, or the per-layer
-        route's 3x3 operands and 1x1 ``dot_bias_act`` operands; in bf16
-        mode conv1's patch product, else ``conv12_fused``'s (blocks 1-2).
+        5-6, 7-8); the per-layer route's ``conv3x3`` operands of the
+        blocks it can run (``layer_ops``: blocks 3-6, which a width the
+        fused mid cannot take runs per layer, block 2 in bf16 mode, blocks
+        7-8 without the fused tail); the fused tail's ``head`` operands,
+        or the heads' 3x3 and 1x1 ``dot_bias_act`` operands; in bf16 mode
+        conv1's patch product, else ``conv12_fused``'s (blocks 1-2).
         Each block's input scale is its predecessor's output scale (none
         in bf16 mode); the heads' is block 8's in int8 mode (the chain's
         last), none in bf16 and mixed (the dequantized bf16 input)."""
-        s = self._scale("backbone/block2")
-        pairs = []
-        for a, b in (("backbone/block3", "backbone/block4"),
-                     ("backbone/block5", "backbone/block6"),
-                     ("backbone/block7", "backbone/block8")):
-            wa, ma, ba, sa = self._wmb(a, s)
-            wb, mb, bb, s = self._wmb(b, sa)
-            pairs.append((wa, ma, ba, wb, mb, bb))
+        wmb, s = {}, self._scale("backbone/block1")
+        for name, _, _ in _BACKBONE:
+            *wmb[name], s = self._wmb(name, s)
+        self.layer_ops = {name: prepare_conv3x3(*wmb[name])
+                          for name, _, _ in _BACKBONE
+                          if self._runs_per_layer(name)}
+        pairs = [(*wmb[a], *wmb[b])
+                 for a, b in (("backbone/block3", "backbone/block4"),
+                              ("backbone/block5", "backbone/block6"),
+                              ("backbone/block7", "backbone/block8"))]
         self.mid_ops = ([prepare_double_conv(*p) for p in pairs[:2]]
                         if self.fused_mid else None)
         self.tail_ops = (prepare_double_conv(*pairs[2]) if self.fused_tail
@@ -161,7 +167,7 @@ class ServingSuperPoint:
             wh, mh, bh = self._head_wmb(conv_b, s_a)
             self.head_ops[key] = (
                 prepare_head(w, mult, bias, wh, mh, bh) if self.fused_tail
-                else ((w, mult, bias), prepare_dot(wh, mh, bh)))
+                else (prepare_conv3x3(w, mult, bias), prepare_dot(wh, mh, bh)))
         self.conv1_ops = self.conv12_ops = None
         if self.mode == "bf16":
             node = self.params["backbone/block1"]
@@ -241,6 +247,15 @@ class ServingSuperPoint:
         wq, ws = self.weights_q[name]
         mult = s_in * ws / s_out
         return wq, mult, bias / s_out, s_out
+
+    def _runs_per_layer(self, name):
+        """Whether a request may run backbone conv ``name`` through
+        ``conv3x3`` / ``packed_conv3x3``."""
+        if name == "backbone/block2":
+            return self.mode == "bf16"
+        if name in ("backbone/block7", "backbone/block8"):
+            return not self.fused_tail
+        return True
 
     def _scale(self, name):
         """The output scale of conv ``name`` (None in bf16 mode)."""
@@ -323,9 +338,9 @@ class ServingSuperPoint:
                 s_prev = self._scale("backbone/block6")
                 i += 4
                 continue
-            w, mult, bias, s_prev = self._wmb(name, s_prev)
             conv = packed_conv3x3 if c64 else conv3x3
-            x = conv(x, w, mult, bias, out_dtype=act, pool=pool)
+            x = conv(x, self.layer_ops[name], out_dtype=act, pool=pool)
+            s_prev = self._scale(name)
             i += 1
 
         if self.fused_tail:
@@ -340,8 +355,8 @@ class ServingSuperPoint:
         out = {}
         for _, _, key in self._heads():
             if not self.fused_tail:
-                (w, mult, bias), dot_ops = self.head_ops[key]
-                mid = conv3x3(x, w, mult, bias, out_dtype=act_head)
+                conv_ops, dot_ops = self.head_ops[key]
+                mid = conv3x3(x, conv_ops, out_dtype=act_head)
                 out[key] = dot_bias_act(mid, dot_ops, relu=False,
                                         out_dtype=torch.bfloat16)
             elif softmax and key == "logits":

@@ -15,8 +15,12 @@ HA's 80 views of 30 x 40 cells; the render kernels at the operands of
 ``chip_smoke.py``'s render drive: the committed sphere fields in bf16 on
 131,072 orbit rays x 32 samples, width 128 dense, with the early stop and
 with cached occupancy flags and the early stop, widths 64 and 32 and int8
-with the early stop; ``--match conv12,warp`` keeps the cases whose label
-holds one of the substrings) it prints, in ms per call:
+with the early stop, the same widths with float32 weights, and beside
+int8 its yardstick, three ``torch._int_mm`` over all (ray, sample) rows;
+``conv3x3`` / ``packed_conv3x3`` at the per-layer route's instances,
+int8 and bf16, batch 8 at 480 x 640; ``--match conv12,warp`` keeps the
+cases whose label holds one of the substrings) it prints, in ms per
+call:
 
 * ``wrapper``: CUDA events around one call of the wrapper, median of 20
   (what the ``ms`` of ``chip_smoke.py``'s kernel rows measures);
@@ -27,7 +31,9 @@ holds one of the substrings) it prints, in ms per call:
 
 Raw calls (weights packed on every call) always; calls on operands
 prepared once (``prepare_conv12``, ``prepare_double_conv``,
-``prepare_dot``, ``prepare_head``) where the wrappers offer them. Inputs are seeded; weights random.
+``prepare_dot``, ``prepare_head``, ``prepare_conv3x3``,
+``prepare_render_int8``) where the wrappers offer them. Inputs are
+seeded; weights random.
 ``--out`` writes the results as JSON. Without a card it exits non-zero.
 
 ``--routes`` times the serving routes end to end instead, through the
@@ -350,9 +356,76 @@ def _render_cases():
         f.oe[:calib].cpu().numpy(), f.de[:calib].cpu().numpy(),
         f.df[:calib].cpu().numpy(), n_samples=RENDER_SAMPLES,
         near=f.cfg.near, far=f.cfg.far), "cuda")
+    prep = getattr(R, "prepare_render_int8", None)
+    qops = prep(qf) if prep else None
     yield (f"render[int8] early stop {n}",
-           lambda: R.render_fused_int8(f.oe, f.de, qf, f.df, **f.kw), None,
+           lambda: R.render_fused_int8(f.oe, f.de, qf, f.df, **f.kw),
+           None if qops is None else
+           (lambda: R.render_fused_int8(f.oe, f.de, qops, f.df, **f.kw)),
            "render")
+    # row 13's yardstick: its three products alone, int8 on the tensor
+    # cores over every (ray, sample) row, int32 out (the head padded to N
+    # 8, _int_mm's B column-major)
+    x = torch.zeros((RENDER_RAYS * RENDER_SAMPLES, 128), dtype=torch.int8,
+                    device="cuda")
+    wq = [w.t().contiguous().t()
+          for w in (qf["qw1"], qf["qw2"], qf["qw3"][:, :8])]
+    yield (f"render[int8] yardstick: three torch._int_mm {n}",
+           lambda x=x: [torch._int_mm(x, w) for w in wq], None, "")
+    del x
+    for width in (128, 64, 32):  # the float32 instances (render_kernel)
+        f = fields[width]
+        ws = [w.float() for w in f.ws]
+        if width == 128:
+            call = (lambda f=f, ws=ws: R.render_fused(f.oe, f.de, *ws, f.df,
+                                                       **f.kw))
+        else:
+            call = (lambda f=f, ws=ws, width=width: R.render_fused_packed(
+                f.oe, f.de, *ws, f.df, width=width, **f.kw))
+        yield (f"render[f32{'' if width == 128 else f'-w{width}'}] early stop "
+               f"{n}", call, None, "render")
+
+
+# the per-layer route's 3x3 convs at batch 8, 480 x 640: (wrapper, C_in,
+# C_out, pool, H, W); int8 runs block 2 in conv12_fused
+LAYER_CONVS = [("packed_conv3x3", 64, 64, False, 240, 320),
+               ("packed_conv3x3", 64, 64, True, 240, 320),
+               ("packed_conv3x3", 64, 128, False, 120, 160),
+               ("conv3x3", 128, 128, True, 120, 160),
+               ("conv3x3", 128, 128, False, 60, 80),
+               ("conv3x3", 128, 256, False, 60, 80)]
+BF16_BLOCK2 = ("packed_conv3x3", 64, 64, True, 480, 640)
+
+
+def _conv3x3_cases(rng, t, mb):
+    """``conv3x3`` / ``packed_conv3x3`` at the instances of
+    ``[slice-unfused]`` (batch 8, 480 x 640), int8 and bf16, on seeded
+    activations and weights."""
+    from spnerf_tpu_torch.kernels import conv_stack as S
+
+    prep = getattr(S, "prepare_conv3x3", None)
+    for dtype, name in ((torch.int8, "int8"), (torch.bfloat16, "bf16")):
+        for op, cin, cout, pool, h, w in LAYER_CONVS + (
+                [BF16_BLOCK2] if name == "bf16" else []):
+            if dtype == torch.int8:
+                x = t(rng.integers(0, 128, (8, h, w, cin)).astype(np.int8))
+                raw = (t(rng.integers(-127, 128, (3, 3, cin, cout))
+                         .astype(np.int8)), *mb(cout, 5e-5, 4e-4))
+            else:
+                x = t(rng.uniform(0, 1, (8, h, w, cin)).astype(np.float32),
+                      dtype)
+                raw = (t((rng.standard_normal((3, 3, cin, cout))
+                          / np.sqrt(9 * cin)).astype(np.float32), dtype),
+                       torch.ones(cout, device="cuda"), mb(cout)[1])
+            fn = getattr(S, op)
+            kw = {"out_dtype": dtype, "pool": pool}
+            ops = prep(*raw) if prep else None
+            yield (f"{op}[{name}-{cin}-{cout}{'-pool' if pool else ''}] "
+                   f"8x{h}x{w}",
+                   lambda x=x, raw=raw, fn=fn, kw=kw: fn(x, *raw, **kw),
+                   None if ops is None else
+                   (lambda x=x, ops=ops, fn=fn, kw=kw: fn(x, ops, **kw)),
+                   "conv3x3")
 
 
 def _cases(gen_seed: int = 0):
@@ -423,6 +496,7 @@ def _cases(gen_seed: int = 0):
         yield (label, lambda x=x, raw=raw, kw=kw: T.head(x, *raw, **kw),
                None if ops is None else
                (lambda x=x, ops=ops, kw=kw: T.head(x, ops, **kw)), "head")
+    yield from _conv3x3_cases(rng, t, mb)
     yield from _render_cases()
 
 
@@ -511,7 +585,7 @@ def main(argv=None) -> int:
     from spnerf_tpu_torch.kernels import _build
 
     _build.build_all(["conv12_fused", "double_conv3x3", "head", "dot_bias_act",
-                      "warp", "render"])
+                      "warp", "render", "conv3x3"])
     match = [m for m in args.match.split(",") if m]
     results = []
     for label, raw, prepared, symbol in _cases():

@@ -1252,3 +1252,126 @@ def test_s8_head_edge_values_on_card(card, kind):
             raw[3][::3] = 0
         kw = {"softmax_lanes": cout} if soft else {}
         _s8_held(head, head_plain, prepare_head, x, raw, kw, exact=not soft)
+
+
+# row 13 on the int8 tensor cores (render_s8_kernel): the committed
+# width-128 sphere field quantized as the render drive quantizes it, at
+# the drive's 131,072 orbit rays x 32 samples, dense, early stop, and
+# cached occupancy flags with the early stop; and small random fields at N
+# around the 64-ray tile. rgb within 1e-4, depth within 1e-3 of the plain
+# version; two runs, and the prepared and dict routes, bit-equal.
+@pytest.fixture(scope="module")
+def render_s8_drive():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from spnerf_tpu_torch.kernels import render as R
+    from spnerf_tpu_torch.ops.occupancy import chunk_flags, field_integral_volume
+    from spnerf_tpu_torch.tools.kernel_times import render_drive
+
+    o, d, fields = render_drive()
+    f = fields[128]
+    n = 4096  # chip_smoke.INT8_CALIB_RAYS
+    qf = R.quantize_field({k: v.float().cpu().numpy() for k, v in f.params.items()},
+                          f.oe[:n].cpu().numpy(), f.de[:n].cpu().numpy(),
+                          f.df[:n].cpu().numpy(), n_samples=f.kw["n_samples"],
+                          near=f.cfg.near, far=f.cfg.far)
+    ivol = field_integral_volume({k: v.float() for k, v in f.params.items()}, f.cfg)
+    flags = chunk_flags(o, d, ivol, block=f.kw["block"], n_samples=f.kw["n_samples"],
+                        s_chunk=f.kw["s_chunk"], near=f.cfg.near, far=f.cfg.far,
+                        extent=float(f.cfg.far))
+    return f, qf, R.prepare_render_int8(qf), flags
+
+
+def _render_s8_held(oe, de, df, qf, ops, kw):
+    """Prepared call, a second launch and the dict route: the same bits;
+    returns (kernel, plain) outputs."""
+    from spnerf_tpu_torch.kernels import _build
+    from spnerf_tpu_torch.kernels import render as R
+
+    before = _build.launch_counts["render[int8]"]
+    got = R.render_fused_int8(oe, de, ops, df, **kw)
+    again = R.render_fused_int8(oe, de, ops, df, **kw)
+    by_dict = R.render_fused_int8(oe, de, qf, df, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["render[int8]"] == before + 3
+    for other in (again, by_dict):
+        assert torch.equal(got[0], other[0]) and torch.equal(got[1], other[1])
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+    return got, R.render_fused_int8_plain(oe, de, qf, df, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "early_stop", "cached_flags"])
+def test_render_s8_at_the_drive_operands_on_card(render_s8_drive, kind):
+    f, qf, ops, flags = render_s8_drive
+    kw = dict(f.kw, early_stop_eps=0.0 if kind == "dense" else f.kw["early_stop_eps"],
+              flags=flags if kind == "cached_flags" else None)
+    got, want = _render_s8_held(f.oe, f.de, f.df, qf, ops, kw)
+    assert float(want[0].max()) > 0.05
+    rgb_err = float((got[0] - want[0]).abs().max())
+    depth_err = float((got[1] - want[1]).abs().max())
+    share = float((got[0] != want[0]).float().mean())
+    print(f"render s8 {kind}: rgb {rgb_err:.3e} depth {depth_err:.3e}, {share:.3e} differ")
+    assert rgb_err <= 1e-4 and depth_err <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 63, 65, 333, 1000])
+def test_render_s8_ragged_n_on_card(card, N):
+    """A random field hot enough for the early stop, flags with zeros over
+    48-ray blocks, N around and off the 64-ray tile."""
+    from spnerf_tpu_torch.kernels import render as R
+
+    rng = np.random.default_rng(120 + N)
+    p = {k: (rng.standard_normal((128, 128)) * 0.1).astype(np.float32)
+         for k in ("w1", "w2", "w3")}
+    p["w3"][:, 0] = np.abs(p["w3"][:, 0]) + 0.05
+    oe = rng.uniform(-3, 3, (N, 128)).astype(np.float32)
+    de = rng.uniform(-2, 2, (N, 128)).astype(np.float32)
+    oe[:, 0], de[:, 0] = np.pi / 2, 0.0  # the constant-one lane
+    df = (rng.standard_normal((N, 128)) * 0.1).astype(np.float32)
+    df[(np.arange(N) // 50) % 2 == 0] += 0.5
+    qf = R.quantize_field(p, oe, de, df, n_samples=16, near=2.0, far=6.0, jitter=0.37)
+    flags = rng.uniform(size=(-(-N // 48), 4)) > 0.3
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    kw = dict(jitter=0.37, n_samples=16, near=2.0, far=6.0, block=48, s_chunk=4,
+              flags=t(flags.astype(np.int32)), early_stop_eps=1e-3)
+    got, want = _render_s8_held(t(oe), t(de), t(df), qf, R.prepare_render_int8(qf), kw)
+    rgb_err = float((got[0] - want[0]).abs().max())
+    depth_err = float((got[1] - want[1]).abs().max())
+    print(f"render s8 N {N}: rgb {rgb_err:.3e} depth {depth_err:.3e}")
+    assert rgb_err <= 1e-4 and depth_err <= 1e-3
+
+
+# conv3x3's int8 instance on the int8 tensor cores at the per-layer
+# route's shapes, batch 8, at 480 x 640 and 480 x 632 (W % 16 == 8 there,
+# 79 at 60 rows): (wrapper, C_in, C_out, pool, layer shape at W 640, at
+# W 632); multipliers of both signs, prepared = raw = a second launch,
+# equal to the plain version
+S8_CONV_ROUTE = {
+    "packed_64-64": ("packed", 64, 64, False, (240, 320), (240, 316)),
+    "packed_64-64-pool": ("packed", 64, 64, True, (240, 320), (240, 316)),
+    "packed_64-128": ("packed", 64, 128, False, (120, 160), (120, 158)),
+    "conv_128-128-pool": ("conv", 128, 128, True, (120, 160), (120, 158)),
+    "conv_128-128": ("conv", 128, 128, False, (60, 80), (60, 79)),
+    "conv_128-256": ("conv", 128, 256, False, (60, 80), (60, 79)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [640, 632])
+@pytest.mark.parametrize("instance", list(S8_CONV_ROUTE))
+def test_s8_conv3x3_at_the_route_shapes_on_card(card, instance, width):
+    from spnerf_tpu_torch.kernels import conv_stack as S
+
+    op, cin, cout, pool, at640, at632 = S8_CONV_ROUTE[instance]
+    H, W = at640 if width == 640 else at632
+    rng = np.random.default_rng(130 + cin + cout + pool + width)
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    x = t(_int8(rng, (8, H, W, cin), 0, 128))
+    raw = (t(_int8(rng, (3, 3, cin, cout))),
+           t(rng.uniform(-4e-4, 4e-4, cout).astype(np.float32)),
+           t(rng.uniform(-20, 20, cout).astype(np.float32)))
+    fn = S.packed_conv3x3 if op == "packed" else S.conv3x3
+    got = _s8_held(fn, S.conv3x3_plain, S.prepare_conv3x3, x, raw, {"pool": pool})
+    assert (got > 0).any() and (got == 0).any()

@@ -155,28 +155,6 @@ def test_cast_int8_rounds_half_to_even():
                                   [0, 2, 2, 0, -2, 126, 127, -127])
 
 
-def test_pack_dp4a_layout():
-    """int8: word (tap, k, o) holds input channels 4k..4k+3 of output
-    channel o, lowest address first (the byte order ``__dp4a`` pairs up);
-    bf16: channels 2k, 2k+1; float32: channel k. Padding is zeros."""
-    from spnerf_tpu_torch.kernels._build import pack_words
-    w = torch.from_numpy(_int8(np.random.default_rng(15), (3, 3, 16, 8)))
-    p = pack_words(w)
-    assert p.dtype == torch.int32 and p.shape == (9, 4, 8) and p.is_contiguous()
-    b = p.view(torch.int8).reshape(9, 4, 8, 4)
-    assert torch.equal(b, w.reshape(9, 4, 4, 8).permute(0, 1, 3, 2))
-    padded = pack_words(w[0, 0], 32)  # a 1x1 kernel, lanes zero-padded
-    assert padded.shape == (1, 4, 32) and not padded[..., 8:].any()
-    assert torch.equal(padded[..., :8], p[:1])
-    wb = w.to(torch.bfloat16)
-    pb = pack_words(wb).view(torch.bfloat16).reshape(9, 8, 8, 2)
-    assert torch.equal(pb, wb.reshape(9, 8, 2, 8).permute(0, 1, 3, 2))
-    wf = w[0, 0, :9].float()  # a 9-tap patch product, rows padded to 12
-    pf = pack_words(wf, cin_pad=12).view(torch.float32)
-    assert pf.shape == (1, 12, 8) and not pf[0, 9:].any()
-    assert torch.equal(pf[0, :9], wf)
-
-
 def test_nvcc_command_targets_hopper_without_fast_math(monkeypatch):
     from spnerf_tpu_torch.kernels import _build
     monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
