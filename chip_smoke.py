@@ -99,8 +99,10 @@ Phases, each of which raises on failure (nothing is caught):
    on the operands the training step gives them (B 2, N 1,200, C 256)
    and at N 4,800 (480 x 640): sums within 1e-5, gradients within 1e-4
    of their largest entry outside the few rows where a dot lies within
-   rounding of a margin, two runs bit-equal; times, bounds, and the dense
-   ``descriptor_loss_from_cells`` with autograd as a yardstick;
+   rounding of a margin, two runs bit-equal; times around the call and on
+   the device, the float32 and TF32 bounds, the share of pairs the
+   gradients' band summed again in float64 (the kernels' counter), and
+   the dense ``descriptor_loss_from_cells`` with autograd as a yardstick;
 11. take two steps of a small SuperPoint on the card and on the CPU
    plain path from the same state, draws and batch: augmented images,
    losses and parameters within the stated tolerances;
@@ -203,7 +205,6 @@ from spnerf_tpu_torch.ops.homography_adaptation import (
     image_homographies,
 )
 from spnerf_tpu_torch.ops.image_warp import (
-    compute_valid_mask,
     valid_mask_from_inverse,
     warp_image,
 )
@@ -215,15 +216,17 @@ from spnerf_tpu_torch.ops.photometric_device import (
 )
 from spnerf_tpu_torch.tasks import export, train_task
 from spnerf_tpu_torch.tools.kernel_times import (
+    HINGE_SHAPES,
+    PAIR_HOMOGRAPHY,
     RENDER_FIELDS,
     device_ms,
+    hinge_operands,
     load_field,
     orbit_rays,
 )
 from spnerf_tpu_torch.train import loop
 from spnerf_tpu_torch.train.losses import (
     DescriptorLossConfig,
-    _cell_mask,
     cell_grid_coords,
     descriptor_loss_from_cells,
     detector_loss,
@@ -302,16 +305,8 @@ TRAIN_CONFIG = {
                                        "nb_ellipses": 20},
                     "motion_blur": {"max_kernel_size": 3}}},
             "homographic": {"enable": False},
-            "pair_homography": {
-                "params": {"translation": True, "rotation": True,
-                           "scaling": True, "perspective": True,
-                           "scaling_amplitude": 0.2, "n_scales": 5,
-                           "n_angles": 25, "perspective_amplitude_x": 0.2,
-                           "perspective_amplitude_y": 0.2,
-                           "patch_ratio": 0.85, "max_angle": 1.57,
-                           "allow_artifacts": True,
-                           "translation_overflow": 0.0},
-                "valid_border_margin": 3}}},
+            "pair_homography": {"params": dict(PAIR_HOMOGRAPHY),
+                                "valid_border_margin": 3}}},
     "model": {
         "script": "SuperPoint", "class_name": "SuperPoint",
         "model_name": "superpoint",
@@ -1711,31 +1706,18 @@ def phase_train_split(state, loader, reps: int = 5):
     return med
 
 
-def hinge_operands(B, Hc, Wc, C, seed):
-    """Operands of ``descriptor_hinge_sums`` as a training step at
-    (Hc * 8) x (Wc * 8) makes them, from seeded descriptors (scaled like
-    the trained head's raw output, so that dots straddle both margins)
-    and sampled pair homographies."""
-    gen = torch.Generator(device=DEV).manual_seed(seed)
-    N = Hc * Wc
-    A, Bm = (0.08 * torch.randn((B, N, C), generator=gen, device=DEV)
-             for _ in range(2))
-    aug = HomographyConfig.from_dict(
-        TRAIN_CONFIG["data"]["augmentation"]["pair_homography"]["params"])
-    homs = sample_homographies(torch.Generator().manual_seed(seed), B,
-                               (Hc * 8, Wc * 8), aug).to(DEV)
-    cells = cell_grid_coords(Hc, Wc, 8, device=DEV)
-    mask = _cell_mask(compute_valid_mask((Hc * 8, Wc * 8), homs, 3),
-                      8).reshape(B, N)
-    return (A, Bm, warp_points(cells, homs), cells, mask, 250.0, 1.0, 0.2,
-            8.0)
-
-
 def phase_desc_loss_kernels(cases, peaks):
     """The three descriptor-loss kernels against the plain version, with
-    times, bounds and the dense loss with autograd as a yardstick.
-    Returns the rows of the first case (the training step's operands)."""
-    _, mem_rate, f32_rate = peaks[:3]
+    times (around the call, and the device time alone by ``torch.profiler``:
+    every ``hinge_`` kernel of the call), two bounds (float32 on the CUDA
+    cores; the same float32-grade work on the TF32 tensor cores: 3 passes a
+    dot, 2 for a gradient product; the row takes the lower), the share of
+    pairs the gradient kernels' band summed again in float64 (their
+    counter, ``repaired_pairs``) and the dense loss with autograd as a
+    yardstick. Returns the rows of the first case (the training step's
+    operands)."""
+    _, mem_rate, f32_rate, bf16_rate = peaks[:4]
+    tf32_rate = bf16_rate / 2  # dense TF32 is half the bf16 rate on Hopper
     source = "spnerf_tpu_torch/kernels/csrc/descriptor_loss.cu"
     replaces = {
         "desc_loss[fwd]": "spnerf_tpu/kernels/descriptor_loss_pallas.py:172",
@@ -1757,9 +1739,10 @@ def phase_desc_loss_kernels(cases, peaks):
             return torch.stack([s.detach() for s in sums]), dA, dB
 
         before = _build.launch_counts.copy()
-        got, again, want = (run(dl.descriptor_hinge_sums),
-                            run(dl.descriptor_hinge_sums),
-                            run(dl.hinge_sums_plain))
+        repairs = dl.repaired_pairs(DEV)
+        got = run(dl.descriptor_hinge_sums)
+        repaired = [b - a for a, b in zip(repairs, dl.repaired_pairs(DEV))]
+        again, want = run(dl.descriptor_hinge_sums), run(dl.hinge_sums_plain)
         torch.cuda.synchronize()
         launched = _build.launch_counts - before
         if launched != {"desc_loss[fwd]": 2, "desc_loss[dA]": 2,
@@ -1786,6 +1769,21 @@ def phase_desc_loss_kernels(cases, peaks):
                     f"{key} {label}: {flipped[key]} of {bad.numel()} rows "
                     f"differ by more than {tol:.3e}")
             errs[key] = float(row_err[~bad].max())
+
+        # the tensor cores' dots against float64: within the bound delta
+        # that csrc/descriptor_loss.cu derives (the band is twice it)
+        exact = torch.einsum("bnc,bmc->bnm", A.detach().double(),
+                             Bm.detach().double())
+        norms = (A.detach().double().norm(dim=-1)[:, :, None]
+                 * Bm.detach().double().norm(dim=-1)[:, None, :])
+        dot_err = (dl.tensor_core_dots(A.detach(), Bm.detach()).double()
+                   - exact).abs()
+        delta_used = float((dot_err / (dl.kappa(C) * norms)).max())
+        if not delta_used <= 1.0:
+            raise AssertionError(f"desc_loss {label}: a tensor-core dot "
+                                 f"lies {delta_used:.3f} delta from the "
+                                 "exact dot")
+        del exact, norms, dot_err
 
         def grad_of(fn, a, b, wrt):
             # only the side that requires a gradient gets its kernel
@@ -1823,36 +1821,54 @@ def phase_desc_loss_kernels(cases, peaks):
         del dense_loss
         pairs = B * N * M
         coords = nbytes(wcells, cells, mask)
+        # (float32 operations, TF32 tensor-core operations, bytes): a
+        # float32-grade dot is 3 TF32 passes, a gradient product 2 more
         work = {
             "desc_loss[fwd]": (pairs * (2 * C + DESC_PAIR_FLOPS_FWD),
+                               pairs * 3 * 2 * C,
                                nbytes(A, Bm) + coords + B * 3 * 4),
             "desc_loss[dA]": (pairs * (4 * C + DESC_PAIR_FLOPS_BWD),
+                              pairs * 5 * 2 * C,
                               nbytes(A, Bm, A) + coords + B * 4),
             "desc_loss[dB]": (pairs * (4 * C + DESC_PAIR_FLOPS_BWD),
+                              pairs * 5 * 2 * C,
                               nbytes(A, Bm, Bm) + coords + B * 4),
         }
+        share = {"desc_loss[dA]": repaired[0] / pairs,
+                 "desc_loss[dB]": repaired[1] / pairs}
         rows = []
         for key, (run_kernel, run_plain) in timed.items():
             ms = cuda_ms(run_kernel, reps=20, warmup=3)
+            dev_ms, how = device_ms(run_kernel, "hinge_")
             plain_ms = cuda_ms(run_plain, reps=5)
-            ops, moved = work[key]
-            t_ops, t_bytes = ops / f32_rate * 1e3, moved / mem_rate * 1e3
+            ops, tc_ops, moved = work[key]
+            t_f32, t_tf32 = ops / f32_rate * 1e3, tc_ops / tf32_rate * 1e3
+            t_ops, t_bytes = min(t_f32, t_tf32), moved / mem_rate * 1e3
             rows.append({
                 "name": key, "route": "cuda", "source": source,
                 "replaces": replaces[key], "launches": None,
                 "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": None,
+                "library_ms": None, "device_ms": dev_ms,
+                "bound_f32_ms": t_f32, "bound_tf32_ms": t_tf32,
             })
-            extra = (f"sums within {rel:.3e} relative" if key.endswith("fwd]")
+            if key in share:
+                rows[-1]["repaired_share"] = share[key]
+            extra = (f"sums within {rel:.3e} relative; dots within "
+                     f"{delta_used:.4f} delta of the exact ones"
+                     if key.endswith("fwd]")
                      else f"{flipped[key]} of {B * N} rows beyond "
-                          f"{DESC_GRAD_TOL} of the largest entry")
+                          f"{DESC_GRAD_TOL} of the largest entry; the band "
+                          f"summed {share[key]:.3e} of the pairs again")
             log(f"[kernel] {key} {label}: B {B}, N {N}, C {C}, max_abs_err "
                 f"{errs[key]:.3e} ({extra}), two runs bit-equal, kernel "
-                f"{ms:.4f} ms (median of 20), plain {plain_ms:.4f} ms, bound "
-                f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}, "
-                f"{ops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB)")
+                f"{ms:.4f} ms (median of 20; device {dev_ms:.4f} ms by "
+                f"{how}), plain {plain_ms:.4f} ms, bound "
+                f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}: "
+                f"float32 {t_f32:.4f} ms, {ops / 1e9:.2f} GFLOP; TF32 "
+                f"{t_tf32:.4f} ms, {tc_ops / 1e9:.2f} GFLOP; "
+                f"{moved / 1e6:.1f} MB)")
         total = sum(r["ms"] for r in rows)
         log(f"[kernel] desc_loss {label}: forward + dA + dB {total:.4f} ms "
             f"against the dense descriptor_loss_from_cells with autograd "
@@ -2776,7 +2792,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     desc_rows = phase_desc_loss_kernels(
         [("training step", step_call),
-         ("480x640", hinge_operands(2, 60, 80, 256, SEED + 11))], peaks)
+         ("480x640", hinge_operands(*HINGE_SHAPES[1], SEED + 11, DEV))],
+        peaks)
     for row in desc_rows:
         row["launches"] = train_counts.get(row["name"], 0)
         if row["launches"] == 0:

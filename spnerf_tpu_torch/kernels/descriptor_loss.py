@@ -1,14 +1,13 @@
 """Blockwise descriptor hinge loss: forward sums and gradients as CUDA
-kernels.
+kernels on the TF32 tensor cores.
 
 ``descriptor_hinge_sums`` replaces ``spnerf_tpu/kernels/
 descriptor_loss_pallas.py: descriptor_hinge_sums`` (``_hinge_sums_impl``
 and its backward ``_hinge_bwd``) with the kernels of
-``csrc/descriptor_loss.cu`` (see its header for the bound and the
-design), batched over B instead of ``vmap``ped. For raw descriptors A
-(B, N, C), warped descriptors Bm (B, M, C), warped raw-cell centres
-``wcells`` (B, N, 2), warped-image cell centres ``cells`` (M, 2) and a
-cell mask (B, M)::
+``csrc/descriptor_loss.cu``, batched over B instead of ``vmap``ped. For
+raw descriptors A (B, N, C), warped descriptors Bm (B, M, C), warped
+raw-cell centres ``wcells`` (B, N, 2), warped-image cell centres
+``cells`` (M, 2) and a cell mask (B, M)::
 
     dot  = A Bm^T                                  never stored
     s    = (cy - wy)^2 + (cx - wx)^2 <= radius^2
@@ -23,16 +22,38 @@ is the drop-in for the dense ``train.losses.descriptor_loss_from_cells``
 (``normalise_descriptors=False`` only), the reference's
 ``descriptor_loss_pallas``.
 
+The design (the ``.cu`` header has the derivations): every dot is three
+wgmma passes over operands split into two TF32 values (hi.hi + hi.lo +
+lo.hi), summed in chunks of 32 of C and the chunks added to nearest, so a
+dot lies within delta = kappa(C) ||a|| ||b|| of the exact one (kappa(256)
+= 2.88e-6). Operations bound all three kernels; at the training shape the
+TF32 bound is 0.0089 ms for the forward and 0.0149 for each gradient. The
+forward's sums take the tensor cores' dots. A gradient's step is not
+continuous in the dot, so a pair within twice delta of its margin (the
+band) sums its dot again in float64 and steps on that: every step is the
+exact dot's. The gradient product ddot Y runs on the tensor cores too (Y
+split; ddot split where it is not a TF32 value), transposed. The card is
+filled by units of 128 (forward) or 64 (gradient) rows of X against 32 of
+Y, spread evenly over one block per SM; every sum has a fixed order and
+no float atomics, so two runs give the same bits. The band's repairs are
+counted on the card (``repaired_pairs``).
+
 Agreement with the plain version and with the reference: d2 and so s are
-computed in the same float32 order and agree to the bit; each dot is a
-float32 sum over C in another order, so the three sums agree to float32
-rounding (relative 1e-5 at the sizes used), and a pair whose dot lies
-within rounding of a margin may take the other side of the step in the
-gradient (one row of lambda_d * Bm or of Bm).
+computed in the same float32 order and agree to the bit; the three sums
+agree to float32 rounding of the sums (relative 1e-5 at the sizes used);
+the gradients agree wherever the float32 dots of the plain version take
+the exact dot's side of each step.
+
+Per shape and device the wrapper keeps its scratch (the kernels' partial
+sums, used in stream order) and reads A, Bm and the coordinates in place
+when they are float32 and contiguous: ``cells`` is shared by the batch
+items (stride 0), and a side without weights passes none.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import struct
 
 import torch
@@ -40,12 +61,65 @@ import torch
 from spnerf_tpu_torch.kernels import _build
 from spnerf_tpu_torch.train.losses import _cell_mask, cell_grid_coords
 
-_TILE = 64  # forward tile of csrc/descriptor_loss.cu
-_MAX_C = 256  # the backward kernel holds one gradient column per thread
+_MAX_C = 256  # csrc/descriptor_loss.cu kCMax: the tiles' shared memory
+
+_CHUNK = 32  # csrc/descriptor_loss.cu kChunk: the depth of a chunk's sums
+
+_scratch: dict = {}  # (device, B, NX, NY, C) -> (forward, gradient) scratch
+_repairs: dict = {}  # device -> the band's repairs in dA, dB
 
 
-def _float_bits(v: float) -> int:
-    return struct.unpack("i", struct.pack("f", float(v)))[0]
+@functools.lru_cache(maxsize=None)
+def _bits(lambda_d, pos_margin, neg_margin, radius) -> tuple:
+    """lambda_d, the margins and radius^2 as float32 bit patterns."""
+    return tuple(struct.unpack("i", struct.pack("f", float(v)))[0] for v in
+                 (lambda_d, pos_margin, neg_margin, radius * radius))
+
+
+def kappa(C: int) -> float:
+    """The bound of ``csrc/descriptor_loss.cu``'s kappa(C): a tensor-core
+    dot lies within kappa(C) ||a||_2 ||b||_2 of the exact one (the split,
+    the tensor cores' truncation in chunks of 32, the chunks' adds); the
+    gradient's band is twice that."""
+    n_chunks = -(-C // _CHUNK)
+    return (3.01 * 2.0 ** -22 + 52.2 * 2.0 ** -25
+            + (n_chunks + 2) * 1.01 * 2.0 ** -24)
+
+
+def _scratch_for(device, B, NX, NY, C):
+    """(forward partials, gradient partials) for X (B, NX, C) against Y
+    (B, NY, C), sized by the kernels' own plan for this card."""
+    key = (device, B, NX, NY, C)
+    if key not in _scratch:
+        fn = _build.load("descriptor_loss").desc_loss_scratch
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+        floats = (ctypes.c_longlong * 2)()
+        with torch.cuda.device(device):
+            err = fn(B, NX, NY, C, floats)
+        if err != 0:
+            raise RuntimeError(f"desc_loss_scratch: CUDA error {err}")
+        _scratch[key] = tuple(torch.empty(max(1, n), dtype=torch.float32,
+                                          device=device) for n in floats)
+    return _scratch[key]
+
+
+def _repair_counters(device) -> tuple:
+    """(dA's, dB's) int64 counters of the band's repairs on ``device``."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _repairs:
+        _repairs[device] = tuple(torch.zeros(1, dtype=torch.int64, device=device)
+                                 for _ in range(2))
+    return _repairs[device]
+
+
+def repaired_pairs(device) -> tuple:
+    """(dA, dB): the pairs the gradient kernels have summed again in
+    float64 on ``device`` so far (counters the kernels add to; reading
+    them waits for the card)."""
+    return tuple(int(c.item()) for c in _repair_counters(device))
 
 
 def hinge_sums_plain(A, Bm, wcells, cells, mask, lambda_d, pos_margin,
@@ -83,7 +157,8 @@ def _check(A, Bm, wcells, cells, mask):
 
 class _HingeSums(torch.autograd.Function):
     """The three sums on the card; backward launches the gradient kernel
-    twice, for dA and, with the roles of A and Bm exchanged, for dB."""
+    once per gradient asked for: dA, and with the roles of A and Bm
+    exchanged, dB."""
 
     @staticmethod
     def forward(ctx, A, Bm, wcells, cells, mask, lambda_d, pos_margin,
@@ -91,48 +166,46 @@ class _HingeSums(torch.autograd.Function):
         B, N, C = A.shape
         M = Bm.shape[1]
         A, Bm = A.float().contiguous(), Bm.float().contiguous()
-        wcells = wcells.float().contiguous()
-        cells_b = cells.float().expand(B, M, 2).contiguous()
+        wcells, cells = wcells.float().contiguous(), cells.float().contiguous()
         mask = mask.float().contiguous()
-        ones = torch.ones((B, N), dtype=torch.float32, device=A.device)
-        bits = tuple(_float_bits(v) for v in
-                     (lambda_d, pos_margin, neg_margin, radius * radius))
-        n_part = -(-N // _TILE) * -(-M // _TILE)
-        partials = torch.empty((B, n_part, 3), dtype=torch.float32,
-                               device=A.device)
-        sums = torch.empty((B, 3), dtype=torch.float32, device=A.device)
+        bits = _bits(lambda_d, pos_margin, neg_margin, radius)
+        partials = _scratch_for(A.device, B, N, M, C)[0]
+        sums = [torch.empty(B, dtype=torch.float32, device=A.device)
+                for _ in range(3)]
         _build.check_cuda("descriptor_hinge_sums", A=A, Bm=Bm, wcells=wcells,
-                          cells=cells_b, mask=mask, partials=partials,
-                          sums=sums)
+                          cells=cells, mask=mask)
         _build.launch("descriptor_loss", "desc_loss_fwd_launch", A, Bm,
-                      wcells, ones, cells_b, mask, partials, sums, n_part, B,
-                      N, M, C, *bits)
+                      wcells, 2 * N, None, cells, 0, mask, partials,
+                      partials.numel(), *sums, None, B, N, M, C, *bits)
         _build.launch_counts["desc_loss[fwd]"] += 1
-        ctx.save_for_backward(A, Bm, wcells, cells_b, mask, ones)
+        ctx.save_for_backward(A, Bm, wcells, cells, mask)
         ctx.bits = bits
-        s_pair, s_pos, s_neg = (sums[:, q].clone() for q in range(3))
-        ctx.mark_non_differentiable(s_pos, s_neg)
-        return s_pair, s_pos, s_neg
+        ctx.mark_non_differentiable(sums[1], sums[2])
+        return tuple(sums)
 
     @staticmethod
     def backward(ctx, g_pair, _g_pos, _g_neg):
-        A, Bm, wcells, cells_b, mask, ones = ctx.saved_tensors
+        A, Bm, wcells, cells, mask = ctx.saved_tensors
         B, N, C = A.shape
         M = Bm.shape[1]
         g = g_pair.float().contiguous()
+        _build.check_cuda("descriptor_hinge_sums", g=g)
+        counters = _repair_counters(A.device)
         dA = dB = None
         if ctx.needs_input_grad[0]:
             dA = torch.empty_like(A)
-            _build.check_cuda("descriptor_hinge_sums", g=g, dA=dA)
+            partials = _scratch_for(A.device, B, N, M, C)[1]
             _build.launch("descriptor_loss", "desc_loss_bwd_launch", g, A, Bm,
-                          wcells, ones, cells_b, mask, dA, B, N, M, C,
+                          wcells, 2 * N, None, cells, 0, mask, dA, partials,
+                          partials.numel(), counters[0], B, N, M, C,
                           *ctx.bits)
             _build.launch_counts["desc_loss[dA]"] += 1
         if ctx.needs_input_grad[1]:
             dB = torch.empty_like(Bm)
-            _build.check_cuda("descriptor_hinge_sums", g=g, dB=dB)
+            partials = _scratch_for(A.device, B, M, N, C)[1]
             _build.launch("descriptor_loss", "desc_loss_bwd_launch", g, Bm, A,
-                          cells_b, mask, wcells, ones, dB, B, M, N, C,
+                          cells, 0, mask, wcells, 2 * N, None, dB, partials,
+                          partials.numel(), counters[1], B, M, N, C,
                           *ctx.bits)
             _build.launch_counts["desc_loss[dB]"] += 1
         return dA, dB, None, None, None, None, None, None, None
@@ -150,6 +223,29 @@ def descriptor_hinge_sums(A, Bm, wcells, cells, mask, lambda_d, pos_margin,
     return _HingeSums.apply(A, Bm, wcells, cells, mask, float(lambda_d),
                             float(pos_margin), float(neg_margin),
                             float(radius))
+
+
+def tensor_core_dots(A, Bm):
+    """The forward kernel's dots A Bm^T (B, N, M) on the card, as its
+    tensor cores sum them (float32 operands, contiguous): the probe of the
+    bound delta in the tests and ``chip_smoke.py``."""
+    B, N, C = A.shape
+    M = Bm.shape[1]
+    if Bm.shape != (B, M, C) or C % 4 != 0 or C > _MAX_C:
+        raise ValueError(f"tensor_core_dots: A {tuple(A.shape)}, Bm "
+                         f"{tuple(Bm.shape)}: C a multiple of 4 up to "
+                         f"{_MAX_C}")
+    coords = torch.zeros((max(N, M), 2), dtype=torch.float32, device=A.device)
+    partials = _scratch_for(A.device, B, N, M, C)[0]
+    sums = [torch.empty(B, dtype=torch.float32, device=A.device)
+            for _ in range(3)]
+    dots = torch.empty((B, N, M), dtype=torch.float32, device=A.device)
+    _build.check_cuda("tensor_core_dots", A=A, Bm=Bm, dots=dots)
+    _build.launch("descriptor_loss", "desc_loss_fwd_launch", A, Bm, coords,
+                  0, None, coords, 0, None, partials, partials.numel(), *sums,
+                  dots, B, N, M, C, *_bits(250.0, 1.0, 0.2, 8.0))
+    _build.launch_counts["desc_loss[fwd]"] += 1
+    return dots
 
 
 def descriptor_loss_blockwise(desc_raw, warped_desc_raw, warped_cells, config,

@@ -18,9 +18,12 @@ with cached occupancy flags and the early stop, widths 64 and 32 and int8
 with the early stop, the same widths with float32 weights, and beside
 int8 its yardstick, three ``torch._int_mm`` over all (ray, sample) rows;
 ``conv3x3`` / ``packed_conv3x3`` at the per-layer route's instances,
-int8 and bf16, batch 8 at 480 x 640; ``--match conv12,warp`` keeps the
-cases whose label holds one of the substrings) it prints, in ms per
-call:
+int8 and bf16, batch 8 at 480 x 640; the descriptor loss's forward
+sums and its two gradients, dA and dB, each alone, at the training
+step's shape (B 2, N = M = 1,200, C 256) and at 480 x 640 (N 4,800), on
+``hinge_operands``' seeded descriptors and pair homographies (``--match
+desc_loss``); ``--match conv12,warp`` keeps the cases whose label holds
+one of the substrings) it prints, in ms per call:
 
 * ``wrapper``: CUDA events around one call of the wrapper, median of 20
   (what the ``ms`` of ``chip_smoke.py``'s kernel rows measures);
@@ -246,6 +249,73 @@ def _s8_cases(rng, t, mb):
                    lambda x=x, raw=raw, kw=kw: T.head(x, *raw, **kw),
                    None if ops is None else
                    (lambda x=x, ops=ops, kw=kw: T.head(x, ops, **kw)), "head_")
+
+
+# superpoint_coco_train.yaml's pair homography (chip_smoke.TRAIN_CONFIG
+# takes it from here): the warp between the two views of a training pair
+PAIR_HOMOGRAPHY = {"translation": True, "rotation": True, "scaling": True,
+                   "perspective": True, "scaling_amplitude": 0.2,
+                   "n_scales": 5, "n_angles": 25,
+                   "perspective_amplitude_x": 0.2,
+                   "perspective_amplitude_y": 0.2, "patch_ratio": 0.85,
+                   "max_angle": 1.57, "allow_artifacts": True,
+                   "translation_overflow": 0.0}
+# the descriptor loss at the training step's shape (batch 2 at 240 x 320:
+# 30 x 40 cells) and at 480 x 640, C 256
+HINGE_SHAPES = ((2, 30, 40, 256), (2, 60, 80, 256))
+
+
+def hinge_operands(B, Hc, Wc, C, seed, device="cuda"):
+    """Operands of ``descriptor_hinge_sums`` as a training step at
+    (Hc * 8) x (Wc * 8) makes them, from seeded descriptors (scaled like
+    the trained head's raw output, so that dots straddle both margins)
+    and sampled pair homographies: (A, Bm, wcells, cells, mask, lambda_d,
+    pos_margin, neg_margin, radius)."""
+    from spnerf_tpu_torch.geometry.homography import (
+        HomographyConfig,
+        sample_homographies,
+        warp_points,
+    )
+    from spnerf_tpu_torch.ops.image_warp import compute_valid_mask
+    from spnerf_tpu_torch.train.losses import _cell_mask, cell_grid_coords
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    N = Hc * Wc
+    A, Bm = (0.08 * torch.randn((B, N, C), generator=gen, device=device)
+             for _ in range(2))
+    homs = sample_homographies(torch.Generator().manual_seed(seed), B,
+                               (Hc * 8, Wc * 8),
+                               HomographyConfig.from_dict(PAIR_HOMOGRAPHY))
+    homs = homs.to(device)
+    cells = cell_grid_coords(Hc, Wc, 8, device=device)
+    mask = _cell_mask(compute_valid_mask((Hc * 8, Wc * 8), homs, 3),
+                      8).reshape(B, N)
+    return (A, Bm, warp_points(cells, homs), cells, mask, 250.0, 1.0, 0.2,
+            8.0)
+
+
+def _desc_loss_cases():
+    """The descriptor loss's three calls at ``HINGE_SHAPES``: the forward
+    sums, and the gradient with respect to A (dA) and to Bm (dB) alone,
+    each from one forward kept for the timed backward calls."""
+    from spnerf_tpu_torch.kernels import descriptor_loss as dl
+
+    for B, Hc, Wc, C in HINGE_SHAPES:
+        A, Bm, wcells, cells, mask, *params = hinge_operands(B, Hc, Wc, C, 0)
+        N = Hc * Wc
+        g = torch.linspace(0.5, 1.5, B, device="cuda")
+        yield (f"desc_loss[fwd] B {B} N {N} C {C}",
+               lambda A=A, Bm=Bm, wcells=wcells, cells=cells, mask=mask,
+               params=params: dl.descriptor_hinge_sums(
+                   A, Bm, wcells, cells, mask, *params), None, "hinge_")
+        for key, wrt in (("dA", 0), ("dB", 1)):
+            ops = [A, Bm]
+            ops[wrt] = ops[wrt].clone().requires_grad_()
+            s_pair = dl.descriptor_hinge_sums(*ops, wcells, cells, mask,
+                                              *params)[0]
+            yield (f"desc_loss[{key}] B {B} N {N} C {C}",
+                   lambda s=s_pair, x=ops[wrt], g=g: torch.autograd.grad(
+                       (s * g).sum(), x, retain_graph=True), None, "hinge_")
 
 
 # the render drive of chip_smoke.py (bench_nerf.py's protocol): width ->
@@ -498,6 +568,7 @@ def _cases(gen_seed: int = 0):
                (lambda x=x, ops=ops, kw=kw: T.head(x, ops, **kw)), "head")
     yield from _conv3x3_cases(rng, t, mb)
     yield from _render_cases()
+    yield from _desc_loss_cases()
 
 
 ROUTES = [  # label, mode, fused, batch
@@ -585,7 +656,7 @@ def main(argv=None) -> int:
     from spnerf_tpu_torch.kernels import _build
 
     _build.build_all(["conv12_fused", "double_conv3x3", "head", "dot_bias_act",
-                      "warp", "render", "conv3x3"])
+                      "warp", "render", "conv3x3", "descriptor_loss"])
     match = [m for m in args.match.split(",") if m]
     results = []
     for label, raw, prepared, symbol in _cases():

@@ -225,6 +225,135 @@ def test_hinge_wrapper_launches_only_the_gradient_asked_for(card):
                               250.0, 1.0, 0.2, 8.0)
 
 
+def _planted_case(rng, C=64):
+    """(A, Bm, wcells, cells, mask, planted pairs) on the card with dots
+    planted in float64 at pos_margin +- 5e-7 (pairs within the radius) and
+    neg_margin +- 5e-7 (pairs outside it): one component of Bm's row is
+    set so that the float32 rows' float64 dot lands there (within 1e-7 and
+    on the planted side: checked), the pair's warped cell on or far from
+    the cell centre."""
+    from spnerf_tpu_torch.train.losses import cell_grid_coords
+
+    B, Hc, Wc = 2, 9, 13
+    N = Hc * Wc
+    scale = (0.16 / C) ** 0.25
+    A = (rng.standard_normal((B, N, C)) * scale).astype(np.float32)
+    Bm = (rng.standard_normal((B, N, C)) * scale).astype(np.float32)
+    cells = cell_grid_coords(Hc, Wc, 8).numpy()
+    wcells = (rng.integers(0, 32 * max(Hc, Wc), (B, N, 2)) / 4.0).astype(np.float32)
+    planted = []
+    rows = rng.permutation(N)[:40]
+    cols = rng.permutation(N)[:40]
+    for k, (i, j) in enumerate(zip(rows, cols)):
+        b = k % B
+        margin = 1.0 if k % 2 == 0 else 0.2
+        target = margin + (5e-7 if k % 4 < 2 else -5e-7)
+        # pos margin: the warped cell on the centre; neg: 100 px away
+        wcells[b, i] = cells[j] + (0.0 if margin == 1.0 else 100.0)
+        c = int(np.abs(A[b, i]).argmax())
+        for _ in range(3):
+            dot = float(A[b, i].astype(np.float64) @ Bm[b, j].astype(np.float64))
+            Bm[b, j, c] = np.float32(Bm[b, j, c] + (target - dot) / float(A[b, i, c]))
+        dot = float(A[b, i].astype(np.float64) @ Bm[b, j].astype(np.float64))
+        # within float32 rounding of the changed component, on its side
+        assert abs(dot - target) < 1e-7 and (dot > margin) == (target > margin)
+        planted.append((b, i, j))
+    mask = (rng.uniform(size=(B, N)) > 0.1).astype(np.float32)
+    for b, _, j in planted:
+        mask[b, j] = 1.0
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    return t(A), t(Bm), t(wcells), torch.from_numpy(cells).cuda(), t(mask), planted
+
+
+def _hinge_against_float64(A, Bm, wcells, cells, mask):
+    """The kernels' sums and gradients, and those of the plain version on
+    float64 copies of the inputs (the exact dots' steps)."""
+    from spnerf_tpu_torch.kernels.descriptor_loss import (
+        descriptor_hinge_sums,
+        hinge_sums_plain,
+    )
+
+    g = torch.linspace(0.5, 2.0, A.shape[0], device="cuda")
+    out = []
+    for fn, dtype in ((descriptor_hinge_sums, torch.float32),
+                      (hinge_sums_plain, torch.float64)):
+        a = A.to(dtype).requires_grad_()
+        b = Bm.to(dtype).requires_grad_()
+        sums = fn(a, b, wcells.to(dtype), cells.to(dtype), mask.to(dtype),
+                  250.0, 1.0, 0.2, 8.0)
+        dA, dB = torch.autograd.grad((sums[0] * g.to(dtype)).sum(), (a, b))
+        out.append((torch.stack([s.detach() for s in sums]).double(),
+                    dA.double(), dB.double()))
+    return out
+
+
+def _assert_rows_within(got, want):
+    for k, p in zip(got[1:], want[1:]):
+        assert float(p.abs().max()) > 0
+        row_err = (k - p).abs().amax(-1)
+        assert float(row_err.max()) <= 1e-4 * float(p.abs().max())
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_hinge_planted_margins_on_card(card):
+    """Dots planted within 5e-7 of both margins: the band catches every
+    planted pair (the repair counter grows by at least their number in
+    each gradient), and dA, dB equal, row for row within 1e-4 of the
+    largest entry, the gradient of the plain version on float64 copies."""
+    from spnerf_tpu_torch.kernels.descriptor_loss import repaired_pairs
+
+    A, Bm, wcells, cells, mask, planted = _planted_case(
+        np.random.default_rng(20))
+    before = repaired_pairs("cuda")
+    got, want = _hinge_against_float64(A, Bm, wcells, cells, mask)
+    after = repaired_pairs("cuda")
+    assert all(a - b >= len(planted) for a, b in zip(after, before))
+    _assert_rows_within(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 64, 256])
+def test_hinge_fractional_mask_on_card(card, C):
+    """A mask of 0.3 and 0.5 on some cells: 0.3 is no TF32 value (a pair
+    beyond the negative margin has ddot = mask), so the kernels split ddot
+    too; against the float64 plain version."""
+    A, Bm, wcells, cells, mask = _hinge_case("ragged", np.random.default_rng(21))
+    rng = np.random.default_rng(22)
+    A = torch.from_numpy((rng.standard_normal((3, A.shape[1], C))
+                          * (0.16 / C) ** 0.25).astype(np.float32)).cuda()
+    Bm = torch.from_numpy((rng.standard_normal((3, Bm.shape[1], C))
+                           * (0.16 / C) ** 0.25).astype(np.float32)).cuda()
+    frac = torch.from_numpy(rng.choice(np.float32([0.3, 0.5, 1.0, 0.0]),
+                                       mask.shape)).cuda()
+    got, want = _hinge_against_float64(A, Bm, wcells, cells, mask * frac)
+    _assert_rows_within(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,scale", [(16, None), (64, None), (256, None),
+                                     (256, 0.08)])
+def test_tensor_core_dots_within_delta_on_card(card, C, scale):
+    """The forward kernel's dots against float64 dots: within delta =
+    kappa(C) ||a|| ||b|| (csrc/descriptor_loss.cu's bound) at the test
+    operands' scale and at the training operands' (0.08)."""
+    from spnerf_tpu_torch.kernels.descriptor_loss import kappa, tensor_core_dots
+
+    rng = np.random.default_rng(23)
+    s = (0.16 / C) ** 0.25 if scale is None else scale
+    A = (rng.standard_normal((2, 333, C)) * s).astype(np.float32)
+    Bm = (rng.standard_normal((2, 301, C)) * s).astype(np.float32)
+    got = tensor_core_dots(torch.from_numpy(A).cuda(),
+                           torch.from_numpy(Bm).cuda()).double().cpu().numpy()
+    A64, B64 = A.astype(np.float64), Bm.astype(np.float64)
+    exact = np.einsum("bnc,bmc->bnm", A64, B64)
+    norms = (np.linalg.norm(A64, axis=-1)[:, :, None]
+             * np.linalg.norm(B64, axis=-1)[:, None, :])
+    ratio = np.abs(got - exact) / (kappa(C) * norms)
+    assert ratio.max() <= 1.0, ratio.max()
+    assert np.abs(got - exact).max() > 0  # the tensor cores' own sums
+
+
 def _render_case(kind, rng):
     """(width, weights' dtype, operands, keywords) of a small render: N not
     a multiple of the kernels' tile, ``block`` not a multiple of it either
