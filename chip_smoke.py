@@ -106,6 +106,26 @@ Phases, each of which raises on failure (nothing is caught):
 11. take two steps of a small SuperPoint on the card and on the CPU
    plain path from the same state, draws and batch: augmented images,
    losses and parameters within the stated tolerances;
+11b. NeRF pairs, on two procedural scenes (``box_room``: the inside of a
+   box room whose walls carry seeded rectangles, exact along-ray depth
+   and gray values per pixel, cameras on an arc; written by
+   ``tasks.nerf_task.write_scene`` at 480 x 640, fov 44, 16 training and
+   4 validation frames each): ``warp_points_nerf`` on the card against
+   the analytic projection of 4,096 seeded pixels per scene away from
+   depth edges (within 0.05 px); the label export of
+   ``magicpoint_NeRF_export.yaml`` from the demo MagicPoint over both
+   scenes and splits (frames/s, labels per frame, fused labels that
+   reproject onto the next frame's within 2 px) and one batch split into
+   forward, NMS + top-k, fusion + NMS, host writes; 20 steps of
+   ``superpoint_NeRF_train.yaml`` through ``train(..., nerf_loss=True,
+   train_nerf=True)`` on those labels (NERF_CUTS: the two scenes, 2
+   validation batches, one checkpoint, the demo MagicPoint restored in
+   part) with the launch counters at 0 before, steps/s and one step
+   split; rows 10-11 against their plain version (as in 10) on the last
+   NeRF step's operands and on the same with 64 non-finite and 64
+   far-off warped cells a sample, their rows carrying the NeRF path's
+   launches (``"path": "nerf-train"``); one NeRF step and one fused frame
+   at 2 x 64 x 80 on the card against the CPU plain path;
 12. render the committed tiny NeRF sphere fields
    (``benchmarks/data/sphere_field*.npz``, bf16 weights) as
    ``bench_nerf.py`` does: 131,072 rays of an orbit camera (362 x 362
@@ -156,11 +176,13 @@ import torch.nn.functional as F
 
 from spnerf_tpu_torch import settings
 from spnerf_tpu_torch.data.loader import DataLoader
+from spnerf_tpu_torch.data.nerf_dataset import NeRFDataset, camera_intrinsics
 from spnerf_tpu_torch.geometry.homography import (
     HomographyConfig,
     sample_homographies,
     warp_points,
 )
+from spnerf_tpu_torch.geometry.reprojection import warp_points_nerf
 from spnerf_tpu_torch.kernels import _build
 from spnerf_tpu_torch.kernels import conv_stack
 from spnerf_tpu_torch.kernels import desc_sample as ds
@@ -208,13 +230,15 @@ from spnerf_tpu_torch.ops.image_warp import (
     valid_mask_from_inverse,
     warp_image,
 )
+from spnerf_tpu_torch.ops.nerf_label_fusion import fuse_nerf_labels
 from spnerf_tpu_torch.ops.nms import box_nms
 from spnerf_tpu_torch.ops.occupancy import chunk_flags, field_integral_volume
 from spnerf_tpu_torch.ops.photometric_device import (
     draw_photometric_randoms,
     photometric_from_draws,
 )
-from spnerf_tpu_torch.tasks import export, train_task
+from spnerf_tpu_torch.tasks import export, export_nerf, train_task
+from spnerf_tpu_torch.tasks.nerf_task import pose_orbit, write_scene
 from spnerf_tpu_torch.tools.kernel_times import (
     HINGE_SHAPES,
     PAIR_HOMOGRAPHY,
@@ -223,6 +247,7 @@ from spnerf_tpu_torch.tools.kernel_times import (
     hinge_operands,
     load_field,
     orbit_rays,
+    plant_bad_cells,
 )
 from spnerf_tpu_torch.train import loop
 from spnerf_tpu_torch.train.losses import (
@@ -232,7 +257,11 @@ from spnerf_tpu_torch.train.losses import (
     detector_loss,
     detector_noise,
 )
-from spnerf_tpu_torch.train.pipeline import prepare_superpoint_batch
+from spnerf_tpu_torch.train.pipeline import (
+    prepare_nerf_batch,
+    prepare_superpoint_batch,
+)
+from spnerf_tpu_torch.utils.factories import get_nerf_loaders
 
 H, W = 480, 640
 BATCH = 64
@@ -1502,16 +1531,21 @@ def phase_ha_small(model):
         f"of values differ), {len(sets[0])} keypoints, equal sets")
 
 
-def train_config() -> dict:
-    """TRAIN_CONFIG with TRAIN_CUTS applied."""
-    config = copy.deepcopy(TRAIN_CONFIG)
-    for dotted, value in TRAIN_CUTS.items():
+def _cut(config: dict, cuts: dict) -> dict:
+    """A copy of ``config`` with ``cuts`` ({"dotted.path": value}) set."""
+    config = copy.deepcopy(config)
+    for dotted, value in cuts.items():
         *path, leaf = dotted.split(".")
         node = config
         for part in path:
             node = node[part]
-        node[leaf] = value
+        node[leaf] = copy.deepcopy(value)
     return config
+
+
+def train_config() -> dict:
+    """TRAIN_CONFIG with TRAIN_CUTS applied."""
+    return _cut(TRAIN_CONFIG, TRAIN_CUTS)
 
 
 def train_dataset(n: int, seed: int, size=(TRAIN_H, TRAIN_W)) -> list:
@@ -1979,6 +2013,710 @@ def phase_train_small():
         f"masks equal, losses within {worst['loss']:.3e} relative, "
         f"parameters after the first step within {worst['param']:.3e} (lr "
         f"{lr}) where the gradient is clear; last loss {out[DEV][1]['loss']:.4f}")
+
+
+# ---------------------------------------------------------- NeRF pairs
+
+# spnerf_tpu/configs/magicpoint_NeRF_export.yaml and superpoint_NeRF_train
+# .yaml as dicts, driven on two procedural scenes (no rendered NeRF scene
+# is in the repository)
+NERF_SHAPE, NERF_FOV = (480, 640), 44
+NERF_SCENES = ("BoxRoomA", "BoxRoomB")
+NERF_FRAMES = {"training": 16, "validation": 4}
+NERF_EXPORT_CONFIG = {
+    "data": {"name": "NeRF", "class_name": "NeRF", "data_dir": "Train",
+             "experiment_name": "MP_NeRF_v1/Train", "image_size": [480, 640],
+             "fov": 44, "has_labels": False, "warped_pair": False,
+             "batch_size": 16,
+             "augmentation": {"photometric": {"enable": False}}},
+    "model": {"script": "SuperPoint", "class_name": "SuperPoint",
+              "model_name": "magicpoint",
+              "vgg_cn": [64, 64, 64, 64, 128, 128, 128, 128],
+              "detector_head": {"detector_dim": [128, 256], "grid_size": 8,
+                                "nms": 4, "det_thresh": 0.015, "top_k": 0}},
+    "pretrained": "magicpoint_syn_v1/magicpoint_syn_v1_200000.ckpt",
+    "continue_training": False,
+}
+_NERF_SCENE_DIRS = ["Desk", "Lab", "Graffiti", "Greece_Building", "Paintings",
+                    "Malet", "Train", "Art", "Dining", "Kitchen"]
+NERF_TRAIN_CONFIG = {
+    "data": {
+        "name": "NeRF", "class_name": "NeRF",
+        "all_data_dirs": list(_NERF_SCENE_DIRS), "data_dir": "",
+        "image_size": [480, 640], "downsample": False,
+        "downsample_size": [240, 320], "fov": 44, "batch_size": 2,
+        "truncate": False,
+        "all_label_dirs": [f"outputs/SP_NeRF_v1/{d}" for d in _NERF_SCENE_DIRS],
+        "has_labels": "", "warped_pair": True,
+        "augmentation": {"photometric": dict(
+            TRAIN_CONFIG["data"]["augmentation"]["photometric"],
+            params=dict(TRAIN_CONFIG["data"]["augmentation"]["photometric"]
+                        ["params"],
+                        additive_shade={"transparency_range": [-0.5, 0.5],
+                                        "kernel_size_range": [150, 200],
+                                        "nb_ellipses": 20}))}},
+    "model": copy.deepcopy(TRAIN_CONFIG["model"]),
+    "train": {"num_iters": 450000, "learning_rate": 0.001,
+              "pallas_desc_loss": True},
+    "save_or_validation_interval": 5000,
+    "ckpt_name": "SP_NeRF_v1",
+    "pretrained": "MP_NeRF_v1/MP_NeRF_v1_25000.ckpt",
+    "continue_training": False,
+}
+# the smoke run's cuts: the two procedural scenes with the labels that
+# [nerf-export] wrote for them; 20 steps, validation of 2 batches and one
+# checkpoint; the demo MagicPoint (partial restore; the descriptor head
+# keeps its seeded weights)
+NERF_CUTS = {"data.all_data_dirs": list(NERF_SCENES),
+             "data.all_label_dirs": [f"outputs/MP_NeRF_v1/{s}"
+                                     for s in NERF_SCENES],
+             "train.num_iters": 20, "save_or_validation_interval": 20,
+             "train.val_batches": 2, "log_every": 5,
+             "pretrained": "pretrained/demo_mp_5000.ckpt"}
+NERF_EXPORT_CUTS = {"pretrained": "pretrained/demo_mp_5000.ckpt"}
+# reprojection against the analytic scene, pixels away from depth edges:
+# float32 geometry, the depth stored in float32
+NERF_REPROJ_TOL = 0.05
+NERF_REPROJ_POINTS = 4096
+NERF_MATCH_PX = 2.0
+# card against CPU at 2 x 64 x 80: one NeRF step (losses, as
+# SMALL_LOSS_RTOL) and one fused frame (float32 convs without TF32 and
+# sums in another order: heatmaps within 1e-5, as HP_SMALL_TOL)
+NERF_SMALL_SHAPE = (64, 80)
+
+
+def _unit(angles: np.ndarray) -> np.ndarray:
+    """(N, 2) unit vectors at ``angles``."""
+    return np.stack([np.cos(angles), np.sin(angles)], -1)
+
+
+def box_room(seed: int, shape=NERF_SHAPE, fov=NERF_FOV, frames=NERF_FRAMES,
+             n_shapes: int = 40):
+    """A procedural scene with exact geometry: the inside of a box room
+    whose six walls carry seeded rotated rectangles of random gray on a
+    gray ground (corners for the detector) under a fine seeded grain,
+    seen by ``pose_orbit``
+    cameras on an arc of radius 1 around the room's centre, looking at a
+    point beside it.
+    Pixel (i, j) looks along K^-1 (j, i, 1), the ray ``warp_points_nerf``
+    unprojects; its along-ray depth and gray value are computed exactly
+    (float64). Numpy only. Returns {"rgb" (N, H, W, 1) float32 in [0, 1],
+    "depth" (N, H, W) float32, "poses" (N, 4, 4) float32, "splits"
+    {split: [frame, ...]}, "room" (3,) half extents}."""
+    rng = np.random.default_rng(seed)
+    H, W = shape
+    room = rng.uniform([2.6, 1.8, 2.6], [3.2, 2.2, 3.2])
+    walls = {}  # (axis, side) -> (ground level, shapes)
+    for axis in range(3):
+        u, v = [a for a in range(3) if a != axis]
+        for side in (-1.0, 1.0):
+            centre = rng.uniform(-room[[u, v]], room[[u, v]], (n_shapes, 2))
+            half = rng.uniform(0.1, 0.5, (n_shapes, 2))
+            angle = rng.uniform(0, np.pi, n_shapes)
+            level = rng.uniform(0.0, 1.0, n_shapes)
+            # a fine grain (two plane waves of 3-8 cm): a rendered surface
+            # is never one flat value, and exactly flat walls leave the
+            # training-mode BatchNorm's one-pass variance to rounding
+            waves = (rng.uniform(2 * np.pi / 0.08, 2 * np.pi / 0.03, (2, 1))
+                     * _unit(rng.uniform(0, np.pi, 2)), rng.uniform(
+                         0, 2 * np.pi, 2))
+            walls[axis, side] = (rng.uniform(0.25, 0.75),
+                                 (centre, half, angle, level), waves)
+    n = sum(frames.values())
+    # an arc of a 180-pose orbit: training frames every 4 degrees,
+    # validation frames half-way between every fourth pair
+    orbit = pose_orbit(180, radius=1.0, height=0.3, look_at=(0.3, 0.2, -0.2))
+    poses = np.concatenate([orbit[0:2 * frames["training"]:2],
+                            orbit[1:8 * frames["validation"]:8]])
+    splits = {"training": list(range(frames["training"])),
+              "validation": list(range(frames["training"], n))}
+
+    K = camera_intrinsics(shape, fov).astype(np.float64)
+    ii, jj = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    pix = np.stack([jj, ii, np.ones_like(ii)], -1).reshape(-1, 3).astype(
+        np.float64)
+    rays = pix @ np.linalg.inv(K).T
+    rays /= np.linalg.norm(rays, axis=-1, keepdims=True)
+    rgb = np.empty((n, H, W, 1), np.float32)
+    depth = np.empty((n, H, W), np.float32)
+    for f in range(n):
+        R, eye = poses[f, :3, :3].astype(np.float64), poses[f, :3, 3]
+        d = rays @ R.T
+        with np.errstate(divide="ignore"):
+            t_axis = (np.sign(d) * room - eye) / d
+        t_axis[~np.isfinite(t_axis) | (t_axis <= 0)] = np.inf
+        hit_axis = np.argmin(t_axis, axis=-1)
+        t = t_axis[np.arange(len(d)), hit_axis]
+        point = eye + t[:, None] * d
+        gray = np.empty(len(d), np.float64)
+        for (axis, side), (ground, shapes, waves) in walls.items():
+            on = (hit_axis == axis) & (np.sign(d[:, axis]) == side)
+            u, v = [a for a in range(3) if a != axis]
+            uv = point[on][:, [u, v]]
+            value = np.full(len(uv), ground)
+            for c, h, a, lv in zip(*shapes):
+                rel = uv - c
+                lu = rel[:, 0] * np.cos(a) + rel[:, 1] * np.sin(a)
+                lw = -rel[:, 0] * np.sin(a) + rel[:, 1] * np.cos(a)
+                value[(np.abs(lu) < h[0]) & (np.abs(lw) < h[1])] = lv
+            (k1, k2), (p1, p2) = waves
+            grain = 0.04 * np.sin(uv @ k1 + p1) * np.sin(uv @ k2 + p2)
+            gray[on] = np.clip(value + grain, 0.0, 1.0)
+        rgb[f, ..., 0] = gray.reshape(H, W)
+        depth[f] = t.reshape(H, W)
+    return {"rgb": rgb, "depth": depth, "poses": poses, "splits": splits,
+            "room": room}
+
+
+def project_points(points_world: np.ndarray, pose: np.ndarray, K: np.ndarray):
+    """(N, 3) world points -> ((N, 2) (y, x) pixels, (N,) camera z) in the
+    camera of the OpenCV cam-to-world ``pose``, float64."""
+    R, t = pose[:3, :3].astype(np.float64), pose[:3, 3].astype(np.float64)
+    cam = (points_world - t) @ R
+    pix = cam @ K.astype(np.float64).T
+    return np.stack([pix[:, 1] / pix[:, 2], pix[:, 0] / pix[:, 2]], -1), cam[:, 2]
+
+
+def reprojection_truth(scene: dict, src: int, dst: int, n: int, seed: int,
+                       shape=NERF_SHAPE, fov=NERF_FOV):
+    """Up to ``n`` seeded pixels of frame ``src`` that lie away from depth edges
+    (the 5 x 5 depth range below 0.029 and more than 2 px from the border:
+    where the robust lookup takes the centre depth) and whose hit point
+    frame ``dst`` sees: ((n, 2) float32 (y, x) pixels, (n, 2) float64
+    analytic (y, x) in ``dst``)."""
+    H, W = shape
+    depth = scene["depth"][src].astype(np.float64)
+    pad = np.pad(depth, 2, mode="edge")
+    win = np.lib.stride_tricks.sliding_window_view(pad, (5, 5))
+    flat = (win.max((-1, -2)) - win.min((-1, -2))) < 0.029
+    flat[:3], flat[-2:], flat[:, :3], flat[:, -2:] = False, False, False, False
+    K = camera_intrinsics(shape, fov).astype(np.float64)
+    ii, jj = np.nonzero(flat)
+    ray = np.stack([jj, ii, np.ones_like(ii)], -1) @ np.linalg.inv(K).T
+    ray /= np.linalg.norm(ray, axis=-1, keepdims=True)
+    pose = scene["poses"][src].astype(np.float64)
+    world = pose[:3, 3] + depth[ii, jj][:, None] * (ray @ pose[:3, :3].T)
+    truth, z = project_points(world, scene["poses"][dst], K)
+    seen = ((z > 0) & (truth[:, 0] >= 0) & (truth[:, 0] < H - 1)
+            & (truth[:, 1] >= 0) & (truth[:, 1] < W - 1))
+    seen = np.nonzero(seen)[0]
+    pick = np.random.default_rng(seed).choice(seen, min(n, len(seen)),
+                                              replace=False)
+    pts = np.stack([ii[pick], jj[pick]], -1).astype(np.float32)
+    return pts, truth[pick]
+
+
+def restored_model(config: dict):
+    """The config's model, seeded, then restored from the demo MagicPoint
+    (``config["pretrained"]`` under ``demo/``) by the port's own msgpack
+    reader: the descriptor head, which the checkpoint lacks, keeps its
+    seed-0 weights. On the card."""
+    model = init_superpoint(SEED, SuperPointConfig.from_dict(config["model"]),
+                            device=DEV)
+    saved_ckpt = settings.CKPT_PATH
+    settings.CKPT_PATH = Path(__file__).resolve().parent / "demo"
+    try:
+        train_task.restore_pretrained(config, model)
+    finally:
+        settings.CKPT_PATH = saved_ckpt
+    return model
+
+
+def nerf_export_config(scene: str) -> dict:
+    """magicpoint_NeRF_export.yaml for one scene, with NERF_EXPORT_CUTS."""
+    config = _cut(NERF_EXPORT_CONFIG, NERF_EXPORT_CUTS)
+    config["data"].update(data_dir=scene,
+                          experiment_name=f"MP_NeRF_v1/{scene}")
+    return config
+
+
+def phase_nerf_scenes(root: Path) -> dict:
+    """Write the two procedural scenes under root/data/NeRF with
+    ``write_scene`` (480 x 640, fov 44, 16 training and 4 validation frames
+    each) and hold ``warp_points_nerf`` on the card to the analytic
+    projection of NERF_REPROJ_POINTS seeded pixels away from depth edges
+    per scene. Returns {scene: the box_room dict}."""
+    settings.DATA_PATH = root / "data"
+    scenes, worst, t0 = {}, 0.0, time.perf_counter()
+    K = torch.from_numpy(camera_intrinsics(NERF_SHAPE, NERF_FOV)).to(DEV)[None]
+    for i, name in enumerate(NERF_SCENES):
+        scene = box_room(SEED + 40 + i, shape=NERF_SHAPE)
+        write_scene(name, scene["rgb"], scene["depth"], scene["poses"],
+                    scene["splits"])
+        poses = torch.from_numpy(scene["poses"]).to(DEV)
+        per_pair = NERF_REPROJ_POINTS // 4
+        for src, dst in ((0, 1), (5, 3), (10, 12), (15, 13)):
+            pts, truth = reprojection_truth(scene, src, dst, per_pair,
+                                            SEED + src, shape=NERF_SHAPE)
+            if len(pts) < per_pair:
+                raise AssertionError(f"[nerf-scene] {name}: {len(pts)} "
+                                     "pixels away from depth edges")
+            depth = torch.from_numpy(scene["depth"][src:src + 1]).to(DEV)
+            got = warp_points_nerf(
+                torch.from_numpy(pts).to(DEV), depth, K,
+                poses[src:src + 1, :3, :3], poses[src:src + 1, :3, 3:],
+                poses[dst:dst + 1, :3, :3], poses[dst:dst + 1, :3, 3:])
+            worst = max(worst, float(np.abs(got[0].cpu().numpy()
+                                            - truth).max()))
+        scenes[name] = scene
+    if not worst < NERF_REPROJ_TOL:
+        raise AssertionError(f"[nerf-scene] reprojection {worst} px from the "
+                             "analytic projection")
+    log(f"[nerf-scene] {len(NERF_SCENES)} procedural box rooms, "
+        f"{NERF_SHAPE[0]}x{NERF_SHAPE[1]}, fov {NERF_FOV}, "
+        f"{NERF_FRAMES['training']} training + {NERF_FRAMES['validation']} "
+        f"validation frames each, made and written in "
+        f"{time.perf_counter() - t0:.2f} s; warp_points_nerf on the card "
+        f"within {worst:.3e} px of the analytic projection on "
+        f"{NERF_REPROJ_POINTS} seeded pixels per scene away from depth edges")
+    return scenes
+
+
+def label_agreement(scene: dict, labels: dict, pairs):
+    """(fused labels of frame j that reproject within NERF_MATCH_PX of a
+    label of frame k, labels of frame j that land inside frame k) summed
+    over ``pairs`` (j, k), through ``warp_points_nerf`` on the card."""
+    K = torch.from_numpy(camera_intrinsics(NERF_SHAPE, NERF_FOV)).to(DEV)[None]
+    poses = torch.from_numpy(scene["poses"]).to(DEV)
+    hits = seen = 0
+    for j, k in pairs:
+        src, dst = labels[j], labels[k]
+        if not len(src) or not len(dst):
+            continue
+        warped = warp_points_nerf(
+            torch.from_numpy(src).float().to(DEV),
+            torch.from_numpy(scene["depth"][j:j + 1]).to(DEV), K,
+            poses[j:j + 1, :3, :3], poses[j:j + 1, :3, 3:],
+            poses[k:k + 1, :3, :3], poses[k:k + 1, :3, 3:])[0]
+        inside = ((warped >= 0) & (warped < torch.tensor(
+            NERF_SHAPE, device=DEV))).all(-1)
+        dist = torch.cdist(warped[inside],
+                           torch.from_numpy(dst).float().to(DEV))
+        hits += int((dist.min(-1).values <= NERF_MATCH_PX).sum())
+        seen += int(inside.sum())
+    return hits, seen
+
+
+def phase_nerf_export(root: Path, scenes: dict):
+    """Drive ``tasks.export_nerf.export_nerf_labels`` at magicpoint_NeRF
+    _export.yaml over both scenes and both splits (the demo MagicPoint,
+    after a warm-up on a scratch experiment): frames/s, labels per frame,
+    and how many fused labels of each training frame reproject onto a
+    label of the next frame within NERF_MATCH_PX. Returns the model."""
+    settings.EXPER_PATH = root / "exper"
+    model = restored_model(nerf_export_config(NERF_SCENES[0]))
+    warm = nerf_export_config(NERF_SCENES[0])
+    warm["data"]["experiment_name"] = "warm_up"
+    export_nerf.export_nerf_labels(warm, model, seed=SEED, split="validation",
+                                   device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = {}
+    for name in NERF_SCENES:
+        for split in ("training", "validation"):
+            out[name, split] = export_nerf.export_nerf_labels(
+                nerf_export_config(name), model, seed=SEED, split=split,
+                device=DEV)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, hits, seen = [], 0, 0
+    for (name, split), out_dir in out.items():
+        n = len(scenes[name]["splits"][split])
+        labels = {}
+        for j in range(n):
+            pts = np.load(out_dir / f"{j}.npy")
+            if (pts.dtype != np.int64 or pts.ndim != 2 or pts.shape[1] != 2
+                    or (pts < 0).any() or (pts >= NERF_SHAPE).any()):
+                raise AssertionError(f"[nerf-export] {name} {split} {j}: "
+                                     f"{pts.dtype} {pts.shape}")
+            labels[j] = pts
+            counts.append(len(pts))
+        if split == "training":
+            h, s_ = label_agreement(scenes[name], labels,
+                                    [(j, j + 1) for j in range(n - 1)])
+            hits, seen = hits + h, seen + s_
+    if min(counts) == 0:
+        raise AssertionError(f"[nerf-export] a frame without labels: {counts}")
+    frames = len(counts)
+    log(f"[nerf-export] magicpoint_NeRF_export.yaml (cuts: "
+        f"{json.dumps(NERF_EXPORT_CUTS)}; the procedural scenes) at "
+        f"{NERF_SHAPE[0]}x{NERF_SHAPE[1]}, batch "
+        f"{NERF_EXPORT_CONFIG['data']['batch_size']}: {frames} frames in "
+        f"{secs:.4f} s = {frames / secs:.2f} frames/s; labels per frame "
+        f"min {min(counts)}, median {statistics.median(counts)}, max "
+        f"{max(counts)}; {hits} of {seen} fused training labels that land "
+        f"in the next frame lie within {NERF_MATCH_PX} px of one of its "
+        f"labels ({hits / max(seen, 1):.3f})")
+    return model
+
+
+def phase_nerf_export_split(model, reps: int = 3):
+    """One export batch (the first scene's 16 training frames) split into
+    its parts, medians of ``reps`` after a warm-up: the forward, NMS +
+    top-k, fusion + NMS of the 16 targets (CUDA events) and the host's
+    label writes (host clock)."""
+    config = nerf_export_config(NERF_SCENES[0])
+    det = config["model"]["detector_head"]
+    ds_cfg = dict(config["data"], has_labels=False, warped_pair=False)
+    batch = next(iter(DataLoader(NeRFDataset(ds_cfg, "training"), 16,
+                                 drop_last=False)))
+    on = lambda k: torch.from_numpy(batch[k]).to(DEV)  # noqa: E731
+    images = on("image")
+    geometry = [on(k) for k in ("depth", "intrinsics", "rotation",
+                                "translation")]
+    prob_fn = export.make_prob_fn(model, fast=False)
+    names = ("forward", "nms_topk", "fusion_nms")
+    times = {n: [] for n in (*names, "writes")}
+
+    def run(rep, tmp):
+        """One batch: (CUDA events around its device parts, host ms of
+        its writes)."""
+        rng = np.random.default_rng(rep)
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        marks[0].record()
+        probs = prob_fn(images)
+        marks[1].record()
+        pts, valid = export_nerf.detections(probs, det)
+        marks[2].record()
+        fused = [export_nerf.fuse_and_nms(
+            probs, pts, valid, *geometry, j,
+            export_nerf.fusion_subset(rng, len(images), j), det)
+            for j in range(len(images))]
+        marks[3].record()
+        marks[3].synchronize()
+        t0 = time.perf_counter()
+        for j, nms_prob in enumerate(fused):
+            np.save(Path(tmp, f"{j}.npy"), export._nms_threshold_points(
+                nms_prob.cpu().numpy(), det["det_thresh"]))
+        return marks, (time.perf_counter() - t0) * 1e3
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for rep in range(reps + 1):
+            marks, write_ms = run(rep, tmp)
+            if rep == 0:
+                continue
+            for n, a, z in zip(names, marks[:-1], marks[1:]):
+                times[n].append(a.elapsed_time(z))
+            times["writes"].append(write_ms)
+        busy, span = device_busy(lambda: run(reps + 1, tmp))
+    med = {n: statistics.median(v) for n, v in times.items()}
+    log(f"[nerf-export-split] one batch of 16 at {NERF_SHAPE[0]}x"
+        f"{NERF_SHAPE[1]}: {sum(med.values()):.3f} ms (medians of {reps}) = "
+        + " + ".join(f"{n} {med[n]:.3f}" for n in (*names, "writes"))
+        + " (fusion + NMS: 16 targets of 12 sources; writes: host clock, "
+        "the copies of the NMS'd maps included); one more batch under "
+        f"torch.profiler: the card busy {busy:.3f} of {span:.3f} ms, idle "
+        f"share at most {1 - busy / span:.3f}")
+    return med
+
+
+def device_busy(fn):
+    """(ms the card spent in kernels and copies, ms between CUDA events
+    around the call) of one call of ``fn`` under ``torch.profiler``. The
+    profiler may drop records of short kernels, so the busy time is a
+    lower bound and 1 - busy / span an upper bound of the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+    busy = sum(getattr(e, "self_device_time_total", 0)
+               for e in prof.key_averages()) / 1e3
+    return busy, start.elapsed_time(end)
+
+
+def nerf_train_config() -> dict:
+    return _cut(NERF_TRAIN_CONFIG, NERF_CUTS)
+
+
+def phase_nerf_train(root: Path):
+    """Drive tasks.train_task.train(..., nerf_loss=True, train_nerf=True)
+    at superpoint_NeRF_train.yaml with NERF_CUTS over the two scenes and
+    the labels [nerf-export] wrote; the launch counters at 0 before the
+    20-step run. Returns (its launch counts, the trained state, the
+    operands of its last step's descriptor-loss call)."""
+    settings.CKPT_PATH = root / "ckpts"
+    demo = Path(__file__).resolve().parent / "demo" / "pretrained"
+    (settings.CKPT_PATH / "pretrained").mkdir(parents=True)
+    (settings.CKPT_PATH / "pretrained" / "demo_mp_5000.ckpt").write_bytes(
+        (demo / "demo_mp_5000.ckpt").read_bytes())
+    config = nerf_train_config()
+    warm = dict(copy.deepcopy(config), ckpt_name="warm_up")
+    warm["train"]["num_iters"] = 3
+    train_task.train(warm, nerf_loss=True, train_nerf=True, seed=SEED,
+                     device=DEV)
+    torch.cuda.synchronize()
+
+    hinge_calls = []
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    with recorded_hinge_calls(hinge_calls):
+        state = train_task.train(config, validate_training=True,
+                                 nerf_loss=True, train_nerf=True, seed=SEED,
+                                 device=DEV)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    steps = config["train"]["num_iters"]
+    n_val = config["train"]["val_batches"]
+    name = config["ckpt_name"]
+    if state.iteration != steps:
+        raise AssertionError(f"nerf-train: {state.iteration} steps of {steps}")
+    expect = {"desc_loss[fwd]": steps + n_val, "desc_loss[dA]": steps,
+              "desc_loss[dB]": steps}
+    got = {k: v for k, v in counts.items() if k.startswith("desc_loss")}
+    if got != expect:
+        raise AssertionError(f"nerf-train: launches {got}, expected {expect}")
+    metrics = read_metrics(name)
+    for tag, rows in metrics.items():
+        if not all(np.isfinite(v) for _, v in rows):
+            raise AssertionError(f"nerf-train: {tag} is not finite: {rows}")
+    losses = metrics["iter_loss/loss"]
+    if [s_ for s_, _ in losses] != [5, 10, 15, 20]:
+        raise AssertionError(f"nerf-train: loss logged at {losses}")
+    pos = metrics["iter_loss/positive_dist"]
+    if not all(v > 0 for _, v in pos):
+        raise AssertionError(f"nerf-train: no positive pairs: {pos}")
+    ckpt = Path(settings.CKPT_PATH, name, f"{name}_{steps}.ckpt")
+    saved = loop.load_checkpoint(ckpt)
+    if saved["iteration"] != steps:
+        raise AssertionError("nerf-train: bad checkpoint")
+    rates = [v for _, v in metrics["perf/steps_per_sec"]]
+    log(f"[nerf-train] superpoint_NeRF_train.yaml (cuts: "
+        f"{json.dumps(NERF_CUTS)}) at {NERF_SHAPE[0]}x{NERF_SHAPE[1]}, batch "
+        f"{config['data']['batch_size']}, pairs of real views reprojected "
+        f"through depth: {steps} steps + validation of {n_val} batches + "
+        f"checkpoint in {secs:.4f} s; steps/s per window of 5 steps: "
+        f"{', '.join(f'{r:.2f}' for r in rates)}; loss "
+        f"{', '.join(f'{s_}: {v:.4f}' for s_, v in losses)}; descriptor "
+        f"loss {metrics['iter_loss/descriptor_loss'][-1][1]:.6f}, positive "
+        f"{pos[-1][1]:.6f}; val loss {metrics['val/val_loss'][0][1]:.4f} "
+        f"precision {metrics['val/precision'][0][1]:.4f} recall "
+        f"{metrics['val/recall'][0][1]:.4f}")
+    log(f"[nerf-train] launches: {json.dumps(counts, sort_keys=True)}")
+    return counts, state, hinge_calls[steps - 1]
+
+
+def phase_nerf_train_split(state, reps: int = 5):
+    """One NeRF training step split into its parts by CUDA events (medians
+    of ``reps`` real steps on the trained state, after a warm-up):
+    photometric augmentation of both views, pair preparation (keypoints
+    reprojected, heatmaps), the two forwards, the losses (the cells
+    reprojected, rows 10-11), the backward, Adam."""
+    config = nerf_train_config()
+    cfg = train_task.build_step_config(config, include_mask=True,
+                                       nerf_desc=True)
+    gens = loop.StepGenerators(SEED, DEV)
+    loader = get_nerf_loaders(config)["train"][0]
+    batch = train_task._to_device(next(iter(loader)), DEV)
+    model, opt = state.model, state.optimizer
+    names = ("augmentation", "pair_prep", "forwards", "losses", "backward",
+             "adam")
+
+    def step(rep, marks):
+        gens.reseed(3, rep)
+        marks[0].record()
+        with torch.no_grad():
+            b = dict(batch)
+            b["image"] = loop.photometric_augment(
+                gens.cpu, batch["image"], cfg.photometric, gens.device)
+            b["image_warp"] = loop.photometric_augment(
+                gens.cpu, batch["image_warp"], cfg.photometric, gens.device)
+            marks[1].record()
+            data = prepare_nerf_batch(b)
+            noise = [loop._noise(gens, data[v]["image"], cfg.grid_size)
+                     for v in ("raw", "warp")]
+        marks[2].record()
+        opt.zero_grad(set_to_none=True)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            model.train()
+            out = model(data["raw"]["image"])
+            warped_out = model(data["warp"]["image"])
+            marks[3].record()
+            det = detector_loss(noise[0], out["logits"],
+                                data["raw"]["kpts_heatmap"],
+                                data["raw"]["valid_mask"], cfg.grid_size)
+            det_w = detector_loss(noise[1], warped_out["logits"],
+                                  data["warp"]["kpts_heatmap"],
+                                  data["warp"]["valid_mask"], cfg.grid_size)
+            _, Hc, Wc, _ = out["desc_raw"].shape
+            cells = cell_grid_coords(Hc, Wc, cfg.grid_size, device=DEV)
+            wcells = warp_points_nerf(
+                cells, data["raw"]["depth"], data["intrinsics"],
+                data["raw"]["rotation"], data["raw"]["translation"],
+                data["warp"]["rotation"], data["warp"]["translation"])
+            desc, _, _ = dl.descriptor_loss_blockwise(
+                out["desc_raw"], warped_out["desc_raw"], wcells,
+                cfg.desc_cfg, data["warp"]["valid_mask"])
+            loss = det + det_w + desc
+            marks[4].record()
+            loss.backward()
+        marks[5].record()
+        opt.step()
+        marks[6].record()
+        marks[6].synchronize()
+        return loss
+
+    events = lambda: [torch.cuda.Event(enable_timing=True)  # noqa: E731
+                      for _ in range(7)]
+    times = {n: [] for n in names}
+    whole = []
+    for rep in range(reps + 1):
+        marks = events()
+        loss = step(rep, marks)
+        if rep == 0:
+            continue  # warm-up
+        for n, a, z in zip(names, marks[:-1], marks[1:]):
+            times[n].append(a.elapsed_time(z))
+        whole.append(marks[0].elapsed_time(marks[6]))
+    busy, span = device_busy(lambda: step(reps + 1, events()))
+    med = {n: statistics.median(v) for n, v in times.items()}
+    log(f"[nerf-train-split] one NeRF step of batch 2 at {NERF_SHAPE[0]}x"
+        f"{NERF_SHAPE[1]}: {statistics.median(whole):.3f} ms (median of "
+        f"{reps}) = " + " + ".join(f"{n} {med[n]:.3f}" for n in names)
+        + f"; last loss {float(loss.detach()):.4f}; one more step under "
+        f"torch.profiler: the card busy {busy:.3f} of {span:.3f} ms, idle "
+        f"share at most {1 - busy / span:.3f}")
+    return med
+
+
+def nerf_hinge_cases(step_call):
+    """The NeRF step's recorded descriptor-loss operands, and the same
+    with 64 non-finite and 64 far-off warped cells a sample."""
+    A, Bm, wcells, *rest = step_call
+    planted = plant_bad_cells(wcells, 64, SEED + 41)
+    return [("NeRF step", step_call),
+            ("NeRF step, 64 non-finite + 64 far-off cells",
+             (A, Bm, planted, *rest))]
+
+
+def phase_nerf_small():
+    """One NeRF step (vgg 8,8,16,16,32,32,32,32, heads 32, 2 pairs of the
+    procedural scene at 64 x 80, photometric draws made on the CPU) on the
+    card with rows 10-11 and on the CPU plain path from the same weights:
+    augmented images within SMALL_IMAGE_ATOL, heatmaps equal, losses within
+    SMALL_LOSS_RTOL. Then one fused frame (the demo MagicPoint, 2 frames):
+    heatmaps within HP_SMALL_TOL, and the fusion fed the CPU's detections
+    within HP_SMALL_TOL, its labels equal away from the threshold and NMS
+    near-ties."""
+    H, W = NERF_SMALL_SHAPE
+    config = nerf_train_config()
+    config["model"].update(vgg_cn=[8, 8, 16, 16, 32, 32, 32, 32])
+    config["model"]["detector_head"]["detector_dim"] = [32, 32]
+    config["model"]["descriptor_head"]["descriptor_dim"] = [32, 32]
+    config["data"]["augmentation"]["photometric"]["params"][
+        "additive_shade"]["kernel_size_range"] = [9, 15]
+    cfg = train_task.build_step_config(config, include_mask=True,
+                                       nerf_desc=True)
+    scene = box_room(SEED + 42, shape=(H, W))
+    src, dst = [0, 3], [1, 4]
+    rng = np.random.default_rng(SEED + 43)
+    poses = scene["poses"]
+    host = {"image": scene["rgb"][src], "image_warp": scene["rgb"][dst],
+            "depth": scene["depth"][src],
+            "rotation": poses[src, :3, :3], "translation": poses[src, :3, 3:],
+            "rotation_warp": poses[dst, :3, :3],
+            "translation_warp": poses[dst, :3, 3:],
+            "intrinsics": np.stack([camera_intrinsics((H, W), NERF_FOV)] * 2),
+            "kpts": rng.uniform(0, [H, W], (2, 60, 2)).astype(np.float32),
+            "kpts_mask": np.ones((2, 60), bool)}
+    gen = torch.Generator().manual_seed(SEED + 44)
+    draws = [draw_photometric_randoms(gen, 2, H, W, cfg.photometric)
+             for _ in range(2)]
+    noise = [detector_noise(gen, (2, H // 8, W // 8, 65)) for _ in range(2)]
+    mcfg = SuperPointConfig.from_dict(config["model"])
+    out = {}
+    before = _build.launch_counts.copy()
+    for dev in ("cpu", DEV):
+        to = lambda t: t.to(dev)  # noqa: E731
+        batch = {k: to(torch.from_numpy(v)) for k, v in host.items()}
+        moved = [{k: ({f: to(t) for f, t in v.items()}
+                      if isinstance(v, dict) else v)
+                  for k, v in d.items()} for d in draws]
+        with torch.no_grad():
+            batch["image"] = photometric_from_draws(batch["image"], moved[0],
+                                                    cfg.photometric)
+            batch["image_warp"] = photometric_from_draws(
+                batch["image_warp"], moved[1], cfg.photometric)
+            data = prepare_nerf_batch(batch)
+        model = init_superpoint(SEED + 45, mcfg, device=dev)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            loss, metrics = loop.superpoint_loss_fn(
+                model, data, [to(n) for n in noise], cfg.grid_size, True,
+                cfg.desc_cfg, True, True, True)
+            loss.backward()
+        out[dev] = (data, {k: float(v.detach()) for k, v in metrics.items()})
+    launched = _build.launch_counts - before
+    if launched != {"desc_loss[fwd]": 1, "desc_loss[dA]": 1,
+                    "desc_loss[dB]": 1}:
+        raise AssertionError(f"nerf-small: launches {dict(launched)}")
+    img_err = 0.0
+    for view in ("raw", "warp"):
+        img_err = max(img_err, float((out[DEV][0][view]["image"].cpu()
+                                      - out["cpu"][0][view]["image"])
+                                     .abs().max()))
+        if not torch.equal(out[DEV][0][view]["kpts_heatmap"].cpu(),
+                           out["cpu"][0][view]["kpts_heatmap"]):
+            raise AssertionError(f"nerf-small: {view} heatmaps differ")
+    if img_err > SMALL_IMAGE_ATOL:
+        raise AssertionError(f"nerf-small: images differ by {img_err}")
+    loss_err = 0.0
+    for key, want in out["cpu"][1].items():
+        rel = abs(out[DEV][1][key] - want) / abs(want)
+        loss_err = max(loss_err, rel)
+        if not rel <= SMALL_LOSS_RTOL:
+            raise AssertionError(f"nerf-small: {key} {out[DEV][1][key]} on "
+                                 f"the card, {want} on the CPU")
+
+    # one fused frame of 2, on the card and on the CPU
+    ex = nerf_export_config("small")
+    det = ex["model"]["detector_head"]
+    model = restored_model(ex)
+    cpu_model = copy.deepcopy(model).cpu()
+    frames = [1, 2]
+    fr = {"image": scene["rgb"][frames], "depth": scene["depth"][frames],
+          "intrinsics": host["intrinsics"], "rotation": poses[frames, :3, :3],
+          "translation": poses[frames, :3, 3:]}
+    res = {}
+    for dev, m in (("cpu", cpu_model), (DEV, model)):
+        t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in fr.items()}
+        probs = export.make_prob_fn(m, fast=False)(t["image"])
+        res[dev] = (t, probs, export_nerf.detections(probs, det))
+    cpu_pts, cpu_valid = res["cpu"][2]
+    prob_err = float((res[DEV][1].cpu() - res["cpu"][1]).abs().max())
+    fused, labels = {}, {}
+    for dev in ("cpu", DEV):
+        t, probs, _ = res[dev]
+        geometry = [t[k] for k in ("depth", "intrinsics", "rotation",
+                                   "translation")]
+        args = (probs, cpu_pts.to(dev), cpu_valid.to(dev), *geometry, 0,
+                np.array([False, True]))
+        fused[dev] = fuse_nerf_labels(*args).cpu()
+        labels[dev] = {tuple(p) for p in export._nms_threshold_points(
+            export_nerf.fuse_and_nms(*args, det).cpu().numpy(),
+            det["det_thresh"])}
+    fuse_err = float((fused[DEV] - fused["cpu"]).abs().max())
+    if prob_err > HP_SMALL_TOL or fuse_err > HP_SMALL_TOL:
+        raise AssertionError(f"nerf-small: heatmaps {prob_err}, fused "
+                             f"{fuse_err}")
+    dense = fused["cpu"].numpy()
+    for y, x in labels[DEV] ^ labels["cpu"]:
+        win = dense[max(y - 3, 0):y + 4, max(x - 3, 0):x + 4]
+        near_tie = np.sort(np.abs(win - dense[y, x]).ravel())[1]
+        if abs(dense[y, x] - det["det_thresh"]) > HP_SMALL_TOL \
+                and near_tie > HP_SMALL_TOL:
+            raise AssertionError(f"nerf-small: label ({y}, {x}) on one side")
+    log(f"[nerf-small] one NeRF step of 2x{H}x{W}, card (rows 10-11) against "
+        f"the CPU plain path: augmented images within {img_err:.3e}, "
+        f"heatmaps equal, losses within {loss_err:.3e} relative; one fused "
+        f"frame of 2 from the demo MagicPoint: heatmaps within "
+        f"{prob_err:.3e}, fusion within {fuse_err:.3e}, "
+        f"{len(labels['cpu'])} labels, "
+        f"{len(labels[DEV] ^ labels['cpu'])} on one side only")
 
 
 def sphere_scene(seed: int, n: int, near=2.0, far=6.0):
@@ -2562,15 +3300,8 @@ def hpatches_model(kind: str):
     its seed-0 weights: the checkpoint has none); (config, model)."""
     config = copy.deepcopy(HP_CONFIGS[kind])
     config.update(HP_CUTS)
-    model = init_superpoint(SEED, SuperPointConfig.from_dict(config["model"]),
-                            device="cuda")
-    seeded = {k: v.clone() for k, v in model.state_dict().items()}
-    saved_ckpt = settings.CKPT_PATH
-    settings.CKPT_PATH = Path(__file__).resolve().parent / "demo"
-    try:
-        train_task.restore_pretrained(config, model)
-    finally:
-        settings.CKPT_PATH = saved_ckpt
+    model = restored_model(config)
+    seeded = init_superpoint(SEED, model.config, device=DEV).state_dict()
     kept = sorted(k for k, v in model.state_dict().items()
                   if torch.equal(v, seeded[k]) and k.endswith("weight"))
     if any(not k.startswith("descriptor.") for k in kept):
@@ -2801,6 +3532,34 @@ def main() -> int:
                                  "training path")
     phase_train_small()
     rows += desc_rows
+    torch.cuda.empty_cache()
+
+    # NeRF pairs: label export and training on two procedural scenes; the
+    # 20-step run is the drive of rows 10-11 on this path
+    with tempfile.TemporaryDirectory() as tmp:
+        saved_paths = (settings.DATA_PATH, settings.EXPER_PATH,
+                       settings.CKPT_PATH)
+        scenes = phase_nerf_scenes(Path(tmp))
+        mp = phase_nerf_export(Path(tmp), scenes)
+        phase_nerf_export_split(mp)
+        del mp, scenes
+        nerf_counts, state, nerf_call = phase_nerf_train(Path(tmp))
+        phase_nerf_train_split(state)
+        del state
+        settings.DATA_PATH, settings.EXPER_PATH, settings.CKPT_PATH = \
+            saved_paths
+    torch.cuda.empty_cache()
+    nerf_rows = phase_desc_loss_kernels(nerf_hinge_cases(nerf_call), peaks)
+    for row in nerf_rows:
+        row["path"] = "nerf-train"
+        row["launches"] = nerf_counts.get(row["name"], 0)
+        if row["launches"] == 0:
+            raise AssertionError(f"{row['name']} never launched on the NeRF "
+                                 "training path")
+    for row in desc_rows:
+        row["path"] = "train"
+    phase_nerf_small()
+    rows += nerf_rows
     torch.cuda.empty_cache()
 
     # the fused tiny-NeRF serving renderer: the 10 renders per variant are

@@ -2,10 +2,11 @@
 
 ``train`` takes the reference's training config as a dict and any loader
 of host batches {"image": (B, H, W, 1) float in [0, 1], "kpts": (B, N, 2),
-"kpts_mask": (B, N)}; the step does augmentation, forwards, losses and the
-update on the device, the loop checkpoints (optimizer state included),
-validates and logs. One device; a seeded model where the config names no
-``pretrained`` checkpoint.
+"kpts_mask": (B, N)} (NeRF pairs add the second view, its depth and the
+cameras: ``data.nerf_dataset.NeRFDataset``); the step does augmentation,
+forwards, losses and the update on the device, the loop checkpoints
+(optimizer state included), validates and logs. One device; a seeded
+model where the config names no ``pretrained`` checkpoint.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from spnerf_tpu_torch.train.loop import (
     train_step,
 )
 from spnerf_tpu_torch.train.losses import DescriptorLossConfig
+from spnerf_tpu_torch.utils.factories import get_nerf_loaders
 from spnerf_tpu_torch.utils.logging import MetricWriter
 
 
@@ -99,8 +101,9 @@ def restore_pretrained(config: dict, model) -> int:
     return int(data["iteration"]) if config.get("continue_training") else 0
 
 
-def train(config: dict, loader, val_loader=None,
+def train(config: dict, loader=None, val_loader=None,
           validate_training: bool = False, include_mask_loss: bool = True,
+          nerf_loss: bool = False, train_nerf: bool = False,
           seed: int = 0, device="cuda") -> TrainState:
     """The ``--task train`` entry point, on the card unless
     ``device="cpu"``. Trains ``config["model"]`` from weights drawn from
@@ -109,7 +112,13 @@ def train(config: dict, loader, val_loader=None,
     steps it validates on ``val_loader`` (if ``validate_training``; at
     most ``train.val_batches`` batches when that is > 0) and writes a
     checkpoint. Metrics go to CKPT_PATH/<ckpt_name>/logs/metrics.jsonl
-    and are read from the device only every ``log_every`` steps."""
+    and are read from the device only every ``log_every`` steps.
+
+    ``nerf_loss``: NeRF pairs warp the descriptor cells by depth
+    reprojection. ``train_nerf``: ``loader`` and ``val_loader`` are lists
+    of per-scene loaders (by default ``utils.factories.get_nerf_loaders``
+    of ``config``); the steps take a batch from each scene in turn and
+    validation reads the first scene's loader."""
     device = resolve_device(device)
     model = init_superpoint(seed, SuperPointConfig.from_dict(config["model"]),
                             device=device)
@@ -117,7 +126,8 @@ def train(config: dict, loader, val_loader=None,
     state = create_train_state(model, config["train"]["learning_rate"])
     state.iteration = iteration
 
-    step_cfg = build_step_config(config, include_mask_loss)
+    step_cfg = build_step_config(config, include_mask_loss,
+                                 nerf_desc=nerf_loss)
     gens = StepGenerators(seed, device)
     ckpt_name = config["ckpt_name"]
     writer = MetricWriter(Path(settings.CKPT_PATH, ckpt_name, "logs"))
@@ -126,8 +136,18 @@ def train(config: dict, loader, val_loader=None,
     log_every = int(config.get("log_every", 50))
     val_batches = int(config.get("train", {}).get("val_batches", 0))
 
-    stream = iter_forever(loader)
-    batches = device_prefetch(lambda: next(stream), device)
+    if train_nerf:
+        if loader is None:
+            loaders = get_nerf_loaders(config)
+            loader, val_loader = loaders["train"], loaders["validation"]
+        streams = [iter_forever(scene) for scene in loader]
+        scenes = itertools.cycle(streams)
+        get_batch = lambda: next(next(scenes))  # noqa: E731
+        val_loader = val_loader[0] if val_loader else None
+    else:
+        streams = [iter_forever(loader)]
+        get_batch = lambda: next(streams[0])  # noqa: E731
+    batches = device_prefetch(get_batch, device)
     running = []
     it = state.iteration
     t_mark, it_mark = time.perf_counter(), it
@@ -169,7 +189,8 @@ def train(config: dict, loader, val_loader=None,
                 t_mark, it_mark = time.perf_counter(), it
     finally:
         batches.close()
-        stream.close()
+        for stream in streams:
+            stream.close()
         writer.close()
     return state
 

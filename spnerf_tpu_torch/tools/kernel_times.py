@@ -16,14 +16,17 @@ HA's 80 views of 30 x 40 cells; the render kernels at the operands of
 131,072 orbit rays x 32 samples, width 128 dense, with the early stop and
 with cached occupancy flags and the early stop, widths 64 and 32 and int8
 with the early stop, the same widths with float32 weights, and beside
-int8 its yardstick, three ``torch._int_mm`` over all (ray, sample) rows;
+int8 its yardstick, three ``torch._int_mm`` over all (ray, sample) rows,
+beside each float32 width three float32 ``torch.matmul`` (TF32 off);
 ``conv3x3`` / ``packed_conv3x3`` at the per-layer route's instances,
 int8 and bf16, batch 8 at 480 x 640; the descriptor loss's forward
 sums and its two gradients, dA and dB, each alone, at the training
 step's shape (B 2, N = M = 1,200, C 256) and at 480 x 640 (N 4,800), on
-``hinge_operands``' seeded descriptors and pair homographies (``--match
-desc_loss``); ``--match conv12,warp`` keeps the cases whose label holds
-one of the substrings) it prints, in ms per call:
+``hinge_operands``' seeded descriptors and pair homographies, and at
+480 x 640 on ``nerf_hinge_operands``' depth-reprojected cells with 64
+non-finite and 64 far-off ones (``--match desc_loss``); ``--match
+conv12,warp`` keeps the cases whose label holds one of the substrings)
+it prints, in ms per call:
 
 * ``wrapper``: CUDA events around one call of the wrapper, median of 20
   (what the ``ms`` of ``chip_smoke.py``'s kernel rows measures);
@@ -294,17 +297,84 @@ def hinge_operands(B, Hc, Wc, C, seed, device="cuda"):
             8.0)
 
 
+def plant_bad_cells(wcells: torch.Tensor, n_bad: int, seed: int):
+    """A copy of (B, N, 2) warped cells with ``n_bad`` rows of each sample
+    non-finite (NaN, +inf, -inf in turn, in one coordinate or both) and
+    ``n_bad`` far off the image (1e4 to 1e7 px either side): what a depth
+    reprojection gives for a point of depth 0 or one behind the target
+    camera, which the reference does not mask either."""
+    rng = np.random.default_rng(seed)
+    out = wcells.clone()
+    B, N, _ = out.shape
+    bad = [float("nan"), float("inf"), float("-inf")]
+    for b in range(B):
+        rows = torch.from_numpy(rng.permutation(N)[:2 * n_bad])
+        for k, r in enumerate(rows[:n_bad].tolist()):
+            value = bad[k % 3]
+            out[b, r, k % 2] = value
+            if k % 4 < 2:
+                out[b, r, 1 - k % 2] = value
+        far = (rng.choice([-1.0, 1.0], (n_bad, 2))
+               * 10.0 ** rng.uniform(4, 7, (n_bad, 2)))
+        out[b, rows[n_bad:]] = torch.from_numpy(far).float().to(out.device)
+    return out
+
+
+def nerf_geometry(n: int, H: int, W: int, seed: int, device="cuda"):
+    """n seeded cameras before a slanted wall with a box in front, float32
+    on ``device``: (along-ray depth (n, H, W), intrinsics (n, 3, 3) at fov
+    44, rotations (n, 3, 3) about the vertical within 0.12 rad,
+    translations (n, 3, 1) of about 0.1)."""
+    from spnerf_tpu_torch.geometry.reprojection import intrinsics_from_fov
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, H), np.linspace(0, 1, W),
+                         indexing="ij")
+    depth = 3.0 + 0.8 * xx + 0.3 * yy + rng.uniform(0, 0.2, (n, 1, 1))
+    depth[:, H // 3:H // 2, W // 4:W // 2] -= 1.2
+    angles = rng.uniform(-0.12, 0.12, n)
+    rot = np.stack([[[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                     [-np.sin(a), 0, np.cos(a)]] for a in angles])
+    t = lambda a: torch.from_numpy(a).float().to(device)  # noqa: E731
+    K = intrinsics_from_fov((H, W), 44.0, device=device).expand(n, 3, 3)
+    return t(depth), K.contiguous(), t(rot), t(rng.normal(0, 0.1, (n, 3, 1)))
+
+
+def nerf_hinge_operands(B, Hc, Wc, C, seed, device="cuda", n_bad=64):
+    """Operands of ``descriptor_hinge_sums`` as a NeRF step makes them:
+    the cell centres reprojected by ``warp_points_nerf`` through
+    ``nerf_geometry``'s first B depth maps and cameras into its last B
+    cameras, valid masks of ones, descriptors as ``hinge_operands``'; with
+    ``n_bad`` > 0 ``plant_bad_cells`` on top."""
+    from spnerf_tpu_torch.geometry.reprojection import warp_points_nerf
+    from spnerf_tpu_torch.train.losses import cell_grid_coords
+
+    depth, K, R, t = nerf_geometry(2 * B, Hc * 8, Wc * 8, seed, device)
+    cells = cell_grid_coords(Hc, Wc, 8, device=device)
+    wcells = warp_points_nerf(cells, depth[:B], K[:B], R[:B], t[:B], R[B:],
+                              t[B:])
+    if n_bad:
+        wcells = plant_bad_cells(wcells, n_bad, seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    A, Bm = (0.08 * torch.randn((B, Hc * Wc, C), generator=gen, device=device)
+             for _ in range(2))
+    mask = torch.ones((B, Hc * Wc), dtype=torch.float32, device=device)
+    return (A, Bm, wcells.contiguous(), cells, mask, 250.0, 1.0, 0.2, 8.0)
+
+
 def _desc_loss_cases():
     """The descriptor loss's three calls at ``HINGE_SHAPES``: the forward
     sums, and the gradient with respect to A (dA) and to Bm (dB) alone,
     each from one forward kept for the timed backward calls."""
     from spnerf_tpu_torch.kernels import descriptor_loss as dl
 
-    for B, Hc, Wc, C in HINGE_SHAPES:
-        A, Bm, wcells, cells, mask, *params = hinge_operands(B, Hc, Wc, C, 0)
+    shapes = [(s, "", hinge_operands) for s in HINGE_SHAPES]
+    shapes.append((HINGE_SHAPES[1], " nerf", nerf_hinge_operands))
+    for (B, Hc, Wc, C), kind, operands in shapes:
+        A, Bm, wcells, cells, mask, *params = operands(B, Hc, Wc, C, 0)
         N = Hc * Wc
         g = torch.linspace(0.5, 1.5, B, device="cuda")
-        yield (f"desc_loss[fwd] B {B} N {N} C {C}",
+        yield (f"desc_loss[fwd] B {B} N {N} C {C}{kind}",
                lambda A=A, Bm=Bm, wcells=wcells, cells=cells, mask=mask,
                params=params: dl.descriptor_hinge_sums(
                    A, Bm, wcells, cells, mask, *params), None, "hinge_")
@@ -313,7 +383,7 @@ def _desc_loss_cases():
             ops[wrt] = ops[wrt].clone().requires_grad_()
             s_pair = dl.descriptor_hinge_sums(*ops, wcells, cells, mask,
                                               *params)[0]
-            yield (f"desc_loss[{key}] B {B} N {N} C {C}",
+            yield (f"desc_loss[{key}] B {B} N {N} C {C}{kind}",
                    lambda s=s_pair, x=ops[wrt], g=g: torch.autograd.grad(
                        (s * g).sum(), x, retain_graph=True), None, "hinge_")
 
@@ -454,6 +524,26 @@ def _render_cases():
                 f.oe, f.de, *ws, f.df, width=width, **f.kw))
         yield (f"render[f32{'' if width == 128 else f'-w{width}'}] early stop "
                f"{n}", call, None, "render")
+        # its yardstick: the three products alone in float32 (TF32 off)
+        # over every (ray, sample) row
+        x = torch.zeros((RENDER_RAYS * RENDER_SAMPLES, ws[0].shape[0]),
+                        device="cuda")
+        yield (f"render[f32{'' if width == 128 else f'-w{width}'}] yardstick: "
+               f"three float32 torch.matmul {n}",
+               lambda x=x, ws=ws: _matmuls_f32(x, ws), None, "")
+        del x
+
+
+def _matmuls_f32(x, ws):
+    """x @ w1 @ w2 @ w3 in float32 with TF32 off."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for w in ws:
+            x = x @ w
+        return x
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 # the per-layer route's 3x3 convs at batch 8, 480 x 640: (wrapper, C_in,

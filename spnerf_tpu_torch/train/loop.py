@@ -15,10 +15,12 @@ a resumed run repeats them. Order within a training step:
 
 1. photometric augmentation (``ops.photometric_device
    .draw_photometric_randoms``): for a pair step the raw view's draws,
-   then the warped view's source; small per-sample draws from the CPU
-   generator, the two full-image noise fields from the device generator;
+   then the warped view's source (for a NeRF pair: the second view
+   itself); small per-sample draws from the CPU generator, the two
+   full-image noise fields from the device generator;
 2. the homographies (``geometry.homography.draw_homography_randoms``),
-   from the CPU generator;
+   from the CPU generator (none for a NeRF pair: its warp is the depth
+   reprojection of ``train.pipeline.prepare_nerf_batch``);
 3. the detector losses' tie-break noise from the device generator: the
    raw view's, then the warped view's.
 
@@ -40,6 +42,7 @@ from spnerf_tpu_torch.geometry.homography import (
     sample_homographies,
     warp_points,
 )
+from spnerf_tpu_torch.geometry.reprojection import warp_points_nerf
 from spnerf_tpu_torch.kernels.descriptor_loss import descriptor_loss_blockwise
 from spnerf_tpu_torch.models.superpoint import SuperPoint
 from spnerf_tpu_torch.ops.detector_decode import decode_detector_logits
@@ -127,7 +130,11 @@ def superpoint_loss_fn(model: SuperPoint, data: dict, noise,
     """Both detector losses and the descriptor loss of a warped pair.
     ``noise`` is the pair (raw, warped) of tie-break noise tensors. The
     raw view goes through the model first, then the warped one, and each
-    training forward updates the running statistics."""
+    training forward updates the running statistics. ``nerf_desc`` warps
+    the cells by the depth reprojection (else by the pair's homography);
+    ``blockwise_desc`` takes the blockwise loss (the CUDA kernels, or the
+    checkpointed passes with ``normalise_descriptors``), else the dense
+    volume."""
     model.train(train)
     out = model(data["raw"]["image"])
     warped_out = model(data["warp"]["image"])
@@ -139,13 +146,17 @@ def superpoint_loss_fn(model: SuperPoint, data: dict, noise,
         noise[1], warped_out["logits"], data["warp"]["kpts_heatmap"],
         data["warp"]["valid_mask"] if include_mask else None, grid_size)
     wmask = data["warp"]["valid_mask"] if include_mask else None
-    if nerf_desc:
-        desc, pos, neg = descriptor_loss_nerf()
-    elif blockwise_desc:
+    if blockwise_desc:
         _, Hc, Wc, _ = out["desc_raw"].shape
         cells = cell_grid_coords(Hc, Wc, desc_cfg.grid_size,
                                  device=out["desc_raw"].device)
-        warped_cells = warp_points(cells, data["homography"])
+        if nerf_desc:
+            warped_cells = warp_points_nerf(
+                cells, data["raw"]["depth"], data["intrinsics"],
+                data["raw"]["rotation"], data["raw"]["translation"],
+                data["warp"]["rotation"], data["warp"]["translation"])
+        else:
+            warped_cells = warp_points(cells, data["homography"])
         if desc_cfg.normalise_descriptors:
             # the volume's global row and column norms do not fit the
             # streaming kernel
@@ -156,6 +167,12 @@ def superpoint_loss_fn(model: SuperPoint, data: dict, noise,
             desc, pos, neg = descriptor_loss_blockwise(
                 out["desc_raw"], warped_out["desc_raw"], warped_cells,
                 desc_cfg, wmask)
+    elif nerf_desc:
+        desc, pos, neg = descriptor_loss_nerf(
+            out["desc_raw"], warped_out["desc_raw"], data["raw"]["depth"],
+            data["intrinsics"], data["raw"]["rotation"],
+            data["raw"]["translation"], data["warp"]["rotation"],
+            data["warp"]["translation"], desc_cfg, wmask)
     else:
         desc, pos, neg = descriptor_loss(
             out["desc_raw"], warped_out["desc_raw"], data["homography"],
@@ -243,7 +260,12 @@ def train_step(state: TrainState, batch: dict, cfg: StepConfig,
             base = batch["image"]
             batch["image"] = photometric_augment(
                 gens.cpu, base, cfg.photometric, gens.device)
-            if cfg.pair:
+            if cfg.nerf_desc and "depth" in batch:
+                # a NeRF pair is two real views: independent draws on each
+                batch["image_warp"] = photometric_augment(
+                    gens.cpu, batch["image_warp"], cfg.photometric,
+                    gens.device)
+            elif cfg.pair:
                 # the to-be-warped view: independent draws on the same
                 # base image
                 batch["image_warp_src"] = photometric_augment(

@@ -1,7 +1,8 @@
 """Training losses: detector cross-entropy and descriptor hinge
 (``spnerf_tpu/train/losses.py``). NHWC; the pairwise descriptor volume of
-the dense path is one batched (N, C) x (C, N) matmul. The blockwise
-``normalise_descriptors=False`` loss is the CUDA kernel of
+the dense path is one batched (N, C) x (C, N) matmul; the warped cells
+come from a homography or, for NeRF pairs, a depth reprojection. The
+blockwise ``normalise_descriptors=False`` loss is the CUDA kernel of
 ``kernels/descriptor_loss.py``.
 """
 
@@ -13,6 +14,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from spnerf_tpu_torch.geometry.homography import warp_points
+from spnerf_tpu_torch.geometry.reprojection import warp_points_nerf
 from spnerf_tpu_torch.ops.space_ops import space_to_depth
 
 
@@ -153,12 +155,17 @@ def descriptor_loss(desc_raw, warped_desc_raw, homographies, config,
                                       config, valid_mask)
 
 
-def descriptor_loss_nerf(*args, **kwargs):
-    """NeRF variant (cells warped by depth reprojection): comes with
-    ``geometry/reprojection.py`` in the NeRF slice of the port."""
-    raise NotImplementedError(
-        "descriptor_loss_nerf needs geometry/reprojection.py, which the "
-        "NeRF slice of the port brings")
+def descriptor_loss_nerf(desc_raw, warped_desc_raw, depth, intrinsics,
+                         rotation_in, translation_in, rotation_warp,
+                         translation_warp, config, valid_mask=None):
+    """NeRF variant: the cell centres are reprojected into the warped view
+    through ``depth`` and the two cameras (``warp_points_nerf``)."""
+    B, Hc, Wc, _ = desc_raw.shape
+    cells = cell_grid_coords(Hc, Wc, config.grid_size, device=desc_raw.device)
+    warped = warp_points_nerf(cells, depth, intrinsics, rotation_in,
+                              translation_in, rotation_warp, translation_warp)
+    return descriptor_loss_from_cells(desc_raw, warped_desc_raw, warped,
+                                      config, valid_mask)
 
 
 def descriptor_loss_normalised_blockwise(desc_raw, warped_desc_raw,

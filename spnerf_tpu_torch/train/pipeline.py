@@ -17,6 +17,7 @@ from spnerf_tpu_torch.geometry.keypoints import (
     compute_keypoint_map,
     filter_points_mask,
 )
+from spnerf_tpu_torch.geometry.reprojection import warp_points_nerf
 from spnerf_tpu_torch.ops.image_warp import (
     compute_valid_mask,
     warp_image,
@@ -100,10 +101,40 @@ def prepare_superpoint_batch(homographies: torch.Tensor, batch: dict,
     }
 
 
-def prepare_nerf_batch(batch: dict):
-    """NeRF warped-pair batch (keypoints reprojected through rendered
-    depth): comes with ``geometry/reprojection.py`` in the NeRF slice of
-    the port."""
-    raise NotImplementedError(
-        "prepare_nerf_batch needs geometry/reprojection.py, which the NeRF "
-        "slice of the port brings")
+def prepare_nerf_batch(batch: dict) -> dict:
+    """NeRF warped-pair batch: the warped view is a second real view, and
+    its keypoint labels are the raw view's reprojected through the raw
+    view's depth into the warped camera, every sample at once.
+
+    batch: {"image", "image_warp", "depth", "rotation", "translation",
+    "rotation_warp", "translation_warp", "intrinsics", "kpts",
+    "kpts_mask"} -> {"raw", "warp", "intrinsics"} with the depth and the
+    cameras carried for the descriptor loss; the valid masks are ones."""
+    image = batch["image"]
+    B, H, W, _ = image.shape
+    warped_kpts = warp_points_nerf(
+        batch["kpts"], batch["depth"], batch["intrinsics"],
+        batch["rotation"], batch["translation"], batch["rotation_warp"],
+        batch["translation_warp"])
+    warped_mask = batch["kpts_mask"].bool() & filter_points_mask(warped_kpts,
+                                                                 (H, W))
+    ones = torch.ones((B, H, W), dtype=torch.int32, device=image.device)
+    return {
+        "raw": {
+            "image": image,
+            "kpts_heatmap": make_heatmaps(batch["kpts"], batch["kpts_mask"],
+                                          (H, W)),
+            "valid_mask": ones,
+            "depth": batch["depth"],
+            "rotation": batch["rotation"],
+            "translation": batch["translation"],
+        },
+        "warp": {
+            "image": batch["image_warp"],
+            "kpts_heatmap": make_heatmaps(warped_kpts, warped_mask, (H, W)),
+            "valid_mask": ones,
+            "rotation": batch["rotation_warp"],
+            "translation": batch["translation_warp"],
+        },
+        "intrinsics": batch["intrinsics"],
+    }

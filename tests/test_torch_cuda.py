@@ -1504,3 +1504,78 @@ def test_s8_conv3x3_at_the_route_shapes_on_card(card, instance, width):
     fn = S.packed_conv3x3 if op == "packed" else S.conv3x3
     got = _s8_held(fn, S.conv3x3_plain, S.prepare_conv3x3, x, raw, {"pool": pool})
     assert (got > 0).any() and (got == 0).any()
+
+
+# ------------------------------------------------------- the NeRF pair path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bad", [0, 64], ids=["reprojected", "planted"])
+def test_hinge_kernels_on_nerf_cells_on_card(card, n_bad):
+    """Rows 10-11 at a NeRF step's shape (B 2, N 4,800, C 256) on cells
+    reprojected through depth, and with 64 non-finite and 64 far-off
+    cells a sample: no such cell is near any cell centre (NaN compares
+    false, as in the plain version), sums and gradients finite and held to
+    the plain version on float64 copies (the exact dots' steps), the
+    launches one each, two runs bit-equal."""
+    from spnerf_tpu_torch.kernels import _build
+    from spnerf_tpu_torch.tools.kernel_times import nerf_hinge_operands
+
+    A, Bm, wcells, cells, mask, *params = nerf_hinge_operands(
+        2, 60, 80, 256, 31, "cuda", n_bad=n_bad)
+    assert int((~torch.isfinite(wcells)).any(-1).sum()) == (2 * n_bad
+                                                            if n_bad else 0)
+    before = _build.launch_counts.copy()
+    got, want = _hinge_against_float64(A, Bm, wcells, cells, mask)
+    again, _ = _hinge_against_float64(A, Bm, wcells, cells, mask)
+    torch.cuda.synchronize()
+    assert _build.launch_counts - before == {
+        "desc_loss[fwd]": 2, "desc_loss[dA]": 2, "desc_loss[dB]": 2}
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    for t in got:
+        assert torch.isfinite(t).all()
+    assert float(want[0][1].min()) > 0  # positives among the good cells
+    _assert_rows_within(got, want)
+
+
+@pytest.mark.cuda
+def test_warp_points_nerf_on_card_against_cpu(card):
+    """The reprojection on the card within 2e-3 px of the CPU (the two
+    devices' float32 LU inverses), at 480 x 640."""
+    from spnerf_tpu_torch.geometry.reprojection import warp_points_nerf
+
+    from spnerf_tpu_torch.tools.kernel_times import nerf_geometry
+
+    rng = np.random.default_rng(32)
+    depths, Ks, Rs, ts = nerf_geometry(4, 480, 640, 32, "cpu")
+    pts = torch.from_numpy(rng.uniform(0, [480, 640], (3000, 2))).float()
+    args = [pts, depths[:2], Ks[:2], Rs[:2], ts[:2], Rs[2:], ts[2:]]
+    cpu = warp_points_nerf(*args)
+    got = warp_points_nerf(*(a.cuda() for a in args))
+    assert float((got.cpu() - cpu).abs().max()) <= 2e-3
+    assert float((cpu - pts).abs().max()) > 5
+
+
+@pytest.mark.cuda
+def test_fuse_nerf_labels_on_card_against_cpu(card):
+    """One fused frame of 16 at 480 x 640 on the card against the CPU:
+    within 1e-6 (the same splats; sums in another order)."""
+    from spnerf_tpu_torch.ops.nerf_label_fusion import fuse_nerf_labels
+    from spnerf_tpu_torch.tools.kernel_times import nerf_geometry
+
+    rng = np.random.default_rng(33)
+    F, H, W, K = 16, 480, 640, 1024
+    t = torch.from_numpy
+    probs = t(rng.uniform(0, 0.05, (F, H, W)).astype(np.float32))
+    pts = t(rng.integers(0, [H, W], (F, K, 2)).astype(np.int32))
+    mask = t(rng.uniform(size=(F, K)) < 0.7)
+    selected = t(rng.uniform(size=F) < 0.75)
+    args = [probs, pts, mask, *nerf_geometry(F, H, W, 33, "cpu"), 5,
+            selected]
+    cpu = fuse_nerf_labels(*args)
+    got = fuse_nerf_labels(*(a.cuda() if torch.is_tensor(a) else a
+                             for a in args))
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-6
+    n_views = 1 + int(selected.sum()) - int(selected[5])
+    assert float((cpu - probs[5] / n_views).abs().max()) > 1e-3  # splats

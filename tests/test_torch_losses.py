@@ -212,12 +212,42 @@ def test_normalised_blockwise_value_and_gradients(tile):
 
 
 def test_nerf_variants_name_their_slice():
+    """The NeRF slice's variants exist: with the same camera on both sides
+    the depth reprojection maps every cell centre onto itself, so
+    ``descriptor_loss_nerf`` is the dense loss on the unwarped cells, and
+    ``prepare_nerf_batch`` keeps the keypoints and carries the depth and
+    cameras (both held to JAX in ``test_torch_nerf_train.py``)."""
     from spnerf_tpu_torch.train import pipeline
 
-    with pytest.raises(NotImplementedError, match="NeRF slice"):
-        tl.descriptor_loss_nerf()
-    with pytest.raises(NotImplementedError, match="NeRF slice"):
-        pipeline.prepare_nerf_batch({})
+    B, H, W, C = 2, 32, 40, 16
+    rng = np.random.default_rng(5)
+    desc = [torch.from_numpy(rng.standard_normal((B, H // 8, W // 8, C))
+                             .astype(np.float32)) for _ in range(2)]
+    K = torch.tensor([[30.0, 0, W / 2], [0, 30.0, H / 2], [0, 0, 1]]).expand(
+        B, 3, 3)
+    R, t = torch.eye(3).expand(B, 3, 3), torch.full((B, 3, 1), 0.5)
+    depth = torch.full((B, H, W), 3.0)
+    # the normalised loss's radius, 7.5: at the hinge loss's 8 the
+    # neighbouring cells, 8 px away, sit on the step within the
+    # reprojection's rounding
+    cfg = tl.DescriptorLossConfig(grid_size=8, normalise_descriptors=True)
+    got = tl.descriptor_loss_nerf(*desc, depth, K, R, t, R, t, cfg)
+    cells = tl.cell_grid_coords(H // 8, W // 8, 8)
+    want = tl.descriptor_loss_from_cells(*desc, cells.expand(B, -1, 2), cfg)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+    kpts = torch.tensor([[[4.0, 6.0], [20.0, 30.0]]]).expand(B, 2, 2)
+    batch = {"image": torch.rand((B, H, W, 1)), "kpts": kpts,
+             "kpts_mask": torch.ones((B, 2), dtype=torch.bool),
+             "image_warp": torch.rand((B, H, W, 1)), "depth": depth,
+             "intrinsics": K, "rotation": R, "translation": t,
+             "rotation_warp": R, "translation_warp": t}
+    data = pipeline.prepare_nerf_batch(batch)
+    assert torch.equal(data["warp"]["kpts_heatmap"],
+                       data["raw"]["kpts_heatmap"])
+    assert int(data["raw"]["kpts_heatmap"].sum()) == 2 * B
+    assert data["raw"]["depth"] is depth and data["intrinsics"] is K
+    assert data["warp"]["image"] is batch["image_warp"]
 
 
 def test_descriptor_loss_config_from_dict():
