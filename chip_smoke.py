@@ -126,6 +126,21 @@ Phases, each of which raises on failure (nothing is caught):
    far-off warped cells a sample, their rows carrying the NeRF path's
    launches (``"path": "nerf-train"``); one NeRF step and one fused frame
    at 2 x 64 x 80 on the card against the CPU plain path;
+11c. the NeRF scene pipeline, on no kernel: ``train_nerf_scene`` at the
+   classic NeRF's full width (``NeRFConfig()``, float32) on the first box
+   room's 16 training frames at 480 x 640 for as many steps of 1,024 rays
+   as fit 40 s (``[nerf-scene]``: ms per step, rays/s against the float32
+   bound, the loss history, which must fall, and one step split by CUDA
+   events); ``render_dataset`` of its 4 validation poses (``[nerf-render]``:
+   ms per frame, the rendered depth against the exact depth beside the
+   untrained field's, which it must beat, and the demo MagicPoint's
+   labels of the rendered frames through ``export_nerf_labels``);
+   ``tools.process_scene.main`` on the frames as RGB PNGs with a
+   ``transforms.json`` (``[process-scene]``, the tiny preset, read back by
+   ``NeRFDataset``); ``HashNeRF`` at ``HashNeRFConfig()`` (``[hash-nerf]``:
+   a render of 65,536 rays, 50 Adam steps whose loss must fall); and the
+   full-width field and the hash field on the card against the CPU
+   (``[nerf-scene-small]``);
 12. render the committed tiny NeRF sphere fields
    (``benchmarks/data/sphere_field*.npz``, bf16 weights) as
    ``bench_nerf.py`` does: 131,072 rays of an orbit camera (362 x 362
@@ -177,6 +192,7 @@ import torch.nn.functional as F
 from spnerf_tpu_torch import settings
 from spnerf_tpu_torch.data.loader import DataLoader
 from spnerf_tpu_torch.data.nerf_dataset import NeRFDataset, camera_intrinsics
+from spnerf_tpu_torch.data.png import write_rgb
 from spnerf_tpu_torch.geometry.homography import (
     HomographyConfig,
     sample_homographies,
@@ -205,6 +221,26 @@ from spnerf_tpu_torch.models.fused_tiny_nerf import (
     encode_rays,
     render_fused_rays,
     render_fused_rays_packed,
+)
+from spnerf_tpu_torch.models.hash_nerf import (
+    HashNeRF,
+    HashNeRFConfig,
+    init_hash_nerf,
+    render_rays_hash,
+)
+from spnerf_tpu_torch.models.nerf import (
+    NeRF,
+    NeRFConfig,
+    composite,
+    draw_ray_uniforms,
+    encode_ray_points,
+    init_nerf,
+    positional_encoding,
+    render_image,
+    render_rays,
+    render_weights,
+    sample_pdf,
+    stratified_samples,
 )
 from spnerf_tpu_torch.models.superpoint import (
     SuperPointConfig,
@@ -238,7 +274,17 @@ from spnerf_tpu_torch.ops.photometric_device import (
     photometric_from_draws,
 )
 from spnerf_tpu_torch.tasks import export, export_nerf, train_task
-from spnerf_tpu_torch.tasks.nerf_task import pose_orbit, write_scene
+from spnerf_tpu_torch.tasks.nerf_task import (
+    create_nerf_optimizer,
+    nerf_train_step,
+    nerf_train_steps,
+    pose_orbit,
+    render_dataset,
+    scene_rays,
+    train_nerf_scene,
+    write_scene,
+)
+from spnerf_tpu_torch.tools import process_scene
 from spnerf_tpu_torch.tools.kernel_times import (
     HINGE_SHAPES,
     PAIR_HOMOGRAPHY,
@@ -2249,7 +2295,7 @@ def phase_nerf_scenes(root: Path) -> dict:
             pts, truth = reprojection_truth(scene, src, dst, per_pair,
                                             SEED + src, shape=NERF_SHAPE)
             if len(pts) < per_pair:
-                raise AssertionError(f"[nerf-scene] {name}: {len(pts)} "
+                raise AssertionError(f"[nerf-scenes] {name}: {len(pts)} "
                                      "pixels away from depth edges")
             depth = torch.from_numpy(scene["depth"][src:src + 1]).to(DEV)
             got = warp_points_nerf(
@@ -2260,9 +2306,9 @@ def phase_nerf_scenes(root: Path) -> dict:
                                             - truth).max()))
         scenes[name] = scene
     if not worst < NERF_REPROJ_TOL:
-        raise AssertionError(f"[nerf-scene] reprojection {worst} px from the "
-                             "analytic projection")
-    log(f"[nerf-scene] {len(NERF_SCENES)} procedural box rooms, "
+        raise AssertionError(f"[nerf-scenes] reprojection {worst} px from "
+                             "the analytic projection")
+    log(f"[nerf-scenes] {len(NERF_SCENES)} procedural box rooms, "
         f"{NERF_SHAPE[0]}x{NERF_SHAPE[1]}, fov {NERF_FOV}, "
         f"{NERF_FRAMES['training']} training + {NERF_FRAMES['validation']} "
         f"validation frames each, made and written in "
@@ -2717,6 +2763,446 @@ def phase_nerf_small():
         f"{prob_err:.3e}, fusion within {fuse_err:.3e}, "
         f"{len(labels['cpu'])} labels, "
         f"{len(labels[DEV] ^ labels['cpu'])} on one side only")
+
+
+# ------------------------------------------------------ NeRF scene pipeline
+
+# the in-framework scene pipeline (models/nerf.py, tasks/nerf_task.py,
+# models/hash_nerf.py, tools/process_scene.py) at the classic NeRF's full
+# width, NeRFConfig(): 8 x 256, skip at 4, 10 and 4 frequencies, 64 + 128
+# samples, float32; trained on box-room scene 0 ([nerf-export]'s
+# BoxRoomA): its 16 training frames at 480 x 640, gray replicated to RGB,
+# K from fov 44, near and far around the room's analytic depth range.
+# Cut: as many steps as fit NERF_FIELD_SECONDS (a real scene trains 20,000)
+NERF_FIELD_SECONDS = 40.0
+NERF_FIELD_BATCH = 1024
+NERF_FIELD_LR = 5e-4
+NERF_FIELD_LOG_EVERY = 100
+NERF_DEPTH_CLOSE = 0.05  # m: the share of pixels within 5 cm of the truth
+NERF_FIELD_SCENE = "BoxRoomField"
+PROCESS_SCENE_ARGS = ["--scene-name", "BoxRoomTool", "--train-iters", "24",
+                      "--render-size", "120", "160", "--n-novel-views", "5",
+                      "--nerf-preset", "tiny"]
+HASH_RAYS = 65536
+HASH_STEPS = 50
+HASH_BATCH = 8192
+HASH_LR = 1e-2
+# card against CPU at full width, weights from the port's seeded init:
+# renders of 512 rays within tests/test_torch_nerf_model.py's full-width
+# RENDER_TOL (rgb, acc, depth); one step of 128 rays within
+# tests/test_torch_nerf_scene.py's FULL_STEP_TOL (losses' relative
+# tolerance; Adam's first moment on the tensors off sample_pdf's gradient
+# path, norm-relative; parameters within 1e-6 where that moment is above
+# the given share of its largest); the hash render as
+# tests/test_torch_hash_nerf.py holds it (rgb and acc within 1e-6, depth
+# within 2e-5)
+NERF_SCENE_SMALL_RAYS = 512
+NERF_SCENE_SMALL_STEP_RAYS = 128
+NERF_SCENE_SMALL_TOL = {"float32": (1e-3, 2e-3, 5e-3),
+                        "bfloat16": (1e-2, 1e-2, 3e-2)}
+NERF_SCENE_STEP_TOL = {"float32": (1e-4, 0.1, 0.1),
+                       "bfloat16": (1e-3, 0.2, 0.1)}
+HASH_SMALL_TOL = (1e-6, 1e-6, 2e-5)
+
+
+def nerf_mlp_macs(cfg: NeRFConfig) -> int:
+    """Multiply-adds of one NeRFMLP evaluation (one sample)."""
+    pos, dirs = 3 + 6 * cfg.pos_freqs, 3 + 6 * cfg.dir_freqs
+    macs, fan_in = 0, pos
+    for i in range(cfg.depth):
+        macs += fan_in * cfg.width
+        fan_in = cfg.width + (pos if i + 1 == cfg.skip_layer else 0)
+    return (macs + fan_in * (1 + cfg.width)
+            + (cfg.width + dirs) * (cfg.width // 2) + (cfg.width // 2) * 3)
+
+
+def nerf_ray_flops(cfg: NeRFConfig) -> int:
+    """Forward operations of one ray: the coarse MLP on n_coarse samples,
+    the fine one on n_coarse + n_fine."""
+    return 2 * nerf_mlp_macs(cfg) * (2 * cfg.n_coarse + cfg.n_fine)
+
+
+def nerf_field_config(scene: dict, **kw) -> NeRFConfig:
+    """NeRFConfig() with near and far around the scene's depth range."""
+    near = round(float(np.floor(float(scene["depth"].min()) * 90)) / 100, 2)
+    far = round(float(np.ceil(float(scene["depth"].max()) * 105)) / 100, 2)
+    return NeRFConfig(near=near, far=far, **kw)
+
+
+def nerf_scene_inputs(scene: dict):
+    """(images (16, H, W, 3), poses, K) of the scene's training frames."""
+    train = scene["splits"]["training"]
+    return (np.repeat(scene["rgb"][train], 3, axis=-1),
+            scene["poses"][train], camera_intrinsics(NERF_SHAPE, NERF_FOV))
+
+
+def nerf_step_split(pool, cfg: NeRFConfig, reps: int = 5):
+    """One training step of NERF_FIELD_BATCH rays split by CUDA events
+    (medians of ``reps`` after a warm-up) into ray sampling and the coarse
+    encoding, the coarse MLP, the coarse composite + sample_pdf + sort,
+    the fine encoding and MLP, the fine composite + losses, the backward
+    and Adam, on a fresh field; then the card's busy time over 5 steps
+    under ``torch.profiler``."""
+    model = init_nerf(SEED + 1, cfg, DEV)
+    optimizer = create_nerf_optimizer(model, NERF_FIELD_LR)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    all_o, all_d, all_rgb = pool
+    B = NERF_FIELD_BATCH
+    names = ("sampling", "coarse", "pdf", "fine", "composite", "backward",
+             "adam")
+    rows = []
+    for rep in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+        ev[0].record()
+        optimizer.zero_grad(set_to_none=True)
+        idx = torch.randint(0, all_o.shape[0], (B,), generator=gen,
+                            device=DEV)
+        o, d, target = all_o[idx], all_d[idx], all_rgb[idx]
+        u_c, u_f = draw_ray_uniforms(B, cfg, gen, DEV)
+        t_c = stratified_samples(cfg.n_coarse, cfg.near, cfg.far, (B,),
+                                 u=u_c, device=DEV)
+        dir_enc = positional_encoding(d, cfg.dir_freqs)
+        pos_c = encode_ray_points(o, d, t_c, cfg.pos_freqs)
+        ev[1].record()
+        sig_c, rgb_c = model.encoded(pos_c, dir_enc[:, None, :].expand(
+            pos_c.shape[:-1] + (dir_enc.shape[-1],)), "coarse")
+        ev[2].record()
+        w_c = render_weights(sig_c, t_c)
+        color_c = composite(w_c, rgb_c, t_c)[0]
+        edges = torch.cat([t_c[..., :1], 0.5 * (t_c[..., 1:] + t_c[..., :-1]),
+                           t_c[..., -1:]], dim=-1)
+        t_all = torch.sort(torch.cat([t_c, sample_pdf(
+            edges, w_c, cfg.n_fine, u=u_f)], dim=-1), dim=-1).values
+        ev[3].record()
+        pos_f = encode_ray_points(o, d, t_all, cfg.pos_freqs)
+        sig_f, rgb_f = model.encoded(pos_f, dir_enc[:, None, :].expand(
+            pos_f.shape[:-1] + (dir_enc.shape[-1],)), "fine")
+        ev[4].record()
+        color_f = composite(render_weights(sig_f, t_all), rgb_f, t_all)[0]
+        loss = (torch.mean((color_c - target) ** 2)
+                + torch.mean((color_f - target) ** 2))
+        ev[5].record()
+        loss.backward()
+        ev[6].record()
+        optimizer.step()
+        ev[7].record()
+        ev[7].synchronize()
+        if rep:
+            rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(7)])
+    split = {n: statistics.median(r[i] for r in rows)
+             for i, n in enumerate(names)}
+    busy, span = device_busy(lambda: nerf_train_steps(
+        model, optimizer, pool, cfg, B, 5, gen))
+    return split, busy, span
+
+
+def phase_nerf_field(scene: dict, peaks):
+    """[nerf-scene]: ``train_nerf_scene`` at full width on the scene's
+    training frames (a 20-step probe sets the step count that fits
+    NERF_FIELD_SECONDS): ms per step, rays/s, the loss history and one
+    step split. Raises unless the last logged loss is below the first.
+    Returns (the trained field, its config, the ray pool)."""
+    images, poses, K = nerf_scene_inputs(scene)
+    cfg = nerf_field_config(scene)
+    kw = dict(ray_batch=NERF_FIELD_BATCH, learning_rate=NERF_FIELD_LR,
+              seed=SEED, device=DEV)
+    train_nerf_scene(images, poses, K, cfg, num_iters=5, log_every=5, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_nerf_scene(images, poses, K, cfg, num_iters=20, log_every=20, **kw)
+    torch.cuda.synchronize()
+    probe = (time.perf_counter() - t0) / 20
+    steps = max(2, int(NERF_FIELD_SECONDS / probe) // NERF_FIELD_LOG_EVERY
+                ) * NERF_FIELD_LOG_EVERY
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, history = train_nerf_scene(images, poses, K, cfg,
+                                      num_iters=steps,
+                                      log_every=NERF_FIELD_LOG_EVERY, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if not all(np.isfinite(history)) or not history[-1] < history[0]:
+        raise AssertionError(f"[nerf-scene] the loss did not fall: {history}")
+    pool = scene_rays(images, poses, K, DEV)
+    split, busy, span = nerf_step_split(pool, cfg)
+    ms = secs * 1e3 / steps
+    bound = 3 * NERF_FIELD_BATCH * nerf_ray_flops(cfg) / peaks[2] * 1e3
+    log(f"[nerf-scene] train_nerf_scene at {cfg.depth} x {cfg.width} ("
+        f"{cfg.n_coarse} + {cfg.n_fine} samples, near {cfg.near}, far "
+        f"{cfg.far}, float32) on {len(images)} box-room frames of "
+        f"{NERF_SHAPE[0]}x{NERF_SHAPE[1]}, batch {NERF_FIELD_BATCH}, lr "
+        f"{NERF_FIELD_LR}; cut: {steps} steps (those that fit "
+        f"{NERF_FIELD_SECONDS:.0f} s at the 20-step probe's "
+        f"{probe * 1e3:.3f} ms) of a scene's 20,000: {secs:.3f} s, "
+        f"{ms:.4f} ms/step = {steps * NERF_FIELD_BATCH / secs:.1f} rays/s "
+        f"against a float32 bound of {bound:.4f} ms/step (3 x "
+        f"{nerf_ray_flops(cfg) / 1e6:.2f} MFLOP a ray at "
+        f"{peaks[2] / 1e12:.0f} TFLOP/s); loss every "
+        f"{NERF_FIELD_LOG_EVERY} steps "
+        f"{json.dumps([round(h, 6) for h in history])}")
+    log(f"[nerf-scene-split] one step (CUDA events, median of 5): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + f" = {sum(split.values()):.4f} ms; 5 steps: the card busy "
+        f"{busy:.3f} of {span:.3f} ms (idle at most "
+        f"{1 - busy / span:.3f})")
+    return model, cfg, pool
+
+
+def depth_errors(depth: np.ndarray, truth: np.ndarray):
+    err = np.abs(depth - truth)
+    return float(np.median(err)), float(np.mean(err < NERF_DEPTH_CLOSE))
+
+
+def phase_nerf_render(model, cfg: NeRFConfig, scene: dict, peaks):
+    """[nerf-render]: ``render_dataset`` of the scene's 4 validation poses
+    at 480 x 640 (ms per frame and rays/s against the float32 bound), the
+    rendered depth against the box room's exact depth beside the untrained
+    field's (``init_nerf`` of the same seed; raises unless the trained
+    median is lower), then the demo MagicPoint's labels of the rendered
+    frames through ``export_nerf_labels``."""
+    val = scene["splits"]["validation"]
+    poses, K = scene["poses"][val], camera_intrinsics(NERF_SHAPE, NERF_FOV)
+    splits = {"validation": list(range(len(val)))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    root = render_dataset(model, NERF_FIELD_SCENE, poses, NERF_SHAPE, K, cfg,
+                          splits, seed=SEED, device=DEV)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    depth = np.stack([np.load(root / "depth" / "validation" / f"{j}.npy")
+                      for j in splits["validation"]])
+    truth = scene["depth"][val]
+    untrained = init_nerf(SEED, cfg, DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    raw = np.stack([render_image(untrained, NERF_SHAPE, K, p, cfg,
+                                 generator=gen, device=DEV)["depth"].cpu()
+                    .numpy() for p in poses])
+    med, close = depth_errors(depth, truth)
+    raw_med, raw_close = depth_errors(raw, truth)
+    if not np.isfinite(depth).all() or not med < raw_med:
+        raise AssertionError(f"[nerf-render] depth error {med} m, untrained "
+                             f"{raw_med} m")
+    config = nerf_export_config(NERF_FIELD_SCENE)
+    out_dir = export_nerf.export_nerf_labels(config, restored_model(config),
+                                             seed=SEED, split="validation",
+                                             device=DEV)
+    labels = [np.load(out_dir / f"{j}.npy") for j in splits["validation"]]
+    for pts in labels:
+        if (pts.dtype != np.int64 or pts.ndim != 2 or pts.shape[1] != 2
+                or (pts < 0).any() or (pts >= NERF_SHAPE).any()):
+            raise AssertionError(f"[nerf-render] labels {pts.dtype} "
+                                 f"{pts.shape}")
+    n_rays = len(val) * NERF_SHAPE[0] * NERF_SHAPE[1]
+    bound = NERF_SHAPE[0] * NERF_SHAPE[1] * nerf_ray_flops(cfg) / peaks[2]
+    log(f"[nerf-render] render_dataset of {len(val)} validation poses at "
+        f"{NERF_SHAPE[0]}x{NERF_SHAPE[1]} (chunks of 4,096 rays, float32, "
+        f"files written): {secs * 1e3 / len(val):.3f} ms/frame = "
+        f"{n_rays / secs:.1f} rays/s against a float32 bound of "
+        f"{bound * 1e3:.3f} ms/frame ({bound * peaks[2] / 1e12:.2f} TFLOP); "
+        f"depth against the exact depth: median {med:.4f} m, "
+        f"{close:.4f} of pixels within {NERF_DEPTH_CLOSE} m (untrained "
+        f"field: {raw_med:.4f} m, {raw_close:.4f}); labels of the "
+        f"rendered frames (demo MagicPoint, export_nerf_labels): "
+        f"{[len(x) for x in labels]}")
+
+
+def phase_process_scene(root: Path, scene: dict):
+    """[process-scene]: the scene's training frames as RGB PNGs with a
+    NerfStudio ``transforms.json`` through ``tools.process_scene.main`` on
+    the card (PROCESS_SCENE_ARGS); the layout checked and read by
+    ``NeRFDataset``."""
+    scene_dir = root / "process_scene"
+    (scene_dir / "images").mkdir(parents=True)
+    flip = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+    frames = []
+    for j, i in enumerate(scene["splits"]["training"]):
+        name = f"images/frame_{j:05d}.png"
+        gray = np.clip(scene["rgb"][i] * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        write_rgb(scene_dir / name, np.repeat(gray, 3, axis=-1))
+        frames.append({"file_path": name,
+                       "transform_matrix": (scene["poses"][i] @ flip).tolist()})
+    (scene_dir / "transforms.json").write_text(json.dumps(
+        {"camera_angle_x": float(np.deg2rad(NERF_FOV)), "frames": frames}))
+    t0 = time.perf_counter()
+    out = process_scene.main(["--data-path", str(scene_dir)]
+                             + PROCESS_SCENE_ARGS)
+    secs = time.perf_counter() - t0
+    counts = {}
+    for split in ("training", "validation", "test"):
+        ds = NeRFDataset({"name": "NeRF", "data_dir": out.name,
+                          "warped_pair": False}, split)
+        counts[split] = len(ds)
+        for i in range(len(ds)):
+            sample = ds[i]
+            if (sample["image"].shape != (120, 160, 1)
+                    or sample["depth"].shape != (120, 160)
+                    or not np.isfinite(sample["depth"]).all()):
+                raise AssertionError(f"[process-scene] {split} {i}: "
+                                     f"{sample['image'].shape}")
+    if counts != {"training": 4, "validation": 0, "test": 1}:
+        raise AssertionError(f"[process-scene] frames per split {counts}")
+    log(f"[process-scene] tools.process_scene.main {' '.join(PROCESS_SCENE_ARGS)}"
+        f" on {len(frames)} box-room frames (RGB PNGs, transforms.json) on "
+        f"the card: {secs:.3f} s; NeRFDataset reads {counts}")
+
+
+def phase_hash_nerf(pool, field_cfg: NeRFConfig):
+    """[hash-nerf]: HashNeRF at HashNeRFConfig()'s levels, table and
+    samples (near and far the field's): one render of HASH_RAYS seeded
+    box-room rays, then HASH_STEPS Adam steps on batches of HASH_BATCH of
+    them; raises unless the loss falls."""
+    cfg = HashNeRFConfig(near=field_cfg.near, far=field_cfg.far)
+    model = init_hash_nerf(SEED, cfg, DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    all_o, all_d, all_rgb = pool
+    idx = torch.randint(0, all_o.shape[0], (HASH_RAYS,), generator=gen,
+                        device=DEV)
+    o, d, target = all_o[idx], all_d[idx], all_rgb[idx]
+    with torch.no_grad():
+        render_rays_hash(model, o[:4096], d[:4096], cfg, generator=gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render_rays_hash(model, o, d, cfg, generator=gen)
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+    if not all(torch.isfinite(v).all() for v in out.values()):
+        raise AssertionError("[hash-nerf] non-finite render")
+    optimizer = create_nerf_optimizer(model, HASH_LR)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HASH_STEPS):
+        b = torch.randint(0, HASH_RAYS, (HASH_BATCH,), generator=gen,
+                          device=DEV)
+        optimizer.zero_grad(set_to_none=True)
+        rgb = render_rays_hash(model, o[b], d[b], cfg, generator=gen)["rgb"]
+        loss = torch.mean((rgb - target[b]) ** 2)
+        loss.backward()
+        optimizer.step()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    losses = torch.stack(losses).cpu().numpy()
+    if not losses[-5:].mean() < losses[:5].mean():
+        raise AssertionError(f"[hash-nerf] the loss did not fall: {losses}")
+    log(f"[hash-nerf] HashNeRF ({cfg.n_levels} levels, 2^"
+        f"{cfg.log2_table_size} entries, {cfg.n_samples} samples, near "
+        f"{cfg.near}, far {cfg.far}): one render of {HASH_RAYS} box-room "
+        f"rays {render_s * 1e3:.3f} ms = {HASH_RAYS / render_s:.1f} rays/s; "
+        f"{HASH_STEPS} Adam steps of {HASH_BATCH} rays (lr {HASH_LR}) "
+        f"{train_s * 1e3 / HASH_STEPS:.3f} ms/step = "
+        f"{HASH_STEPS * HASH_BATCH / train_s:.1f} rays/s; loss "
+        f"{losses[:5].mean():.6f} -> {losses[-5:].mean():.6f} (means of "
+        f"the first and last 5)")
+
+
+def off_sampler(name: str) -> bool:
+    """Parameters whose gradient does not pass through ``sample_pdf``'s
+    ill-conditioned 1 / (cdf_a - cdf_b): the fine field's, and the coarse
+    field's view branch."""
+    return name.startswith("fine.") or name.split(".")[1] in (
+        "feature", "view1", "rgb")
+
+
+def step_agreement(models: dict, opts: dict, clear_at: float):
+    """(largest norm-relative distance of Adam's first moment, largest
+    parameter distance where the CPU's moment is above ``clear_at`` of its
+    largest) between the card's and the CPU's field after one step, over
+    the off-sampler tensors."""
+    mu_err = param_err = 0.0
+    for (name, p_cpu), p_card in zip(models["cpu"].named_parameters(),
+                                     models[DEV].parameters()):
+        if not off_sampler(name):
+            continue
+        mu = opts["cpu"].state[p_cpu]["exp_avg"]
+        got = opts[DEV].state[p_card]["exp_avg"].cpu()
+        mu_err = max(mu_err, float((got - mu).norm() / mu.norm()))
+        clear = mu.abs() > clear_at * mu.abs().max()
+        param_err = max(param_err, float(
+            (p_card.detach().cpu() - p_cpu.detach())[clear].abs().max()))
+    return mu_err, param_err
+
+
+def _render_errors(a: dict, b: dict) -> dict:
+    return {k: float((a[k].cpu() - b[k].cpu()).abs().max()) for k in a}
+
+
+def phase_nerf_scene_small():
+    """[nerf-scene-small]: the full-width field on the card and on the CPU
+    from one seeded init (no JAX) with the same draws: a render of
+    NERF_SCENE_SMALL_RAYS rays and one step of NERF_SCENE_SMALL_STEP_RAYS,
+    float32 and bf16; then one ``render_rays_hash`` at HashNeRFConfig()."""
+    rng = np.random.default_rng(SEED + 50)
+    n = NERF_SCENE_SMALL_RAYS
+    o = torch.from_numpy(rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32))
+    d = F.normalize(torch.from_numpy(
+        rng.standard_normal((n, 3)).astype(np.float32)), dim=-1)
+    target = torch.from_numpy(rng.uniform(0, 1, (n, 3)).astype(np.float32))
+    base = NeRFConfig(near=0.5, far=4.5)
+    state = init_nerf(SEED + 7, base, device="cpu").state_dict()
+    draws = draw_ray_uniforms(n, base, torch.Generator().manual_seed(SEED + 8),
+                              "cpu")
+    card = lambda t: t.to(DEV)  # noqa: E731
+    notes = []
+    for dtype in ("float32", "bfloat16"):
+        cfg = NeRFConfig(near=0.5, far=4.5, compute_dtype=dtype)
+        models = {}
+        for dev in ("cpu", DEV):
+            models[dev] = NeRF(cfg)
+            models[dev].load_state_dict(state)
+            models[dev].to(dev)
+        with torch.no_grad():
+            want = render_rays(models["cpu"], o, d, cfg, draws=draws)
+            got = render_rays(models[DEV], card(o), card(d), cfg,
+                              draws=tuple(map(card, draws)))
+        err = _render_errors(got, want)
+        for k, v in err.items():
+            tol = NERF_SCENE_SMALL_TOL[dtype][("rgb", "acc", "depth").index(
+                k.split("_")[0])]
+            if not v <= tol:
+                raise AssertionError(f"[nerf-scene-small] {dtype} {k}: {v} "
+                                     f"> {tol}")
+        m = NERF_SCENE_SMALL_STEP_RAYS
+        opts = {dev: create_nerf_optimizer(models[dev], NERF_FIELD_LR)
+                for dev in models}
+        steps = {dev: nerf_train_step(
+            models[dev], opts[dev], o[:m].to(dev), d[:m].to(dev),
+            target[:m].to(dev), cfg,
+            draws=tuple(u[:m].to(dev) for u in draws)) for dev in models}
+        loss_tol, mu_tol, clear_at = NERF_SCENE_STEP_TOL[dtype]
+        loss_err = max(abs(float(steps[DEV][k]) / float(steps["cpu"][k]) - 1)
+                       for k in steps["cpu"])
+        mu_err, param_err = step_agreement(models, opts, clear_at)
+        if not (loss_err <= loss_tol and mu_err <= mu_tol
+                and param_err <= 1e-6):
+            raise AssertionError(f"[nerf-scene-small] {dtype} step: losses "
+                                 f"{loss_err}, moment {mu_err}, parameters "
+                                 f"{param_err}")
+        notes.append(f"{dtype}: render rgb {err['rgb']:.3e}, acc "
+                     f"{err['acc']:.3e}, depth {err['depth']:.3e}; step "
+                     f"losses {loss_err:.3e} relative, off-sampler moments "
+                     f"{mu_err:.3e} (norm-relative), their parameters "
+                     f"{param_err:.3e}")
+    hcfg = HashNeRFConfig()
+    hstate = init_hash_nerf(SEED + 9, hcfg, device="cpu").state_dict()
+    u = torch.rand((n, hcfg.n_samples),
+                   generator=torch.Generator().manual_seed(SEED + 10))
+    outs = {}
+    for dev in ("cpu", DEV):
+        model = HashNeRF(hcfg)
+        model.load_state_dict(hstate)
+        with torch.no_grad():
+            outs[dev] = render_rays_hash(model.to(dev), o.to(dev), d.to(dev),
+                                         hcfg, u=u.to(dev))
+    herr = _render_errors(outs[DEV], outs["cpu"])
+    for k, tol in zip(("rgb", "acc", "depth"), HASH_SMALL_TOL):
+        if not herr[k] <= tol:
+            raise AssertionError(f"[nerf-scene-small] hash {k}: {herr[k]}")
+    log(f"[nerf-scene-small] NeRFConfig() width on the card against the CPU "
+        f"(one seeded init, the same draws; {n} rays rendered, one step of "
+        f"{NERF_SCENE_SMALL_STEP_RAYS}): " + "; ".join(notes)
+        + f"; render_rays_hash at HashNeRFConfig(): rgb {herr['rgb']:.3e}, "
+        f"acc {herr['acc']:.3e}, depth {herr['depth']:.3e}")
 
 
 def sphere_scene(seed: int, n: int, near=2.0, far=6.0):
@@ -3542,6 +4028,7 @@ def main() -> int:
         scenes = phase_nerf_scenes(Path(tmp))
         mp = phase_nerf_export(Path(tmp), scenes)
         phase_nerf_export_split(mp)
+        room = scenes[NERF_SCENES[0]]
         del mp, scenes
         nerf_counts, state, nerf_call = phase_nerf_train(Path(tmp))
         phase_nerf_train_split(state)
@@ -3561,6 +4048,26 @@ def main() -> int:
     phase_nerf_small()
     rows += nerf_rows
     torch.cuda.empty_cache()
+
+    # the NeRF scene pipeline (no kernel on its path): a full-width field
+    # trained on box-room scene 0, its validation views rendered and
+    # labelled, process_scene as the entry point, the hash field, and
+    # card against CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        saved_paths = (settings.DATA_PATH, settings.EXPER_PATH)
+        settings.DATA_PATH = Path(tmp) / "data"
+        settings.EXPER_PATH = Path(tmp) / "exper"
+        field, field_cfg, pool = phase_nerf_field(room, peaks)
+        phase_nerf_render(field, field_cfg, room, peaks)
+        del field
+        torch.cuda.empty_cache()
+        phase_process_scene(Path(tmp), room)
+        phase_hash_nerf(pool, field_cfg)
+        del pool
+        settings.DATA_PATH, settings.EXPER_PATH = saved_paths
+    torch.cuda.empty_cache()
+    phase_nerf_scene_small()
+    del room
 
     # the fused tiny-NeRF serving renderer: the 10 renders per variant are
     # the drive of the main path

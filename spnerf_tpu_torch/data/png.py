@@ -2,12 +2,14 @@
 
 ``read_gray`` decodes non-interlaced 8-bit gray, gray + alpha, RGB and
 RGBA images with any of the five row filters and returns what
-``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` returns: alpha is dropped
+``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` returns; ``read_rgb`` returns
+``cv2.imread(path)`` in RGB order (gray replicated). Alpha is dropped
 and colour goes to gray as libpng's ``png_set_rgb_to_gray(0.299,
 0.587)`` computes it, (9797 R + 19234 G + 3737 B) >> 15 (truncated), a
 gray pixel keeping its value. Anything else (other bit depths, palettes,
-interlacing, a broken stream) raises. ``write_gray`` writes an 8-bit gray
-image, every row with filter 0, as the counterpart of ``cv2.imwrite``.
+interlacing, a broken stream) raises. ``write_gray`` and ``write_rgb``
+write 8-bit gray and RGB images, every row with filter 0, as the
+counterparts of ``cv2.imwrite``.
 """
 
 from __future__ import annotations
@@ -83,11 +85,12 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_gray(path) -> np.ndarray:
-    """(H, W) uint8 gray image of an 8-bit PNG file."""
+def _decode(path) -> np.ndarray:
+    """(H, W, samples per pixel) uint8 pixels of an 8-bit PNG file."""
     data = Path(path).read_bytes()
     if not data.startswith(_SIGNATURE):
-        raise ValueError(f"png: {path} is not a PNG file")
+        raise ValueError(f"png: {path} is not a PNG file (only PNG is "
+                         "decoded: there is no JPEG or other decoder)")
     header, idat = None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -108,9 +111,14 @@ def read_gray(path) -> np.ndarray:
                          f"method {filtering}, interlace {interlace}; only "
                          "0, 0, 0 are supported")
     bpp = _CHANNELS[colour]
-    pixels = _unfilter(zlib.decompress(b"".join(idat)), height, width * bpp,
-                       bpp).reshape(height, width, bpp)
-    if bpp <= 2:
+    return _unfilter(zlib.decompress(b"".join(idat)), height, width * bpp,
+                     bpp).reshape(height, width, bpp)
+
+
+def read_gray(path) -> np.ndarray:
+    """(H, W) uint8 gray image of an 8-bit PNG file."""
+    pixels = _decode(path)
+    if pixels.shape[2] <= 2:
         return np.ascontiguousarray(pixels[..., 0])
     rgb = pixels[..., :3].astype(np.uint32)
     gray = (rgb[..., 0] * _RGB_TO_GRAY[0] + rgb[..., 1] * _RGB_TO_GRAY[1]
@@ -118,9 +126,29 @@ def read_gray(path) -> np.ndarray:
     return gray.astype(np.uint8)
 
 
+def read_rgb(path) -> np.ndarray:
+    """(H, W, 3) uint8 RGB image of an 8-bit PNG file, as
+    ``cv2.imread(path)[:, :, ::-1]``: alpha dropped, gray replicated."""
+    pixels = _decode(path)
+    if pixels.shape[2] <= 2:
+        return np.repeat(pixels[..., :1], 3, axis=2)
+    return np.ascontiguousarray(pixels[..., :3])
+
+
 def _chunk(kind: bytes, body: bytes) -> bytes:
     return (struct.pack(">I", len(body)) + kind + body
             + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def _write(path, image: np.ndarray, colour: int) -> None:
+    height, width = image.shape[:2]
+    rows = np.concatenate([np.zeros((height, 1), np.uint8),
+                           image.reshape(height, -1)], axis=1)
+    header = struct.pack(">IIBBBBB", width, height, 8, colour, 0, 0, 0)
+    Path(path).write_bytes(
+        _SIGNATURE + _chunk(b"IHDR", header)
+        + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+        + _chunk(b"IEND", b""))
 
 
 def write_gray(path, image: np.ndarray) -> None:
@@ -129,10 +157,13 @@ def write_gray(path, image: np.ndarray) -> None:
     if image.ndim != 2 or image.dtype != np.uint8:
         raise ValueError(f"png: write_gray takes (H, W) uint8, got "
                          f"{image.shape} {image.dtype}")
-    height, width = image.shape
-    rows = np.concatenate([np.zeros((height, 1), np.uint8), image], axis=1)
-    header = struct.pack(">IIBBBBB", width, height, 8, 0, 0, 0, 0)
-    Path(path).write_bytes(
-        _SIGNATURE + _chunk(b"IHDR", header)
-        + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-        + _chunk(b"IEND", b""))
+    _write(path, image, 0)
+
+
+def write_rgb(path, image: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 RGB image as an 8-bit RGB PNG (filter 0)."""
+    image = np.asarray(image)
+    if image.ndim != 3 or image.shape[2] != 3 or image.dtype != np.uint8:
+        raise ValueError(f"png: write_rgb takes (H, W, 3) uint8, got "
+                         f"{image.shape} {image.dtype}")
+    _write(path, np.ascontiguousarray(image), 2)

@@ -1,5 +1,6 @@
-"""Carry weights of the flax SuperPoint and of the tiny NeRF field (as
-numpy trees) into the port.
+"""Carry weights of the flax SuperPoint, of the tiny NeRF field and of
+the scene NeRFs (``models/nerf``, ``models/hash_nerf``; as numpy trees)
+into the port.
 
 The flax tree nests ``params/<head>/<block>/Conv_0/{kernel, bias}`` with
 HWIO kernels, and ``BatchNorm_0/{scale, bias}`` beside running stats in
@@ -14,6 +15,8 @@ import numpy as np
 import torch
 
 from spnerf_tpu_torch.device import resolve_device
+from spnerf_tpu_torch.models.hash_nerf import HashNeRF, HashNeRFConfig
+from spnerf_tpu_torch.models.nerf import NeRF, NeRFConfig
 from spnerf_tpu_torch.models.superpoint import SuperPoint, conv_blocks
 from spnerf_tpu_torch.ops.serving import ServingSuperPoint
 from spnerf_tpu_torch.train.loop import TrainState, create_train_state
@@ -157,3 +160,42 @@ def tiny_field_from_jax(params: dict, device="cuda",
     device = resolve_device(device)
     return {k: _t(params[k]).to(device=device, dtype=dtype)
             for k in ("w1", "w2", "w3", "wd")}
+
+
+@torch.no_grad()
+def _dense_from_flax(layer: torch.nn.Linear, node: dict) -> None:
+    """A flax Dense's ``{kernel (in, out), bias}`` into an ``nn.Linear``."""
+    layer.weight.copy_(_t(node["kernel"]).T)
+    layer.bias.copy_(_t(node["bias"]))
+
+
+def nerf_from_jax(variables: dict, config: NeRFConfig = NeRFConfig(),
+                  device="cuda") -> NeRF:
+    """The port's ``NeRF`` holding the reference's ``init_nerf`` variables
+    (numpy tree ``{'params': {'coarse' | 'fine': {'layer<i>' | 'sigma' |
+    'feature' | 'view1' | 'rgb': {'kernel', 'bias'}}}}``), on ``device``."""
+    device = resolve_device(device)
+    model = NeRF(config)
+    for level in ("coarse", "fine"):
+        node, mlp = variables["params"][level], getattr(model, level)
+        for i, layer in enumerate(mlp.layers):
+            _dense_from_flax(layer, node[f"layer{i}"])
+        for name in ("sigma", "feature", "view1", "rgb"):
+            _dense_from_flax(getattr(mlp, name), node[name])
+    return model.to(device)
+
+
+@torch.no_grad()
+def hash_nerf_from_jax(variables: dict,
+                       config: HashNeRFConfig = HashNeRFConfig(),
+                       device="cuda") -> HashNeRF:
+    """The port's ``HashNeRF`` holding the reference's ``init_hash_nerf``
+    variables (``{'params': {'grid': {'table'}, 'sigma1', 'sigma2',
+    'color1', 'color2'}}``), on ``device``."""
+    device = resolve_device(device)
+    model = HashNeRF(config)
+    params = variables["params"]
+    model.grid.table.copy_(_t(params["grid"]["table"]))
+    for name in ("sigma1", "sigma2", "color1", "color2"):
+        _dense_from_flax(getattr(model, name), params[name])
+    return model.to(device)

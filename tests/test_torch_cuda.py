@@ -1579,3 +1579,121 @@ def test_fuse_nerf_labels_on_card_against_cpu(card):
     assert float((got.cpu() - cpu).abs().max()) <= 1e-6
     n_views = 1 + int(selected.sum()) - int(selected[5])
     assert float((cpu - probs[5] / n_views).abs().max()) > 1e-3  # splats
+
+
+# the NeRF scene pipeline (no kernel): the full-width field and the hash
+# field on the card against the CPU, one seeded init, the same draws.
+# Render tolerances (rgb, acc, depth) are tests/test_torch_nerf_model.py's
+# RENDER_TOL at full width; a full-width step as
+# tests/test_torch_nerf_scene.py's FULL_STEP_TOL holds one (float32); the
+# hash render as tests/test_torch_hash_nerf.py holds it
+NERF_FULL_TOL = {"float32": (1e-3, 2e-3, 5e-3), "bfloat16": (1e-2, 1e-2, 3e-2)}
+
+
+def _nerf_rays(n, seed):
+    rng = np.random.default_rng(seed)
+    o = torch.from_numpy(rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(torch.from_numpy(
+        rng.standard_normal((n, 3)).astype(np.float32)), dim=-1)
+    return o, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_nerf_render_rays_on_card_against_cpu(card, dtype):
+    from spnerf_tpu_torch.models.nerf import (
+        NeRF, NeRFConfig, draw_ray_uniforms, init_nerf, render_rays)
+
+    cfg = NeRFConfig(near=0.5, far=4.5, compute_dtype=dtype)
+    cpu = init_nerf(34, cfg, device="cpu")
+    gpu = NeRF(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.cuda()
+    o, d = _nerf_rays(256, 34)
+    draws = draw_ray_uniforms(256, cfg, torch.Generator().manual_seed(1),
+                              "cpu")
+    with torch.no_grad():
+        want = render_rays(cpu, o, d, cfg, draws=draws)
+        got = render_rays(gpu, o.cuda(), d.cuda(), cfg,
+                          draws=tuple(u.cuda() for u in draws))
+    for k, v in want.items():
+        tol = NERF_FULL_TOL[dtype][("rgb", "acc", "depth").index(
+            k.split("_")[0])]
+        assert float((got[k].cpu() - v).abs().max()) <= tol, k
+
+
+@pytest.mark.cuda
+def test_nerf_train_step_on_card_against_cpu(card):
+    """One full-width float32 step of 128 rays: losses within 1e-4
+    relative; on the tensors whose gradient does not pass through
+    sample_pdf, Adam's first moment within 0.1 of its norm and the
+    parameters within 1e-6 where it is above 0.1 of its largest."""
+    from spnerf_tpu_torch.models.nerf import (
+        NeRF, NeRFConfig, draw_ray_uniforms, init_nerf)
+    from spnerf_tpu_torch.tasks.nerf_task import (
+        create_nerf_optimizer, nerf_train_step)
+
+    cfg = NeRFConfig(near=0.5, far=4.5)
+    models = {"cpu": init_nerf(35, cfg, device="cpu"), "cuda": NeRF(cfg)}
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    models["cuda"].cuda()
+    o, d = _nerf_rays(128, 35)
+    target = torch.rand(128, 3, generator=torch.Generator().manual_seed(2))
+    draws = draw_ray_uniforms(128, cfg, torch.Generator().manual_seed(3),
+                              "cpu")
+    opts, out = {}, {}
+    for dev, model in models.items():
+        opts[dev] = create_nerf_optimizer(model, 5e-4)
+        out[dev] = nerf_train_step(model, opts[dev], o.to(dev), d.to(dev),
+                                   target.to(dev), cfg,
+                                   draws=tuple(u.to(dev) for u in draws))
+    for k in out["cpu"]:
+        np.testing.assert_allclose(float(out["cuda"][k]),
+                                   float(out["cpu"][k]), rtol=1e-4)
+    for (name, p), q in zip(models["cpu"].named_parameters(),
+                            models["cuda"].parameters()):
+        if not (name.startswith("fine.")
+                or name.split(".")[1] in ("feature", "view1", "rgb")):
+            continue
+        mu = opts["cpu"].state[p]["exp_avg"]
+        got = opts["cuda"].state[q]["exp_avg"].cpu()
+        assert float((got - mu).norm()) <= 0.1 * float(mu.norm()), name
+        clear = mu.abs() > 0.1 * mu.abs().max()
+        assert float((q.detach().cpu() - p.detach())[clear].abs().max()) \
+            <= 1e-6, name
+
+
+@pytest.mark.cuda
+def test_render_image_runs_on_the_card_by_default(card):
+    from spnerf_tpu_torch.models.nerf import NeRFConfig, init_nerf, render_image
+    from spnerf_tpu_torch.tasks.nerf_task import pose_orbit
+
+    cfg = NeRFConfig(depth=2, width=32, skip_layer=1, n_coarse=8, n_fine=8,
+                     near=0.5, far=3.0)
+    model = init_nerf(36, cfg)
+    assert next(model.parameters()).is_cuda
+    K = np.array([[14.0, 0, 8], [0, 14.0, 6], [0, 0, 1]], np.float32)
+    pose = pose_orbit(4, radius=1.0)[1]
+    out = render_image(model, (12, 16), K, pose, cfg, chunk=50)
+    assert out["depth"].is_cuda and out["rgb"].shape == (12, 16, 3)
+    assert torch.isfinite(out["depth"]).all()
+
+
+@pytest.mark.cuda
+def test_hash_render_on_card_against_cpu(card):
+    from spnerf_tpu_torch.models.hash_nerf import (
+        HashNeRF, HashNeRFConfig, init_hash_nerf, render_rays_hash)
+
+    cfg = HashNeRFConfig()
+    cpu = init_hash_nerf(37, cfg, device="cpu")
+    gpu = HashNeRF(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.cuda()
+    o, d = _nerf_rays(512, 37)
+    u = torch.rand((512, cfg.n_samples),
+                   generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        want = render_rays_hash(cpu, o, d, cfg, u=u)
+        got = render_rays_hash(gpu, o.cuda(), d.cuda(), cfg, u=u.cuda())
+    for k, tol in (("rgb", 1e-6), ("acc", 1e-6), ("depth", 2e-5)):
+        assert float((got[k].cpu() - want[k]).abs().max()) <= tol, k
