@@ -436,7 +436,10 @@ RENDER_REPLACES = {
     "render[bf16]": "spnerf_tpu/kernels/render_pallas.py:150",
     "render[int8]": "spnerf_tpu/kernels/render_pallas.py:425",
     "render[w64]": "spnerf_tpu/kernels/render_pallas.py:726",
-    "render[w32]": "spnerf_tpu/kernels/render_pallas.py:726"}
+    "render[w32]": "spnerf_tpu/kernels/render_pallas.py:726",
+    "render[f32]": "spnerf_tpu/kernels/render_pallas.py:150",
+    "render[f32-w64]": "spnerf_tpu/kernels/render_pallas.py:726",
+    "render[f32-w32]": "spnerf_tpu/kernels/render_pallas.py:726"}
 # kernel against plain version on the card: the same roundings and skips;
 # where the library's dots sum in another order, a sum on the other side of
 # a bf16 rounding moves one hidden activation by one ulp, which through the
@@ -446,6 +449,10 @@ RENDER_REPLACES = {
 # head's last ulps)
 RENDER_RGB_TOL = 1e-4
 RENDER_DEPTH_TOL = 1e-3
+# the float32 render (split TF32 on the tensor cores) against the plain
+# version's cuBLAS float32 products, as tests/test_torch_cuda.py holds it:
+# the sums a few float32 ulps apart, nothing rounded between the products
+RENDER_F32_TOL = (2e-5, 1e-4)
 # held-out rays of the analytic sphere: the reference package's renderer
 # gives 39.2-39.8 dB on such rays on the CPU
 QUALITY_RAYS = 65536
@@ -3313,6 +3320,17 @@ def phase_render(fields, o, d):
             s_chunk=f.s_chunk, early_stop_eps=RENDER_EPS)
         return out["rgb"], out["depth"]
 
+    # the same fields with their weights in float32 (render_f32_kernel)
+    f32 = {w: {k: v.float() for k, v in f.params.items()}
+           for w, f in fields.items()}
+
+    def rays_f32(width):
+        f = fields[width]
+        fn = render_fused_rays if width == 128 else render_fused_rays_packed
+        out = fn(f32[width], o, d, f.cfg, A=f.A, c=f.c, block=f.block,
+                 s_chunk=f.s_chunk, early_stop_eps=RENDER_EPS)
+        return out["rgb"], out["depth"]
+
     variants = [
         ("dense", "render[bf16]", lambda: rays128(early_stop_eps=0.0)),
         ("early-stop", "render[bf16]",
@@ -3324,6 +3342,9 @@ def phase_render(fields, o, d):
         ("packed-w32", "render[w32]", lambda: packed(fields[32])),
         ("int8+early-stop", "render[int8]", lambda: rk.render_fused_int8(
             oe, de, qops, df, **render_kw(f128, early_stop_eps=RENDER_EPS))),
+        ("f32+early-stop", "render[f32]", lambda: rays_f32(128)),
+        ("f32-packed-w64", "render[f32-w64]", lambda: rays_f32(64)),
+        ("f32-packed-w32", "render[f32-w32]", lambda: rays_f32(32)),
     ]
     for _, _, fn in variants:  # warm-up: library handles, allocator pools
         fn()
@@ -3422,7 +3443,8 @@ def phase_render_quality(fields, ivol):
 def phase_render_kernels(fields, ops, peaks):
     """Each render kernel against its plain version on the drive's
     operands; the first case of each kernel gives its row."""
-    int8_rate, mem_rate, _, bf16_rate = peaks
+    int8_rate, mem_rate, f32_rate, bf16_rate = peaks
+    tf32_rate = bf16_rate / 2  # dense TF32 is half the bf16 rate on Hopper
     f128 = fields[128]
     n = ops.oe.shape[0]
     cases = [("render[bf16]", "dense", f128, dict(early_stop_eps=0.0)),
@@ -3438,9 +3460,16 @@ def phase_render_kernels(fields, ops, peaks):
               dict(early_stop_eps=RENDER_EPS)),
              ("render[int8]", "dense", f128, dict(early_stop_eps=0.0)),
              ("render[int8]", "cached flags + early stop", f128,
-              dict(flags=ops.flags, early_stop_eps=RENDER_EPS))]
+              dict(flags=ops.flags, early_stop_eps=RENDER_EPS)),
+             ("render[f32]", "early stop", f128,
+              dict(early_stop_eps=RENDER_EPS)),
+             ("render[f32-w64]", "early stop", fields[64],
+              dict(early_stop_eps=RENDER_EPS)),
+             ("render[f32-w32]", "early stop", fields[32],
+              dict(early_stop_eps=RENDER_EPS))]
     rows = {}
     for key, label, f, extra in cases:
+        f32 = key.startswith("render[f32")
         W = f.width
         kw = render_kw(f, **extra)
         packed = W != 128
@@ -3456,13 +3485,16 @@ def phase_render_kernels(fields, ops, peaks):
             kernel = lambda: rk.render_fused_int8(oe, de, ops.qops, df, **kw)  # noqa: E731
             rate, unit = int8_rate, "int8"
         else:
-            weights = [f.params[k] for k in ("w1", "w2", "w3")]
+            weights = [f.params[k].float() if f32 else f.params[k]
+                       for k in ("w1", "w2", "w3")]
             head = rk.float_mlp_head(*weights, packed)
             fn = rk.render_fused_packed if packed else rk.render_fused
             if packed:
                 kw["width"] = W
             kernel = lambda: fn(oe, de, *weights, df, **kw)  # noqa: E731
             rate, unit = bf16_rate, "bf16"
+        rgb_tol, depth_tol = (RENDER_F32_TOL if f32
+                              else (RENDER_RGB_TOL, RENDER_DEPTH_TOL))
 
         def plain():
             return rk.render_plain_counted(
@@ -3486,10 +3518,10 @@ def phase_render_kernels(fields, ops, peaks):
         want_rgb, want_depth, composited = plain()
         rgb_err = float((got[0] - want_rgb).abs().max())
         depth_err = float((got[1] - want_depth).abs().max())
-        if not (rgb_err <= RENDER_RGB_TOL and depth_err <= RENDER_DEPTH_TOL):
+        if not (rgb_err <= rgb_tol and depth_err <= depth_tol):
             raise AssertionError(
                 f"{key} {label}: rgb differs by {rgb_err}, depth by "
-                f"{depth_err} (limits {RENDER_RGB_TOL}, {RENDER_DEPTH_TOL})")
+                f"{depth_err} (limits {rgb_tol}, {depth_tol})")
         share = float((got[0] != want_rgb).float().mean())
         ms = cuda_ms(kernel, reps=20, warmup=3)
         plain_ms = cuda_ms(plain, reps=3)
@@ -3502,14 +3534,28 @@ def phase_render_kernels(fields, ops, peaks):
         if kw.get("flags") is not None:
             moved += nbytes(kw["flags"])
         t_ops, t_bytes = ops_done / rate * 1e3, moved / mem_rate * 1e3
+        bounds = ""
+        if f32:
+            # the lower of the float32 CUDA cores and the same float32-grade
+            # work as three TF32 passes on the tensor cores (rows 10-11's)
+            t_f32, t_tf32 = ops_done / f32_rate * 1e3, 3 * ops_done / tf32_rate * 1e3
+            t_ops = min(t_f32, t_tf32)
+            bounds = (f"; float32 CUDA cores {t_f32:.4f} ms, three TF32 passes "
+                      f"{t_tf32:.4f} ms")
+            unit = "float32 | TF32"
         # yardstick, not a library equivalent (no single PyTorch call
         # computes a fused render): the three products alone, bf16 on the
-        # tensor cores, over every (ray, sample) row, activations through
-        # device memory
-        x = torch.zeros((n * kw["n_samples"], W), dtype=torch.bfloat16,
-                        device="cuda")
-        wb = [w.to(torch.bfloat16) for w in weights[:3]]
-        matmul_ms = cuda_ms(lambda: ((x @ wb[0]) @ wb[1]) @ wb[2], reps=5)
+        # tensor cores (float32 with TF32 off for the float32 render), over
+        # every (ray, sample) row, activations through device memory
+        dtype = torch.float32 if f32 else torch.bfloat16
+        x = torch.zeros((n * kw["n_samples"], W), dtype=dtype, device="cuda")
+        wb = [w.to(dtype) for w in weights[:3]]
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            matmul_ms = cuda_ms(lambda: ((x @ wb[0]) @ wb[1]) @ wb[2], reps=5)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
         del x
         log(f"[kernel] {key} {label}: {n} rays x {kw['n_samples']} samples, "
             f"width {W}, block {kw['block']}, chunks of {chunk} samples, "
@@ -3520,9 +3566,9 @@ def phase_render_kernels(fields, ops, peaks):
             f"device {dev_ms:.4f} ms by {how}), plain "
             f"{plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
             f"({'operations' if t_ops >= t_bytes else 'bytes'}: "
-            f"{ops_done / 1e9:.2f} GFLOP at the {unit} tensor-core rate, "
-            f"{moved / 1e6:.1f} MB), three torch.matmul in bf16 over all "
-            f"rows {matmul_ms:.4f} ms")
+            f"{ops_done / 1e9:.2f} GFLOP at the {unit} rate, "
+            f"{moved / 1e6:.1f} MB{bounds}), three torch.matmul in "
+            f"{str(dtype)[6:]} over all rows {matmul_ms:.4f} ms")
         rows.setdefault(key, {
             "name": key, "route": "cuda", "source": RENDER_SOURCE,
             "replaces": RENDER_REPLACES[key], "launches": None,
@@ -3530,6 +3576,7 @@ def phase_render_kernels(fields, ops, peaks):
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "device_ms": dev_ms,
+            **({"bound_f32_ms": t_f32, "bound_tf32_ms": t_tf32} if bounds else {}),
         })
         del got, again, want_rgb, want_depth
         torch.cuda.empty_cache()
@@ -3593,7 +3640,8 @@ def phase_render_small(fields, n: int = 300):
                 worst[f"w{width} {kind}"] = (rgb_err, depth_err)
     launched = _build.launch_counts - before
     want = {"render[f32]": 1, "render[bf16]": 1, "render[int8]": 1,
-            "render[w64]": 2, "render[w32]": 2}
+            "render[w64]": 1, "render[w32]": 1, "render[f32-w64]": 1,
+            "render[f32-w32]": 1}
     if launched != want:
         raise AssertionError(f"render-small: launches {dict(launched)}")
     differ = float((enc_q["cuda"] != enc_q["cpu"]).float().mean())

@@ -28,10 +28,12 @@
 // the forward, 0.0149 for each gradient. Nothing of size N x M reaches
 // device memory.
 //
-// Split TF32. Each float32 operand x becomes hi = cvt.rna.tf32(x) and lo =
-// cvt.rna.tf32(x - hi) (x - hi is exact; the rounding is done with two
-// integer operations, as the conversion instruction issues at a fraction
-// of that rate): |lo| <= 2^-11 |x| and |x - hi - lo| <= 2^-22 |x|. A dot is
+// Split TF32 (split and wgmma_tf32 in tf32_tc.cuh, which render.cu's
+// float32 render shares). Each float32 operand x becomes hi =
+// cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi) (x - hi is exact; the
+// rounding is done with two integer operations, as the conversion
+// instruction issues at a fraction of that rate): |lo| <= 2^-11 |x| and
+// |x - hi - lo| <= 2^-22 |x|. A dot is
 // hi.hi + hi.lo + lo.hi, each a wgmma m64nNk8 .f32.tf32.tf32 pass. The
 // tensor cores form each product exactly but add into their float32
 // accumulator truncating toward zero: per k8 step each of the 8 products
@@ -125,6 +127,7 @@
 #include <cstring>
 
 #include "conv_tc.cuh"
+#include "tf32_tc.cuh"
 
 namespace {
 
@@ -134,6 +137,8 @@ using spnerf::tc::smem_u32;
 using spnerf::tc::wgmma_commit;
 using spnerf::tc::wgmma_fence;
 using spnerf::tc::wgmma_wait0;
+using spnerf::tf32::split;
+using spnerf::tf32::wgmma_tf32;
 
 constexpr int kThreads = 256;  // two warpgroups
 constexpr int kTI = 64;        // rows of X a gradient unit (wgmma M)
@@ -192,57 +197,9 @@ struct Rows {
   }
 };
 
-// cvt.rna.tf32.f32 in two integer operations (finite x): the low 13 bits
-// rounded off the magnitude, ties away from zero. The conversion
-// instruction itself issues at a fraction of the integer rate.
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// x = hi + lo + e, |e| <= 2^-22 |x|; both TF32 values
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
-}
-
 __device__ __forceinline__ bool near_cell(float ay, float ax, float by, float bx, float radius2) {
   const float dy = __fsub_rn(by, ay), dx = __fsub_rn(bx, ax);
   return __fadd_rn(__fmul_rn(dy, dy), __fmul_rn(dx, dx)) <= radius2;
-}
-
-// D (64 x 32, float32, the wgmma accumulator layout) = A (64 x 8 TF32,
-// registers: rows g, g + 8 of the warp's 16 at columns t, t + 4) * B (8 x
-// 32, shared memory, K-major), + D unless scale_d is 0
-__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b,
-                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-}
-
-// D (64 x 64, float32) = A (64 x 8 TF32, registers as for wgmma_n32) * B
-// (8 x 64, shared memory, K-major), + D unless scale_d is 0
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
-                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 template <int KS>
@@ -408,9 +365,9 @@ __device__ __forceinline__ void dot_tile(float (&dot)[8], char* smem, int C) {
 #pragma unroll
     for (int s = 0; s < kSteps; ++s) {
       const uint32_t koff = (ch * kSteps + s) * 1024;
-      wgmma_n32(lh, lo[s], smem_desc(yh + koff, 512, 128), s > 0);
-      wgmma_n32(hl, hi[s], smem_desc(yl + koff, 512, 128), s > 0);
-      wgmma_n32(big, hi[s], smem_desc(yh + koff, 512, 128), s > 0);
+      wgmma_tf32<32>(lh, lo[s], smem_desc(yh + koff, 512, 128), s > 0);
+      wgmma_tf32<32>(hl, hi[s], smem_desc(yl + koff, 512, 128), s > 0);
+      wgmma_tf32<32>(big, hi[s], smem_desc(yh + koff, 512, 128), s > 0);
     }
     wgmma_commit();
     wgmma_wait0();
@@ -475,9 +432,9 @@ __device__ __forceinline__ void dot_own(float (&tot)[16], const char* smem, int 
 #pragma unroll
     for (int s = 0; s < kSteps; ++s) {
       const uint32_t koff = (ch * kSteps + s) * 1024;
-      wgmma_n32(lh, lo[s], smem_desc(yh + koff, 512, 128), s > 0);
-      wgmma_n32(hl, hi[s], smem_desc(yl + koff, 512, 128), s > 0);
-      wgmma_n32(big, hi[s], smem_desc(yh + koff, 512, 128), s > 0);
+      wgmma_tf32<32>(lh, lo[s], smem_desc(yh + koff, 512, 128), s > 0);
+      wgmma_tf32<32>(hl, hi[s], smem_desc(yl + koff, 512, 128), s > 0);
+      wgmma_tf32<32>(big, hi[s], smem_desc(yh + koff, 512, 128), s > 0);
     }
     wgmma_commit();
     wgmma_wait0();
@@ -743,13 +700,14 @@ hinge_bwd_tc_kernel(Operands o, HingeParams p, float* __restrict__ partials, int
       if (split_ddot) {
 #pragma unroll
         for (int s = 0; s < kJSteps; ++s)
-          wgmma_n64(acc, yh[s], smem_desc(dl + 2048 * s, 1024, 128), s > 0);
+          wgmma_tf32<64>(acc, yh[s], smem_desc(dl + 2048 * s, 1024, 128), s > 0);
       }
 #pragma unroll
       for (int s = 0; s < kJSteps; ++s)
-        wgmma_n64(acc, yl[s], smem_desc(dh + 2048 * s, 1024, 128), split_ddot || s > 0);
+        wgmma_tf32<64>(acc, yl[s], smem_desc(dh + 2048 * s, 1024, 128), split_ddot || s > 0);
 #pragma unroll
-      for (int s = 0; s < kJSteps; ++s) wgmma_n64(acc, yh[s], smem_desc(dh + 2048 * s, 1024, 128), 1);
+      for (int s = 0; s < kJSteps; ++s)
+        wgmma_tf32<64>(acc, yh[s], smem_desc(dh + 2048 * s, 1024, 128), 1);
       wgmma_commit();
       wgmma_wait0();
       fence_regs(acc);

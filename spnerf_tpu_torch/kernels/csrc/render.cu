@@ -9,10 +9,11 @@
 // kernels pad every tensor to 128 lanes, pack narrow fields block-
 // diagonally, read sigma with selector matmuls and turn the compositing
 // recurrence into triangular matmuls, all for the MXU. Here three kernels
-// serve them: render_tc_kernel the bf16 operands of every width and
-// render_s8_kernel the int8 one (on the tensor cores), render_kernel the
-// float32 ones (on the CUDA cores); the head is the (W, 4) product that
-// holds sigma and rgb, and the outputs are (N, 3) and (N,).
+// serve them, all on the tensor cores: render_tc_kernel the bf16 operands
+// of every width, render_s8_kernel the int8 one and render_f32_kernel the
+// float32 ones (each product as three TF32 passes); the head is the
+// (W, 4) product that holds sigma and rgb, and the outputs are (N, 3) and
+// (N,).
 //
 // Bound on an H100 SXM: operations. A render of 131,072 rays x 32 samples
 // at width 128 needs 2 * (2 * 128^2 + 4 * 128) multiply-adds per sample,
@@ -23,7 +24,11 @@
 // undecided sums (below), not the products, set the pace of
 // render_tc_kernel. The int8 render's products take 0.14 ms at the int8
 // rate; its sines and its two requantizing epilogues (some 8 instructions
-// a hidden value) set its pace.
+// a hidden value) set its pace. The float32 render's products are three
+// TF32 passes: 837.5 GFLOP at the TF32 rate, 1.69 ms, against 4.17 ms for
+// the 279 GFLOP on the float32 CUDA cores; beside them the sines, the
+// splits (some 4 instructions a value) and, at width 128, the making of
+// lo(w2) per M-tile (below).
 //
 // render_tc_kernel (bf16). A block of four warpgroups stays on its SM and
 // walks tiles of 8192 / W consecutive rays (64, 128 or 256), all four on
@@ -55,20 +60,17 @@
 // 128 registers a thread; 0 bytes of stack at width 64, 16 at 128 and 32
 // (at 128 the tile and chunk counters, stored and loaded once a chunk).
 //
-// render_kernel (float32). A block of 256 threads owns a tile of 8192 / W
-// rays and walks their samples in order; both weight matrices sit in
-// shared memory, the activations in two k-major buffers ([k][ray], row
-// stride rays + 4 words); a thread of the product loop owns 4 rays x 8
-// columns and runs float32 FMAs (the tensor cores form no exact float32
-// product), three barriers a sample. One thread per ray computes the
-// 4-wide head and carries the compositing state.
+// render_f32_kernel (float32): the same frame on wgmma m64nNk8 .tf32, see
+// "float32 on the TF32 tensor cores" below for its layout, its shared
+// memory at width 128 and its numerics.
 //
 // Skipping. A flag covers `block` consecutive rays and `chunk` samples; a
 // ray composites a chunk only if its own flag is set, whatever tile it is
 // in. The early stop works on the tile: a chunk is computed only if some
 // ray of the tile whose flag is set still has transmittance above eps (for
 // the packed variant: optical depth below -log eps); the first chunk always
-// is. Rays past N are neither read nor written.
+// is. Rays past N are not written (nor read, but by the float32 kernel,
+// which reads the last ray's operands for them).
 //
 // Numerics follow the reference's order with explicitly rounded float32
 // operations (nvcc would contract a * b + c into an FMA, which moves the
@@ -84,7 +86,8 @@
 // could round a hidden activation (or the packed head) to different bf16
 // values, the kernel sums that element again by FMAs in k order (see
 // "the library's order where it decides a rounding" below); the float32
-// kernel adds by FMAs in k order throughout.
+// kernel rounds nothing and sums each product as split TF32 passes, within
+// a few float32 ulps of the library's sums.
 // int8: round half to even (rintf's rounding, by adding 1.5 * 2^23), clip
 // before the round, acc * m2 + df * ia2 as two rounded products and a
 // rounded sum; int32 sums are exact in any order. No --use_fast_math.
@@ -94,10 +97,13 @@
 
 #include "conv_tc_s8.cuh"
 #include "render_common.cuh"
+#include "tf32_tc.cuh"
 
 namespace {
 
+using spnerf::render::kSineBig;
 using spnerf::render::sine;
+using spnerf::render::sine_fast;
 using spnerf::render::stage_weights;
 using spnerf::render::wgmma_bf16;
 using spnerf::tc::fence_regs;
@@ -108,7 +114,6 @@ using spnerf::tc::wgmma_commit;
 using spnerf::tc::wgmma_fence;
 using spnerf::tc::wgmma_wait0;
 
-constexpr int kThreads = 256;
 constexpr int kTileElems = 8192;  // rays of a tile x width
 
 // ---- shared by the three kernels ----
@@ -837,188 +842,353 @@ render_tc_kernel(const float* __restrict__ oe, const float* __restrict__ de,
   }
 }
 
-// ---- float32 on the CUDA cores ----
+// ---- float32 on the TF32 tensor cores ----
+//
+// render_f32_kernel: render_tc_kernel's frame with float32 operands, each
+// product as three TF32 passes (tf32_tc.cuh). A block of NWG warpgroups
+// stays on its SM and walks tiles of 8192 / W rays (the early stop's
+// tile), all on one tile, which votes on each chunk; an M-tile is a group
+// of RPM rays at SPR consecutive samples (TcTile's group_ray and
+// row_sample), a warpgroup's G groups in turn. The B operands sit in
+// shared memory as prepare_render_f32 lays them out (kernels/render.py):
+// w1, w2 and w3 (its four columns at n = 0, 2, 4, 6 of 8) K-major in
+// 8 x 4 core matrices, raw float32 words, whose top 19 bits the tensor
+// cores read as hi, and lo = tf32_lo of each, made as they are staged. A
+// tf32 m64k8 A fragment holds columns t and t + 4 of rows g and g + 8, an
+// m64nN accumulator columns 8 j + 2 t + {0, 1}: so column c of k-step s
+// carries hidden unit 8 s + 2 (c % 4) + c / 4 (render.prepare_render_f32),
+// the rows of w1, w2 and w3 are permuted by that map on the host, and each
+// layer's sums become the next layer's A fragments in the thread's own
+// registers (ReLU, + df, and the split off of lo). The encoding reads the
+// ray's oe and de at units 8 s + 2 t + {0, 1}, one float2 each a k-step,
+// from global memory (L1; the next tile is prefetched into L2), and writes
+// the sines straight into the fragments: sine_fast, with no branch, so
+// that the 64 sines of a thread interleave (with sine()'s Payne-Hanek
+// branch in each the width-128 kernel took twice as long), and sine() again
+// only where an argument reaches kSineBig. The head is an n8 product; the
+// compositing is render_tc_kernel's, by shuffles; no barrier separates the
+// samples.
+//
+// Shared memory at width 128: w1 and w2 split into hi and lo would take
+// 256 KB, past the 227 KB a block may have. So the raw w1 and w2 and
+// lo(w1) stay resident (192 KB), and each warpgroup makes lo(w2) itself,
+// one k-step (4 KB) at a time, into a ring of kSlots slots of its own
+// (fence.proxy.async, then its named barrier), the wgmma of chunk c -
+// kSlots waited for first: no warpgroup waits for another, and a chunk's
+// lo is made while the tensor cores run the chunks before (216 KB in all).
+// Widths 64 and 32 keep lo(w1), lo(w2) resident (64 KB and 16 KB).
+// Registers: at width 128 a thread holds an M-tile's A as raw and lo words
+// (128) and an m64n128 accumulator (64), so a block runs two warpgroups
+// (255 registers, 8 bytes of stack); at 64 and 32 four (128 registers, 16
+// bytes of stack at 64). tools/render_variants.py times the alternatives
+// (making lo(w1) too; two warpgroups at 64; the sines with their branch)
+// and the cost of each phase.
+//
+// Numerics: per k-step lo(x).w and x.lo(w), then x.w over all of K, into
+// one accumulator: the small terms are summed while the running sum is
+// small, so that the tensor cores' truncating adds cut them at their own
+// scale, and x.w comes on top as one chain. The split drops lo.lo and the
+// roundings of lo (at most 2^-19 of |x w| a product); with the truncation
+// a product lies within 8 float32 ulps of its sum of |products| of the
+// exact one (tests/test_torch_render_f32_tc.py, through the model of
+// tests/_render_f32_tc.py), and renders within a tenth of the float32
+// tolerances of the library's. The sine and its argument are the other
+// kernels'.
+
+using spnerf::tf32::tf32_lo;
+using spnerf::tf32::wgmma_tf32;
+using spnerf::tf32::wgmma_wait;
+
+constexpr int kCK = 1;      // k-steps of a chunk of lo(w)
+constexpr int kSlots = 2;   // ring slots of a warpgroup (width 128)
+constexpr int kRes128 = 1;  // layers whose lo(w) is resident at width 128
 
 template <int W>
-struct Tile {
-  static constexpr int TR = kTileElems / W;    // rays of a tile
-  static constexpr int TRP = TR + 4;           // row stride of a k-major buffer
-  static constexpr int TX = W / 8;             // threads across the columns
-  static constexpr int LTX = TX < 8 ? TX : 8;  // of them within a warp
-  static constexpr int LTY = 32 / LTX;
-  static constexpr int WTX = TX / LTX;
-  static constexpr int UNITS = TR * W / 4 / kThreads;  // (ray, 4 k) per thread
+struct F32Tile {
+  static constexpr int NWG = W == 128 ? 2 : 4;          // warpgroups of a block
+  static constexpr int TR = kTileElems / W;             // rays of a tile
+  static constexpr int SPR = TcTile<W>::SPR;            // samples of a ray in an M-tile
+  static constexpr int RPM = 64 / SPR;                  // rays of an M-tile (a group)
+  static constexpr int G = TR / (RPM * NWG);            // groups of a warpgroup
+  static constexpr int KS = W / 8;                      // k-steps of a layer
+  // layers whose lo(w) is resident (made as it is staged); the others'
+  // is made per chunk into each warpgroup's ring
+  static constexpr int NRES = W == 128 ? kRes128 : 2;
+  static constexpr uint32_t SBO = 32 * W;               // bytes between N-adjacent core matrices
+  static constexpr int MAT = W * W * 4;                 // bytes of w1's (w2's) B operand
+  static constexpr int HEAD = W * 8 * 4;                // bytes of w3's
+  static constexpr int SLOT = kCK * 8 * W * 4;          // bytes of a ring slot
+  // raw w1, w2, w3; lo(w3); the resident lo(w); each warpgroup's slots
+  static constexpr int OFF_LO3 = 2 * MAT + HEAD;
+  static constexpr int OFF_LO = OFF_LO3 + HEAD;
+  static constexpr int OFF_RING = OFF_LO + NRES * MAT;
+  static constexpr int SMEM = OFF_RING + (NRES < 2 ? NWG * kSlots * SLOT : 0);
 };
 
-struct ThreadPos {
-  int tx, ty;
-};
-
-template <int W>
-__device__ __forceinline__ ThreadPos thread_pos() {
-  using T = Tile<W>;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  return {(warp % T::WTX) * T::LTX + lane % T::LTX,
-          (warp / T::WTX) * T::LTY + lane / T::LTX};
+// tf32_lo of four words
+__device__ __forceinline__ uint4 tf32_lo4(uint4 v) {
+  return make_uint4(tf32_lo(__uint_as_float(v.x)), tf32_lo(__uint_as_float(v.y)),
+                    tf32_lo(__uint_as_float(v.z)), tf32_lo(__uint_as_float(v.w)));
 }
 
-// The encoding's operands of this thread's (ray, 4 k) units, kept in
-// registers for the tile's life: unit u = tid + 256 i is ray u % TR (so a
-// warp writes 32 consecutive rays of one k: no bank conflict) and k group
-// u / TR. Rays past N read zeros.
+// Slot of chunk c's lo(w) (k-steps kCK c .. kCK c + kCK - 1 of the raw B at
+// raw): element (k, n) of the chunk at word ((n / 8) KG + k / 4) 32 + (n %
+// 8) 4 + k % 4, KG = 2 kCK, the layout of the whole matrix cut to the
+// chunk's 8 kCK rows (stride byte offset 128 KG). A warpgroup's 128
+// threads make its 2 kCK W 16-byte words.
+constexpr int kKG = 2 * kCK;  // core matrices of a slot's column group
+
 template <int W>
-__device__ __forceinline__ void load_units(const float* __restrict__ oe,
-                                           const float* __restrict__ de, int row0, int N,
-                                           float4 (&oe_r)[Tile<W>::UNITS],
-                                           float4 (&de_r)[Tile<W>::UNITS]) {
-  using T = Tile<W>;
+__device__ __forceinline__ void make_lo_chunk(const uint4* raw, uint4* slot, int c) {
+  const int wtid = threadIdx.x % kWG;
 #pragma unroll
-  for (int i = 0; i < T::UNITS; ++i) {
-    const int u = threadIdx.x + kThreads * i;
-    const int ray = row0 + u % T::TR, k4 = u / T::TR;
-    oe_r[i] = de_r[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (ray < N) {
-      const size_t at = static_cast<size_t>(ray) * W + 4 * k4;
-      oe_r[i] = __ldg(reinterpret_cast<const float4*>(oe + at));
-      de_r[i] = __ldg(reinterpret_cast<const float4*>(de + at));
-    }
+  for (int i = 0; i < kKG * W / kWG; ++i) {
+    const int q = wtid + kWG * i;
+    slot[q] = tf32_lo4(raw[((q / (8 * kKG)) * (W / 4) + kKG * c + (q / 8) % kKG) * 8 + q % 8]);
   }
 }
 
-// out[c][ray] = relu(sum_k in[k][ray] * wm[k][c] (+ df[ray][c])) for the
-// tile, k in order; in and out are k-major buffers.
-template <int W, bool ADD_DF>
-__device__ __forceinline__ void float_layer(const float* __restrict__ in,
-                                            const float* __restrict__ wm,
-                                            float* __restrict__ out,
-                                            const float* __restrict__ df, int row0, int N,
-                                            ThreadPos p) {
-  using T = Tile<W>;
-  float acc[4][8];
+// acc = x @ w (K = 8 KS, N columns) for the warpgroup's M-tile: a the raw
+// words of x, l their tf32_lo; w's raw B at b (k-step ks at b + 256 ks,
+// stride byte offset sbo), lo(w)'s at lo(c, e) for k-step kCK c + e; before(c)
+// runs before chunk c is issued. The small passes per chunk, then x.w.
+template <int KS, int N, typename Lo, typename Before>
+__device__ __forceinline__ void tf32_product(float (&acc)[N / 2], uint32_t (&a)[KS][4],
+                                             uint32_t (&l)[KS][4], uint32_t b, uint32_t sbo,
+                                             Lo lo, Before before) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int k = 0; k < W; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(in + k * T::TRP + 4 * p.ty);
-    const float4 b0 = *reinterpret_cast<const float4*>(wm + k * W + 4 * p.tx);
-    const float4 b1 = *reinterpret_cast<const float4*>(wm + k * W + W / 2 + 4 * p.tx);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  for (int c = 0; c < KS / kCK; ++c) {
+    before(c);
+    wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int e = 0; e < kCK; ++e)
+      wgmma_tf32<N>(acc, l[kCK * c + e], smem_desc(b + (kCK * c + e) * 256, 128, sbo), 1);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    for (int e = 0; e < kCK; ++e) wgmma_tf32<N>(acc, a[kCK * c + e], lo(c, e), 1);
+    wgmma_commit();
   }
+  wgmma_fence();
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int c0 = half * (W / 2) + 4 * p.tx;
-    if constexpr (ADD_DF) {
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma_tf32<N>(acc, a[ks], smem_desc(b + ks * 256, 128, sbo), 1);
+  wgmma_commit();
+  wgmma_wait0();
+  fence_regs(acc);
+  fence_frags(a);
+  fence_frags(l);
+}
+
+// The next product's A from a layer's sums: x = relu(acc + df) (df(j):
+// the ray's df at units 8 j + 2 t + {0, 1}, or zeros); accumulator
+// register 4 j + 2 h + e (row g + 8 h, unit 8 j + 2 t + e) goes to fragment
+// register h + 2 e of k-step j, the slot the permuted rows of w expect.
+template <int KS, typename Df>
+__device__ __forceinline__ void relu_frags(const float (&acc)[4 * KS], uint32_t (&a)[KS][4],
+                                           uint32_t (&l)[KS][4], Df df) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int ray = row0 + 4 * p.ty + i;
-        float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (ray < N) d = __ldg(reinterpret_cast<const float4*>(df + static_cast<size_t>(ray) * W + c0));
-        acc[i][half * 4 + 0] = __fadd_rn(acc[i][half * 4 + 0], d.x);
-        acc[i][half * 4 + 1] = __fadd_rn(acc[i][half * 4 + 1], d.y);
-        acc[i][half * 4 + 2] = __fadd_rn(acc[i][half * 4 + 2], d.z);
-        acc[i][half * 4 + 3] = __fadd_rn(acc[i][half * 4 + 3], d.w);
+  for (int j = 0; j < KS; ++j) {
+    const float2 f = df(j);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float v = fmaxf(__fadd_rn(acc[4 * j + 2 * h + e], e ? f.y : f.x), 0.f);
+        a[j][h + 2 * e] = __float_as_uint(v);
+        l[j][h + 2 * e] = tf32_lo(v);
       }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float4 v;
-      v.x = fmaxf(acc[0][half * 4 + j], 0.f);
-      v.y = fmaxf(acc[1][half * 4 + j], 0.f);
-      v.z = fmaxf(acc[2][half * 4 + j], 0.f);
-      v.w = fmaxf(acc[3][half * 4 + j], 0.f);
-      *reinterpret_cast<float4*>(out + (c0 + j) * T::TRP + 4 * p.ty) = v;
-    }
   }
 }
 
-// Float32 render: W in {128, 64, 32}, PACKED the compositing form of
-// render_fused_packed.
+// float32 render: W in {128, 64, 32}; PACKED the compositing form of
+// render_fused_packed (the float32 head is not rounded). b the three raw B
+// operands of prepare_render_f32.
 template <int W, bool PACKED>
-__global__ void __launch_bounds__(kThreads, 1)
-render_kernel(const float* __restrict__ oe, const float* __restrict__ de,
-              const float* __restrict__ df, const float* __restrict__ w1,
-              const float* __restrict__ w2, const float* __restrict__ w3,
-              const int* __restrict__ flags, float* __restrict__ rgb_out,
-              float* __restrict__ depth_out, int N, int n_samples, int chunk, int block,
-              int early_stop, float jitter, float near, float dt, float cut) {
-  using T = Tile<W>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* w1s = reinterpret_cast<float*>(smem_raw);
-  float* w2s = w1s + W * W;
-  float* w3s = w2s + W * W;  // (W, 4)
-  float* buf = w3s + W * 4;  // two k-major buffers of W * TRP
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * T::TR;
-  const ThreadPos p = thread_pos<W>();
-
-  for (int i = tid; i < W * W; i += kThreads) {
-    w1s[i] = w1[i];
-    w2s[i] = w2[i];
+__global__ void __launch_bounds__(F32Tile<W>::NWG * kWG, 1)
+render_f32_kernel(const float* __restrict__ oe, const float* __restrict__ de,
+                  const float* __restrict__ df, const uint4* __restrict__ b,
+                  const int* __restrict__ flags,
+                  float* __restrict__ rgb_out, float* __restrict__ depth_out, int N, int n_tiles,
+                  int n_chunks, int chunk, int block, int early_stop, float jitter, float near,
+                  float dt, float cut) {
+  using T = F32Tile<W>;
+  constexpr int KS = T::KS, G = T::G, SPR = T::SPR;
+  {
+    uint4* s = reinterpret_cast<uint4*>(smem_tc);
+    for (int i = threadIdx.x; i < T::OFF_LO3 / 16; i += blockDim.x) s[i] = __ldg(b + i);
+    for (int i = threadIdx.x; i < T::HEAD / 16; i += blockDim.x)
+      s[T::OFF_LO3 / 16 + i] = tf32_lo4(__ldg(b + 2 * T::MAT / 16 + i));
+    for (int i = threadIdx.x; i < T::NRES * T::MAT / 16; i += blockDim.x)
+      s[T::OFF_LO / 16 + i] = tf32_lo4(__ldg(b + i));
   }
-  for (int i = tid; i < W * 4; i += kThreads) w3s[i] = w3[i];
-
-  float4 oe_r[T::UNITS], de_r[T::UNITS];
-  load_units<W>(oe, de, row0, N, oe_r, de_r);
-
-  const int my_ray = row0 + tid;
-  const bool has_ray = tid < T::TR && my_ray < N;
-  Composite<PACKED> comp;
-  const int n_chunks = n_samples / chunk;
-  int cur = 0;
+  // the generic stores above, before wgmma reads them through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
+  const uint32_t sbase = smem_u32(smem_tc);
 
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    const bool mine = has_ray && flag_set(flags, my_ray, block, n_chunks, ci);
-    const bool want = mine && (!early_stop || ci == 0 || comp.open(cut));
-    if (!__syncthreads_or(want)) continue;
-    for (int s = ci * chunk; s < (ci + 1) * chunk; ++s) {
-      const float t_s = sample_t(s, jitter, near, dt);
-      float* x = buf + cur * (W * T::TRP);
-      float* y = buf + (cur ^ 1) * (W * T::TRP);
-#pragma unroll
-      for (int i = 0; i < T::UNITS; ++i) {
-        const int u = tid + kThreads * i;
-        const int r = u % T::TR, k4 = u / T::TR;
-        const float o4[4] = {oe_r[i].x, oe_r[i].y, oe_r[i].z, oe_r[i].w};
-        const float d4[4] = {de_r[i].x, de_r[i].y, de_r[i].z, de_r[i].w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          x[(4 * k4 + j) * T::TRP + r] = sine(__fadd_rn(o4[j], __fmul_rn(t_s, d4[j])));
+  const int wg = threadIdx.x / kWG, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  // product L's lo(w) for k-step kCK c + e: resident, or the warpgroup's
+  // slot of chunk c (made by ring(L) before the chunk is issued)
+  auto lo_of = [&](int L) {
+    return [&, L](int c, int e) {
+      if (L >= T::NRES)
+        return smem_desc(sbase + T::OFF_RING + (kSlots * wg + c % kSlots) * T::SLOT + e * 256,
+                         128, 128 * kKG);
+      return smem_desc(sbase + T::OFF_LO + L * T::MAT + (kCK * c + e) * 256, 128, T::SBO);
+    };
+  };
+  auto ring = [&](int L) {
+    return [&, L](int c) {
+      if (L >= T::NRES) {
+        // the slot's last reader, chunk c - kSlots, is the group kSlots - 1
+        // before the last one committed (the previous product's were
+        // waited for)
+        if (c >= kSlots) wgmma_wait<kSlots - 1>();
+        make_lo_chunk<W>(reinterpret_cast<const uint4*>(smem_tc + L * T::MAT),
+                         reinterpret_cast<uint4*>(smem_tc + T::OFF_RING +
+                                                  (kSlots * wg + c % kSlots) * T::SLOT),
+                         c);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        wg_sync(wg);
       }
-      __syncthreads();
-      float_layer<W, false>(x, w1s, y, nullptr, row0, N, p);
-      __syncthreads();
-      float_layer<W, true>(y, w2s, x, df, row0, N, p);
-      __syncthreads();
-      if (mine) {
-        float head[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-        for (int k = 0; k < W; ++k) {
-          const float a = x[k * T::TRP + tid];
-          const float4 b = *reinterpret_cast<const float4*>(w3s + 4 * k);
-          head[0] = fmaf(a, b.x, head[0]);
-          head[1] = fmaf(a, b.y, head[1]);
-          head[2] = fmaf(a, b.z, head[2]);
-          head[3] = fmaf(a, b.w, head[3]);
-        }
-        comp.add(head, t_s, dt);
-      }
-      // the next sample encodes into the other buffer, which nothing reads
-      // after this sample's second layer
-      cur ^= 1;
+    };
+  };
+  auto nothing = [](int) {};
+
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = opaque(tile) * T::TR;
+    // the thread's ray of group gi (recomputed where used, not held)
+    auto ray_of = [&](int gi) {
+      return opaque(row0 + (wg * G + gi) * T::RPM + TcTile<W>::group_ray(warp, g));
+    };
+    const int next = row0 + gridDim.x * T::TR;
+    if (threadIdx.x == 0 && next < N) {
+      const uint32_t bytes = static_cast<uint32_t>(min(T::TR, N - next)) * W * 4;
+      prefetch_l2(oe + static_cast<size_t>(next) * W, bytes);
+      prefetch_l2(de + static_cast<size_t>(next) * W, bytes);
+      prefetch_l2(df + static_cast<size_t>(next) * W, bytes);
     }
-    if (mine) comp.end_chunk();
+    Composite<PACKED> comp[G];
+#pragma unroll 1
+    for (int ci = 0; ci < n_chunks; ++ci) {
+      bool mine[G], want = false;
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        const int ray = ray_of(gi);
+        mine[gi] = ray < N && flag_set(flags, ray, block, n_chunks, ci);
+        want = want || (mine[gi] && (!early_stop || ci == 0 || comp[gi].open(cut)));
+      }
+      if (!__syncthreads_or(want)) continue;
+      const int s_end = (ci + 1) * chunk;
+      // the groups in a loop that is not unrolled (one copy of the sample
+      // step's code), each group's state taken out of the arrays and put
+      // back by selects
+#pragma unroll 1
+      for (int gi = 0; gi < G; ++gi) {
+        Composite<PACKED> cg = comp[0];
+        bool mg = mine[0];
+#pragma unroll
+        for (int k = 1; k < G; ++k) {
+          if (gi == k) {
+            cg = comp[k];
+            mg = mine[k];
+          }
+        }
+        // the ray's operands at units 8 s + 2 t4 + {0, 1} of k-step s as
+        // float2 4 s; rays past N read the last ray's
+        const size_t at = static_cast<size_t>(min(ray_of(gi), N - 1)) * W + 2 * t4;
+        const float2* oe2 = reinterpret_cast<const float2*>(oe + at);
+        const float2* de2 = reinterpret_cast<const float2*>(de + at);
+        const float2* df2 = reinterpret_cast<const float2*>(df + at);
+#pragma unroll 1
+        for (int s = ci * chunk; s < s_end; s += SPR) {
+          const float t[2] = {sample_t(s + TcTile<W>::row_sample(opaque(g), 0), jitter, near, dt),
+                              sample_t(s + TcTile<W>::row_sample(opaque(g), 1), jitter, near, dt)};
+          // the encoding: register h + 2 e of k-step ks is row g + 8 h
+          // (time t[h]) at unit 8 ks + 2 t4 + e. sine_fast, a block with
+          // no branch; the rare arguments past kSineBig again by sine()
+          uint32_t a[KS][4], l[KS][4];
+          bool big = false;
+          auto encode = [&](auto put) {
+#pragma unroll
+            for (int ks = 0; ks < KS; ++ks) {
+              asm volatile("" ::: "memory");  // one k-step's operands at a time
+              const float2 o = __ldg(oe2 + 4 * ks), d = __ldg(de2 + 4 * ks);
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                put(ks, h, __fadd_rn(o.x, __fmul_rn(t[h], d.x)));
+                put(ks, h + 2, __fadd_rn(o.y, __fmul_rn(t[h], d.y)));
+              }
+            }
+          };
+          encode([&](int ks, int i, float x) {
+            const float y = sine_fast(x);
+            big |= fabsf(x) >= kSineBig;
+            a[ks][i] = __float_as_uint(y);
+            l[ks][i] = tf32_lo(y);
+          });
+          if (big) {
+            encode([&](int ks, int i, float x) {
+              if (fabsf(x) >= kSineBig) {
+                const float y = sine(x);
+                a[ks][i] = __float_as_uint(y);
+                l[ks][i] = tf32_lo(y);
+              }
+            });
+          }
+          float acc[W / 2];
+          tf32_product<KS, W>(acc, a, l, sbase, T::SBO, lo_of(0), ring(0));
+          relu_frags<KS>(acc, a, l, [](int) { return make_float2(0.f, 0.f); });
+          tf32_product<KS, W>(acc, a, l, sbase + T::MAT, T::SBO, lo_of(1), ring(1));
+          relu_frags<KS>(acc, a, l, [&](int j) { return __ldg(df2 + 4 * j); });
+          float hd[4];
+          tf32_product<KS, 8>(
+              hd, a, l, sbase + 2 * T::MAT, T::SBO,
+              [&](int c, int e) {
+                return smem_desc(sbase + T::OFF_LO3 + (kCK * c + e) * 256, 128, T::SBO);
+              },
+              nothing);
+          // lane 4 g + t4 holds head column t4 of rows g (hd 0) and g + 8
+          // (hd 2), samples s + row_sample(g, h), and forms part t4 of
+          // both. The parts of sample s + i of the thread's ray are in
+          // lanes src + k, row r: SPR 2, this quad, r = i; SPR 4, quad
+          // g % 4 + 4 (i % 2), r = i / 2.
+          float own[2], sig[2];
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            own[h2] = Composite<PACKED>::part(hd[2 * h2], t4, dt);
+            sig[h2] = Composite<PACKED>::sigma_dt(hd[2 * h2], dt);  // read from t4 0 only
+          }
+#pragma unroll
+          for (int i = 0; i < SPR; ++i) {
+            const int src = SPR == 2 ? lane & ~3 : 4 * ((g & 3) + 4 * (i % 2));
+            const int r = SPR == 2 ? i : i / 2;
+            float p[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              p[k] = __shfl_sync(0xffffffffu, r == 0 ? own[0] : own[1], src + k);
+            float sg = 0.f;
+            if constexpr (PACKED) sg = __shfl_sync(0xffffffffu, r == 0 ? sig[0] : sig[1], src);
+            if (mg && s + i < s_end) cg.add_parts(p, sg, sample_t(s + i, jitter, near, dt));
+          }
+        }
+        if (mg) cg.end_chunk();
+#pragma unroll
+        for (int k = 0; k < G; ++k)
+          if (gi == k) comp[k] = cg;
+      }
+    }
+    // one lane of the ray's lanes stores it
+    const bool storer = t4 == 0 && (SPR == 2 || g < 4);
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      const int ray = ray_of(gi);
+      if (storer && ray < N) comp[gi].store(rgb_out, depth_out, ray);
+    }
   }
-
-  if (has_ray) comp.store(rgb_out, depth_out, my_ray);
 }
 
 // ---- int8 on the int8 tensor cores ----
@@ -1309,25 +1479,6 @@ struct RenderArgs {
   float jitter, near, dt, cut;
 };
 
-template <int W, bool PACKED>
-cudaError_t launch_float(const RenderArgs& a, cudaStream_t s) {
-  using T = Tile<W>;
-  const size_t smem = sizeof(float) * (2 * W * W + 4 * W + 2 * W * T::TRP);
-  auto kernel = render_kernel<W, PACKED>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const int tiles = (a.N + T::TR - 1) / T::TR;
-  kernel<<<tiles, kThreads, smem, s>>>(
-      static_cast<const float*>(a.oe), static_cast<const float*>(a.de),
-      static_cast<const float*>(a.df), static_cast<const float*>(a.w1),
-      static_cast<const float*>(a.w2), static_cast<const float*>(a.w3),
-      static_cast<const int*>(a.flags), static_cast<float*>(a.rgb),
-      static_cast<float*>(a.depth), a.N, a.n_samples, a.chunk, a.block, a.early_stop, a.jitter,
-      a.near, a.dt, a.cut);
-  return cudaGetLastError();
-}
-
 // one block per SM: it stays and walks the tiles
 cudaError_t sm_count(int* n) {
   int dev = 0;
@@ -1358,34 +1509,74 @@ cudaError_t launch_tc(const RenderArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+template <int W, bool PACKED>
+cudaError_t launch_f32(const RenderArgs& a, cudaStream_t s) {
+  using T = F32Tile<W>;
+  auto kernel = render_f32_kernel<W, PACKED>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int tiles = (a.N + T::TR - 1) / T::TR;
+  kernel<<<tiles < sms ? tiles : sms, T::NWG * kWG, T::SMEM, s>>>(
+      static_cast<const float*>(a.oe), static_cast<const float*>(a.de),
+      static_cast<const float*>(a.df), static_cast<const uint4*>(a.w1),
+      static_cast<const int*>(a.flags),
+      static_cast<float*>(a.rgb), static_cast<float*>(a.depth), a.N, tiles,
+      a.n_samples / a.chunk, a.chunk, a.block, a.early_stop, a.jitter, a.near, a.dt, a.cut);
+  return cudaGetLastError();
+}
+
 bool bad_sizes(int N, int n_samples, int chunk, int block) {
   return N <= 0 || n_samples <= 0 || chunk <= 0 || n_samples % chunk != 0 || block <= 0;
 }
 
 }  // namespace
 
-// oe, de, df (N, W) float32; w1, w2 (W, W) and w3 (W, 4) float32 (bf16 = 0)
-// or bf16 (bf16 = 1); flags int32 (ceil(N / block), n_samples / chunk) or
-// null; rgb (N, 3), depth (N,) float32. W 128 composites by the alpha
-// recurrence (cut = eps); W 64 or 32 by the packed variant's telescoped
-// form (cut = -log eps). early_stop 0 turns the early stop off. bf16 runs
-// on the tensor cores (render_tc_kernel), float32 on the CUDA cores.
+// oe, de, df (N, W) float32; w1, w2 (W, W) and w3 (W, 4) bf16; flags
+// int32 (ceil(N / block), n_samples / chunk) or null; rgb (N, 3), depth
+// (N,) float32. W 128 composites by the alpha recurrence (cut = eps); W 64
+// or 32 by the packed variant's telescoped form (cut = -log eps).
+// early_stop 0 turns the early stop off. render_tc_kernel.
 extern "C" int render_launch(const void* oe, const void* de, const void* df, const void* w1,
                              const void* w2, const void* w3, const void* flags, void* rgb,
-                             void* depth, int N, int W, int bf16, int n_samples, int chunk,
-                             int block, int early_stop, float jitter, float near, float dt,
-                             float cut, void* stream) {
+                             void* depth, int N, int W, int n_samples, int chunk, int block,
+                             int early_stop, float jitter, float near, float dt, float cut,
+                             void* stream) {
   if (bad_sizes(N, n_samples, chunk, block)) return static_cast<int>(cudaErrorInvalidValue);
   const RenderArgs a{oe, de, df, w1, w2, w3, flags, rgb, depth, N, n_samples, chunk,
                      block, early_stop, jitter, near, dt, cut};
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (W == 128)
-    err = bf16 ? launch_tc<128, false>(a, s) : launch_float<128, false>(a, s);
+    err = launch_tc<128, false>(a, s);
   else if (W == 64)
-    err = bf16 ? launch_tc<64, true>(a, s) : launch_float<64, true>(a, s);
+    err = launch_tc<64, true>(a, s);
   else if (W == 32)
-    err = bf16 ? launch_tc<32, true>(a, s) : launch_float<32, true>(a, s);
+    err = launch_tc<32, true>(a, s);
+  return static_cast<int>(err);
+}
+
+// The float32 render (render_f32_kernel): the same operands and modes as
+// render_launch, the weights as prepare_render_f32 lays them out (w1, w2
+// and w3's B operands, raw float32, 2 W^2 + 8 W words).
+extern "C" int render_f32_launch(const void* oe, const void* de, const void* df, const void* b,
+                                 const void* flags, void* rgb, void* depth, int N, int W,
+                                 int n_samples, int chunk, int block, int early_stop,
+                                 float jitter, float near, float dt, float cut, void* stream) {
+  if (bad_sizes(N, n_samples, chunk, block)) return static_cast<int>(cudaErrorInvalidValue);
+  const RenderArgs a{oe, de, df, b, nullptr, nullptr, flags, rgb, depth, N, n_samples, chunk,
+                     block, early_stop, jitter, near, dt, cut};
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (W == 128)
+    err = launch_f32<128, false>(a, s);
+  else if (W == 64)
+    err = launch_f32<64, true>(a, s);
+  else if (W == 32)
+    err = launch_f32<32, true>(a, s);
   return static_cast<int>(err);
 }
 

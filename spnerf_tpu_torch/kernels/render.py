@@ -33,9 +33,12 @@ Rays past N are not padded and rendered, so they never keep a tile open.
 
 Each wrapper launches its kernel on CUDA tensors (or raises) and runs its
 plain version, which repeats the kernel's arithmetic, roundings, flags and
-early stop in PyTorch ops, on CPU tensors. ``pack_field_params`` and the
-selection matrices of the packed TPU kernel are lane layout for the MXU
-and have no counterpart here.
+early stop in PyTorch ops, on CPU tensors. With float32 weights the kernel
+forms each product as three TF32 passes on the tensor cores (float32-grade
+sums, in another order than the library's); ``prepare_render_f32`` lays
+its weights out on every call. ``pack_field_params`` and the selection
+matrices of the packed TPU kernel are lane layout for the MXU and have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -189,28 +192,59 @@ def _zeros_like_if_none(df, oe):
     return torch.zeros_like(oe) if df is None else df
 
 
+def prepare_render_f32(w1, w2, w3) -> torch.Tensor:
+    """float32 (W, W) w1, w2 and (W, >= 4) w3 as the float32 render
+    kernel's B operands, on their device, one after another (2 W^2 + 8 W
+    float32): w1, w2 and w3 (its four columns at n = 0, 2, 4, 6 of 8),
+    each with its rows permuted (row 8 g + 4 b + a holds row 8 g + 2 a + b:
+    in k-step s, column c of the kernel's A fragments carries hidden unit
+    8 s + 2 (c % 4) + c // 4, the unit its float32 accumulator holds
+    there, ``csrc/render.cu``), K-major in 8 x 4
+    core matrices of 128 contiguous bytes, element (k, n) of a (K, N)
+    matrix at ``((n // 8) * (K // 4) + k // 4) * 32 + (n % 8) * 4 + k % 4``
+    (a TF32 wgmma descriptor's leading byte offset 128, stride byte offset
+    32 K). The kernel makes lo (``csrc/tf32_tc.cuh`` tf32_lo) of each
+    word beside it."""
+    width = w1.shape[0]
+    head = torch.nn.functional.pad(w3[:, :4, None], (0, 1)).reshape(width, 8)
+    out = torch.empty((2 * width * width + 8 * width,), dtype=torch.float32,
+                      device=w1.device)
+    at = 0
+    for m in (w1, w2, head):
+        K, N = m.shape
+        # row 8 g + 2 a + b to 8 g + 4 b + a, laid out as
+        # [n // 8][k // 4][n % 8][k % 4]
+        out[at:at + K * N].view(N // 8, K // 8, 2, 8, 4).copy_(
+            m.reshape(K // 8, 4, 2, N // 8, 8).permute(3, 0, 2, 4, 1))
+        at += K * N
+    return out
+
+
 def _launch_float(name, oe, de, w1, w2, w3, df, jitter, width, n_samples,
                   near, far, block, chunk, flags, early_stop_eps, packed):
     dtype = _check_weights(name, (w1, w2, w3), width)
     N = oe.shape[0]
     oe, de, df = oe.contiguous(), de.contiguous(), df.contiguous()
-    w1, w2 = w1.contiguous(), w2.contiguous()
-    w3 = w3[:, :4].contiguous()
     flags = None if flags is None else flags.contiguous()
     rgb = torch.empty((N, 3), dtype=torch.float32, device=oe.device)
     depth = torch.empty((N,), dtype=torch.float32, device=oe.device)
-    tensors = dict(oe=oe, de=de, df=df, w1=w1, w2=w2, w3=w3, rgb=rgb,
-                   depth=depth)
+    if dtype == torch.bfloat16:
+        fn, weights = "render_launch", dict(
+            w1=w1.contiguous(), w2=w2.contiguous(), w3=w3[:, :4].contiguous())
+    else:
+        _build.check_cuda(name, w1=w1.contiguous(), w2=w2.contiguous(),
+                          w3=w3.contiguous())
+        fn, weights = "render_f32_launch", dict(b=prepare_render_f32(w1, w2, w3))
+    tensors = dict(oe=oe, de=de, df=df, **weights, rgb=rgb, depth=depth)
     if flags is not None:
         tensors["flags"] = flags
     _build.check_cuda(name, **tensors)
     early = early_stop_eps > 0
     cut = 0.0 if not early else (
         float(-np.log(early_stop_eps)) if packed else float(early_stop_eps))
-    _build.launch("render", "render_launch", oe, de, df, w1, w2, w3, flags,
-                  rgb, depth, N, width, int(dtype == torch.bfloat16),
-                  n_samples, chunk, block, int(early), float(jitter),
-                  float(near), (far - near) / n_samples, cut)
+    _build.launch("render", fn, oe, de, df, *weights.values(), flags, rgb,
+                  depth, N, width, n_samples, chunk, block, int(early),
+                  float(jitter), float(near), (far - near) / n_samples, cut)
     return rgb, depth
 
 
@@ -307,7 +341,8 @@ def render_fused_packed(oe, de, w1, w2, w3, df=None, jitter=0.5, *, width,
     out = _launch_float("render_fused_packed", oe, de, w1, w2, w3, df, jitter,
                         width, n_samples, near, far, block, chunk, flags,
                         early_stop_eps, packed=True)
-    _build.launch_counts[f"render[w{width}]"] += 1
+    key = f"w{width}" if w1.dtype == torch.bfloat16 else f"f32-w{width}"
+    _build.launch_counts[f"render[{key}]"] += 1
     return out
 
 

@@ -15,7 +15,8 @@ HA's 80 views of 30 x 40 cells; the render kernels at the operands of
 ``chip_smoke.py``'s render drive: the committed sphere fields in bf16 on
 131,072 orbit rays x 32 samples, width 128 dense, with the early stop and
 with cached occupancy flags and the early stop, widths 64 and 32 and int8
-with the early stop, the same widths with float32 weights, and beside
+with the early stop, the same widths with float32 weights (with their
+bounds: on the float32 CUDA cores and as three TF32 passes), and beside
 int8 its yardstick, three ``torch._int_mm`` over all (ray, sample) rows,
 beside each float32 width three float32 ``torch.matmul`` (TF32 off);
 ``conv3x3`` / ``packed_conv3x3`` at the per-layer route's instances,
@@ -513,7 +514,7 @@ def _render_cases():
     yield (f"render[int8] yardstick: three torch._int_mm {n}",
            lambda x=x: [torch._int_mm(x, w) for w in wq], None, "")
     del x
-    for width in (128, 64, 32):  # the float32 instances (render_kernel)
+    for width in (128, 64, 32):  # the float32 instances (render_f32_kernel)
         f = fields[width]
         ws = [w.float() for w in f.ws]
         if width == 128:
@@ -523,7 +524,7 @@ def _render_cases():
             call = (lambda f=f, ws=ws, width=width: R.render_fused_packed(
                 f.oe, f.de, *ws, f.df, width=width, **f.kw))
         yield (f"render[f32{'' if width == 128 else f'-w{width}'}] early stop "
-               f"{n}", call, None, "render")
+               f"{n}", call, None, "render", f32_render_bounds(f, ws))
         # its yardstick: the three products alone in float32 (TF32 off)
         # over every (ray, sample) row
         x = torch.zeros((RENDER_RAYS * RENDER_SAMPLES, ws[0].shape[0]),
@@ -532,6 +533,29 @@ def _render_cases():
                f"three float32 torch.matmul {n}",
                lambda x=x, ws=ws: _matmuls_f32(x, ws), None, "")
         del x
+
+
+# an H100 SXM's data-sheet rates: float32 on the CUDA cores, TF32 dense
+F32_RATE, TF32_RATE = 67e12, 494.5e12
+
+
+def f32_render_bounds(f, ws) -> dict:
+    """The float32 render's bounds at a drive field's operands, from the
+    (ray, sample) pairs its early stop leaves (the plain version's count):
+    2 (2 W^2 + 4 W) FLOP a pair on the float32 CUDA cores, and the same
+    float32-grade work as three TF32 passes on the tensor cores (rows
+    10-11's two yardsticks), in ms."""
+    from spnerf_tpu_torch.kernels import render as R
+
+    W, packed = ws[0].shape[0], ws[0].shape[0] != 128
+    kw = dict(f.kw)
+    chunk = kw.pop("s_chunk") * (128 // W if packed else 1)
+    pairs = R.render_plain_counted(
+        f.oe, f.de, f.df, R.float_mlp_head(*ws, packed), width=W, chunk=chunk,
+        flags=None, packed=packed, **kw)[2]
+    flop = 2 * pairs * (2 * W * W + 4 * W)
+    return {"pairs": pairs, "bound_f32_ms": flop / F32_RATE * 1e3,
+            "bound_tf32_ms": 3 * flop / TF32_RATE * 1e3}
 
 
 def _matmuls_f32(x, ws):
@@ -749,7 +773,7 @@ def main(argv=None) -> int:
                       "warp", "render", "conv3x3", "descriptor_loss"])
     match = [m for m in args.match.split(",") if m]
     results = []
-    for label, raw, prepared, symbol in _cases():
+    for label, raw, prepared, symbol, *extra in _cases():
         if match and not any(m in label for m in match):
             continue
         for kind, fn in (("raw", raw), ("prepared", prepared)):
@@ -763,7 +787,8 @@ def main(argv=None) -> int:
                    "device_ms": own if kernels else None,
                    "device_all_ms": (sum(ms for ms, _ in kernels.values())
                                      if kernels else None),
-                   "kernels": {_short(k): v for k, v in kernels.items()}}
+                   "kernels": {_short(k): v for k, v in kernels.items()},
+                   **(extra[0] if extra else {})}
             results.append(row)
             print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()

@@ -650,6 +650,116 @@ def test_render_sine_equals_sinf_on_card(card):
     assert int(count) == 0
 
 
+@pytest.mark.cuda
+def test_tf32_wgmma_reads_the_top_19_bits_on_card(card):
+    """The float32 render hands the tensor cores raw float32 words as TF32
+    operands (csrc/tf32_tc.cuh): one wgmma m64n8k8 .tf32 (the probe in
+    csrc/render_probe.cu) on 256 problems of full float32 mantissas over
+    2^-12 .. 2^4 gives the bits it gives on the words cut toward zero to
+    TF32, and not those of the words rounded to nearest TF32."""
+    from spnerf_tpu_torch.kernels import _build
+
+    rng = np.random.default_rng(32)
+    n = 256
+
+    def spread(shape):
+        return (rng.choice([-1.0, 1.0], shape) * rng.uniform(1, 2, shape)
+                * 2.0 ** rng.integers(-12, 5, shape)).astype(np.float32)
+
+    a = torch.from_numpy(spread((n, 64, 8))).cuda()
+    b = torch.from_numpy(spread((n, 8, 8))).cuda()
+    c = torch.from_numpy(spread((n, 64, 8))).cuda()
+
+    def probe(x, y):
+        d = torch.empty_like(c)
+        _build.launch("render_probe", "render_tf32_probe", x, y, c, d, n)
+        return d
+
+    def cut(x):
+        return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+    def rounded(x):
+        return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    raw, trunc, near = probe(a, b), probe(cut(a), cut(b)), probe(rounded(a), rounded(b))
+    torch.cuda.synchronize()
+    assert torch.equal(raw, trunc)
+    assert not torch.equal(raw, near)
+
+
+def _f32_case(width, N, rng):
+    """A random float32 field hot enough for the early stop, flags with
+    zeros over 48-ray blocks, on the card: (weights, (oe, de, df), keywords
+    of render_fused or render_fused_packed)."""
+    p = {k: (rng.standard_normal((width, width)) * 0.1).astype(np.float32)
+         for k in ("w1", "w2", "w3")}
+    p["w3"][:, 0] = np.abs(p["w3"][:, 0]) * {128: 1.0, 64: 6.0, 32: 25.0}[width] + 0.05
+    oe = rng.uniform(-3, 3, (N, width)).astype(np.float32)
+    de = rng.uniform(-2, 2, (N, width)).astype(np.float32)
+    oe[:, 0], de[:, 0] = np.pi / 2, 0.0  # the constant-one lane
+    df = (rng.standard_normal((N, width)) * 0.1).astype(np.float32)
+    df[(np.arange(N) // 50) % 2 == 0] += 0.5
+    flags = rng.uniform(size=(-(-N // 48), 4)) > 0.3
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    kw = dict(jitter=0.37, n_samples=16, near=2.0, far=6.0, block=48,
+              s_chunk=4 if width == 128 else 4 * width // 128,
+              flags=t(flags.astype(np.int32)), early_stop_eps=1e-3)
+    if width != 128:
+        kw["width"] = width
+    return [t(p[k]) for k in ("w1", "w2", "w3")], (t(oe), t(de), t(df)), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 64, 32])
+@pytest.mark.parametrize("N", [1, 63, 65, 333, 1000])
+def test_render_f32_ragged_n_on_card(card, width, N):
+    """The float32 render (render_f32_kernel) at N around and off its
+    tiles (64, 128 and 256 rays) and the M-tiles' groups, against its
+    plain version at the float32 tolerances (rgb 2e-5, depth 1e-4), two
+    launches bit-equal."""
+    from spnerf_tpu_torch.kernels import _build
+    from spnerf_tpu_torch.kernels import render as R
+
+    ws, (oe, de, df), kw = _f32_case(width, N, np.random.default_rng(140 + N))
+    kernel, plain = ((R.render_fused, R.render_fused_plain) if width == 128 else
+                     (R.render_fused_packed, R.render_fused_packed_plain))
+    key = "render[f32]" if width == 128 else f"render[f32-w{width}]"
+    before = _build.launch_counts[key]
+    got, again = kernel(oe, de, *ws, df, **kw), kernel(oe, de, *ws, df, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[key] == before + 2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    want = plain(oe, de, *ws, df, **kw)
+    rgb_err = float((got[0] - want[0]).abs().max())
+    depth_err = float((got[1] - want[1]).abs().max())
+    print(f"render f32 w{width} N {N}: rgb {rgb_err:.3e} depth {depth_err:.3e}")
+    assert rgb_err <= 2e-5 and depth_err <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 64, 32])
+def test_render_f32_at_the_drive_operands_on_card(card, width):
+    """The float32 render on a committed sphere field (its bf16 weights as
+    float32) at the render drive's 131,072 orbit rays x 32 samples, early
+    stop on, against its plain version on the card (cuBLAS's float32
+    products, TF32 off) at the float32 tolerances."""
+    from spnerf_tpu_torch.kernels import render as R
+    from spnerf_tpu_torch.tools.kernel_times import render_drive
+
+    f = render_drive()[2][width]
+    ws = [w.float() for w in f.ws]
+    kw = dict(f.kw) if width == 128 else dict(f.kw, width=width)
+    kernel, plain = ((R.render_fused, R.render_fused_plain) if width == 128 else
+                     (R.render_fused_packed, R.render_fused_packed_plain))
+    got = kernel(f.oe, f.de, *ws, f.df, **kw)
+    want = plain(f.oe, f.de, *ws, f.df, **kw)
+    assert float(want[0].max()) > 0.05
+    rgb_err = float((got[0] - want[0]).abs().max())
+    depth_err = float((got[1] - want[1]).abs().max())
+    print(f"render f32 drive w{width}: rgb {rgb_err:.3e} depth {depth_err:.3e}")
+    assert rgb_err <= 2e-5 and depth_err <= 1e-4
+
+
 def _bf16_scaled_ulps(got, want, floor):
     from _torch_port import bf16_scaled_ulps
     return bf16_scaled_ulps(got.cpu(), want.cpu(), floor)
