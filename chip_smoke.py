@@ -50,13 +50,17 @@ Phases, each of which raises on failure (nothing is caught):
    probabilities at the 1,024-candidate cut, and time the defined tie
    order's top-k against a plain ``torch.topk``; then the fused bicubic
    descriptor sampler (``kernels/desc_sample.py``, on no serving path of
-   the reference) on three operand sets with the launch counters at 0:
+   the reference) on five operand sets with the launch counters at 0:
    one request's ``desc_raw`` and candidates, the shapes of
    ``benchmarks/micro_desc_sample.py`` (K 1,000) and border and corner
-   points; held against its plain version (within 1e-6 on the unit
-   vectors, two runs bit-equal) and the request's own one-hot output
-   (within 2e-6), timed beside the plain version, the one-hot product,
-   ``F.grid_sample`` + normalize and the bound;
+   points (the ring instance), the request's map in float32 and a 480 x
+   960 frame's bf16 map (the gather instance), each counted under the
+   instance its shape takes, with the share of an image's points that
+   the ring's fullest band holds; held against its plain version (within 1e-6
+   on the unit vectors, two runs bit-equal) and the request's own one-hot
+   output (within 2e-6), timed (and its device time by the profiler)
+   beside the plain version, the one-hot product, ``F.grid_sample`` +
+   normalize and the bound;
 5e. export HPatches bundles with ``tasks.export.export_hpatches`` through
    the parity path (``superpoint_inference``, float32, TF32 off) at
    ``magicpoint_repeatability.yaml`` (16 synthetic pairs, 240 x 320) and
@@ -466,7 +470,6 @@ SMALL_RENDER_TOL = {"f32": (5e-6, 2e-5), "bf16": (2e-4, 5e-4),
                     "int8": (5e-4, 2e-3)}
 
 # row 8, the fused bicubic sampler, on the slice's sampling operands
-DESC_KEY = "desc_sample[bf16]"
 DESC_SOURCE = "spnerf_tpu_torch/kernels/csrc/desc_sample.cu"
 DESC_REPLACES = "spnerf_tpu/kernels/desc_sample_pallas.py:96"
 DESC_MICRO_K = 1000  # benchmarks/micro_desc_sample.py's K
@@ -3720,7 +3723,10 @@ def desc_sample_work(desc, pts, grid_size):
 
 
 def desc_sample_sets(infer, images, cfg):
-    """The three operand sets of ``[desc-sample]``: (label, map, points)."""
+    """The operand sets of ``[desc-sample]``: (label, map, points). The
+    request's bf16 map, the micro-benchmark's and the borders take the
+    ring instance, the request's map in float32 and a 480 x 960 frame's
+    bf16 map the gather."""
     out = infer.serving(images, softmax=True)
     pts, _, _ = detect_from_probs_padded(
         out["probs"], cfg.grid_size, min_prob=cfg.det_thresh, size=cfg.nms,
@@ -3744,10 +3750,35 @@ def desc_sample_sets(infer, images, cfg):
         torch.stack([edge, edge], -1), torch.stack([h + edge, w + edge], -1),
         torch.rand((300 - 154, 2), generator=gen, device="cuda")
         * torch.tensor([h + 24.0, w + 24.0], device="cuda") - 12.0])
+    # a 480 x 960 frame's map: rows too wide for the ring's five slots
+    wide = torch.randn((8, Hc, 2 * Wc, C), generator=gen,
+                       device="cuda").bfloat16()
+    wide_pts = pts[:8] * torch.tensor([1.0, 2.0], device="cuda")
     return [("slice request", out["desc_raw"], pts),
             ("micro_desc_sample shapes", micro, micro_pts),
             ("borders", out["desc_raw"][:2].contiguous(),
-             border[None].expand(2, -1, -1).contiguous())]
+             border[None].expand(2, -1, -1).contiguous()),
+            ("float32 map", out["desc_raw"].float(), pts),
+            ("480 x 960 map", wide, wide_pts.contiguous())]
+
+
+def band_shares(d, p, grid_size):
+    """The ring's largest band's share of an image's points, as the mean
+    over images: (with equal row bands, with the kernel's bands), at the
+    default band count."""
+    B, Hc = d.shape[:2]
+    bands = ds.default_bands(
+        B, Hc, torch.cuda.get_device_properties(d.device).multi_processor_count)
+    base = ds.base_rows(p[..., 0], Hc, grid_size).cpu()
+    shares = []
+    for plan in (lambda counts: ds.band_rows([0] * Hc, bands),
+                 lambda counts: ds.band_rows(counts, bands)):
+        top = 0.0
+        for b in base:
+            counts = torch.bincount(b, minlength=Hc).tolist()
+            top += max(sum(counts[r0:r1]) for r0, r1, _, _ in plan(counts))
+        shares.append(top / (B * p.shape[1]))
+    return bands, shares
 
 
 def phase_desc_sample(infer, images, cfg, peaks):
@@ -3755,9 +3786,13 @@ def phase_desc_sample(infer, images, cfg, peaks):
     counters at 0, then hold it against its plain version (within
     DESC_PLAIN_TOL, two runs bit-equal), the request's own one-hot output
     (within DESC_ONEHOT_TOL) and time it beside the plain version, the
-    one-hot product, ``grid_sample`` + normalize and the bound."""
+    one-hot product, ``grid_sample`` + normalize and the bound; one kernel
+    row per instance, from its first operand set, with the device time
+    (``torch.profiler``)."""
     _, mem_rate, f32_rate, _ = peaks
     sets = desc_sample_sets(infer, images, cfg)
+    keys = [ds.instance(d.dtype, *d.shape[1:], p.shape[1])[0]
+            for _, d, p in sets]
     _, _, _, onehot = infer(images)
     torch.cuda.synchronize()
     _build.launch_counts.clear()
@@ -3765,12 +3800,12 @@ def phase_desc_sample(infer, images, cfg, peaks):
             for _, d, p in sets]
     torch.cuda.synchronize()
     counts = dict(_build.launch_counts)
-    if counts != {DESC_KEY: len(sets)}:
+    if counts != dict(collections.Counter(keys)):
         raise AssertionError(f"[desc-sample] launches {counts}, expected "
-                             f"{len(sets)} of {DESC_KEY}")
+                             f"those of the instances the shapes take, {keys}")
     log(f"[desc-sample] launches: {json.dumps(counts)}")
-    row = None
-    for (label, d, p), got in zip(sets, outs):
+    rows = {}
+    for (label, d, p), got, key in zip(sets, outs, keys):
         fn = lambda: ds.sample_descriptors_fused(d, p, cfg.grid_size)  # noqa: E731
         want = ds.sample_descriptors_fused_plain(d, p, cfg.grid_size)
         err = float((got - want).abs().max())
@@ -3787,6 +3822,11 @@ def phase_desc_sample(infer, images, cfg, peaks):
                 f"points {tuple(p.shape)}: max |kernel - plain| {err:.3e}, "
                 f"two runs equal, max |norm - 1| {norm_err:.3e}, grid_sample "
                 f"off by {lib_err:.3e}")
+        if key == ds.RING[0]:
+            bands, (equal, kernel) = band_shares(d, p, cfg.grid_size)
+            text += (f", {bands} bands an image: the largest holds "
+                     f"{equal:.3f} of its points with equal rows, "
+                     f"{kernel:.3f} with the kernel's split")
         if label == "slice request":
             onehot_err = float((got - onehot).abs().max())
             if onehot_err > DESC_ONEHOT_TOL:
@@ -3796,11 +3836,12 @@ def phase_desc_sample(infer, images, cfg, peaks):
         log(text)
         if label == "borders":
             continue
-        before = _build.launch_counts[DESC_KEY]
+        before = _build.launch_counts[key]
         ms = cuda_ms(fn, reps=20, warmup=3)
-        if _build.launch_counts[DESC_KEY] != before + 23:
+        if _build.launch_counts[key] != before + 23:
             raise AssertionError("[desc-sample] the counter did not rise by "
                                  "1 per call")
+        dev_ms, how = device_ms(fn, "desc_sample")
         plain_ms = cuda_ms(lambda: ds.sample_descriptors_fused_plain(
             d, p, cfg.grid_size), reps=3)
         onehot_ms = cuda_ms(lambda: sample_descriptors_onehot(
@@ -3811,18 +3852,22 @@ def phase_desc_sample(infer, images, cfg, peaks):
         t_ops, t_bytes = 2 * macs / f32_rate * 1e3, moved / mem_rate * 1e3
         bound = max(t_ops, t_bytes)
         by = "operations" if t_ops >= t_bytes else "bytes"
-        log(f"[kernel] {DESC_KEY} ({label}): kernel {ms:.4f} ms (median of "
-            f"20), plain {plain_ms:.4f} ms, one-hot product {onehot_ms:.4f} "
-            f"ms, grid_sample + normalize {lib_ms:.4f} ms, bound {bound:.4f} "
-            f"ms ({by}, {2 * macs / 1e9:.3f} GFLOP, {moved / 1e6:.1f} MB)")
-        if row is None:  # the path's shapes: the slice request's operands
-            row = {"name": DESC_KEY, "route": "cuda", "source": DESC_SOURCE,
-                   "replaces": DESC_REPLACES, "launches": counts[DESC_KEY],
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+        log(f"[kernel] {key} ({label}): kernel {ms:.4f} ms (median of "
+            f"20; device {dev_ms:.4f} ms, {how}), plain {plain_ms:.4f} ms, "
+            f"one-hot product {onehot_ms:.4f} ms, grid_sample + normalize "
+            f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}, "
+            f"{2 * macs / 1e9:.3f} GFLOP, {moved / 1e6:.1f} MB)")
+        if key not in rows:  # the instance's first set: for the ring, the
+            # slice request's operands
+            rows[key] = {
+                "name": key, "route": "cuda", "source": DESC_SOURCE,
+                "replaces": DESC_REPLACES, "launches": counts[key],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                "device_ms": dev_ms}
         del want, d_nchw
         torch.cuda.empty_cache()
-    return [row]
+    return list(rows.values())
 
 
 # ------------------------------------------------------ HPatches export

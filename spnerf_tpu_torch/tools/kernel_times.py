@@ -25,8 +25,13 @@ sums and its two gradients, dA and dB, each alone, at the training
 step's shape (B 2, N = M = 1,200, C 256) and at 480 x 640 (N 4,800), on
 ``hinge_operands``' seeded descriptors and pair homographies, and at
 480 x 640 on ``nerf_hinge_operands``' depth-reprojected cells with 64
-non-finite and 64 far-off ones (``--match desc_loss``); ``--match
-conv12,warp`` keeps the cases whose label holds one of the substrings)
+non-finite and 64 far-off ones (``--match desc_loss``); the fused
+descriptor sampler (row 8) at a request's sampling operands, batch 64, a
+60 x 80 x 256 map and K 1,024 seeded points spread as a request's
+candidates or 1,000 spread evenly, bf16 and float32, and a 480 x 960
+frame's bf16 map at batch 8 (``--match desc_sample``);
+``--match conv12,warp`` keeps the cases whose label holds one of the
+substrings)
 it prints, in ms per call:
 
 * ``wrapper``: CUDA events around one call of the wrapper, median of 20
@@ -683,6 +688,61 @@ def _cases(gen_seed: int = 0):
     yield from _conv3x3_cases(rng, t, mb)
     yield from _render_cases()
     yield from _desc_loss_cases()
+    yield from _desc_sample_cases()
+
+
+# row 8 at a [slice] request's sampling operands (batch 64, 480 x 640: a
+# 60 x 80 x 256 map, 1,024 candidates) and micro_desc_sample.py's K 1,000
+DESC_SAMPLE_SHAPE, DESC_SAMPLE_KS = (64, 60, 80, 256), (1024, 1000)
+HBM_RATE = 3.35e12  # an H100 SXM's data-sheet bytes/s
+
+
+def desc_sample_points(rng, B, Hc, Wc, K, spread):
+    """(B, K, 2) float32 (y, x) pixels over frames of Hc x Wc cells of 8
+    px: ``uniform``, as ``micro_desc_sample.py`` draws them, or
+    ``request``, crowded into blobs of rows as a [slice] request's
+    candidates are (``chip_smoke.py``'s ``[desc-sample]`` prints how
+    unevenly they fill two equal bands): a point's cell row is drawn with
+    weights of a gamma(1) draw per 6 rows times a gamma(2) draw per row,
+    its pixels within the row and across the width uniformly."""
+    h, w = Hc * 8 - 1, Wc * 8 - 1
+    if spread == "uniform":
+        y = rng.uniform(0, h, (B, K))
+    else:
+        weight = (np.repeat(rng.gamma(1.0, size=(B, -(-Hc // 6))), 6, 1)[:, :Hc]
+                  * rng.gamma(2.0, size=(B, Hc)))
+        rows = np.stack([rng.choice(Hc, K, p=p / p.sum()) for p in weight])
+        y = np.clip(8 * rows + rng.uniform(3.5, 11.5, (B, K)), 0, h)
+    return np.stack([y, rng.uniform(0, w, (B, K))], -1).astype(np.float32)
+
+
+def _desc_sample_cases():
+    """Row 8 (``sample_descriptors_fused``, normalized) on seeded maps: the
+    bf16 map at K 1,024 with points spread as a request's candidates and
+    at K 1,000 spread evenly, the same map in float32, and a 480 x 960
+    frame's bf16 map (rows too wide for the ring: the gather instance),
+    each with its bound (map, points and float32 output moved once at
+    3.35 TB/s)."""
+    from spnerf_tpu_torch.kernels import desc_sample as ds
+
+    rng = np.random.default_rng(17)
+    B, Hc, Wc, C = DESC_SAMPLE_SHAPE
+    cases = [("bf16", Wc, DESC_SAMPLE_KS[0], "request"),
+             ("bf16", Wc, DESC_SAMPLE_KS[1], "uniform"),
+             ("f32", Wc, DESC_SAMPLE_KS[0], "request"),
+             ("bf16 480x960", 2 * Wc, DESC_SAMPLE_KS[0], "request")]
+    for kind, wc, K, spread in cases:
+        b = 8 if wc != Wc else B
+        desc = torch.from_numpy(rng.standard_normal(
+            (b, Hc, wc, C)).astype(np.float32)).cuda().to(
+                torch.float32 if kind == "f32" else torch.bfloat16)
+        pts = torch.from_numpy(desc_sample_points(rng, b, Hc, wc, K, spread)).cuda()
+        moved = (desc.numel() * desc.element_size() + pts.numel() * 4
+                 + b * K * C * 4)
+        yield (f"desc_sample {kind} {b}x{Hc}x{wc}x{C} K {K} {spread}",
+               lambda desc=desc, pts=pts: ds.sample_descriptors_fused(desc, pts),
+               None, "desc_sample",
+               {"bytes": moved, "bound_ms": moved / HBM_RATE * 1e3})
 
 
 ROUTES = [  # label, mode, fused, batch
@@ -770,7 +830,8 @@ def main(argv=None) -> int:
     from spnerf_tpu_torch.kernels import _build
 
     _build.build_all(["conv12_fused", "double_conv3x3", "head", "dot_bias_act",
-                      "warp", "render", "conv3x3", "descriptor_loss"])
+                      "warp", "render", "conv3x3", "descriptor_loss",
+                      "desc_sample"])
     match = [m for m in args.match.split(",") if m]
     results = []
     for label, raw, prepared, symbol, *extra in _cases():

@@ -960,48 +960,91 @@ def test_layer_wrappers_raise_on_what_the_kernels_do_not_take(card):
                        zeros[:16])
 
 
-# (B, Hc, Wc, C, K, map dtype, normalize): C 256 on the path; C 20 and 300
-# take the element-by-element loads (C % 8 != 0), C 300 and 512 two chunks
+# (B, Hc, Wc, C, K, map dtype, normalize, points, instance): C 256 on the
+# path (60 x 80 at B 1, 2 and 64); C 20 and 300 take the element-by-element
+# loads (C % 8 != 0), C 300 and 512 two chunks; Hc 3 has fewer rows than
+# the ring's five slots; Wc 120 x C 256 is too wide for five slots. Points
+# "spread" cover every border and lie up to 5 px beyond it, "one row" all
+# share one base row, "corner" all lie beyond the bottom-right corner.
+RING_KEY, GATHER_KEY, F32_KEY = ("desc_sample[bf16]",
+                                 "desc_sample[bf16-gather]",
+                                 "desc_sample[f32]")
 DESC_SAMPLE_CASES = {
-    "bf16_256": (2, 15, 20, 256, 1000, torch.bfloat16, True),
-    "bf16_256_raw": (2, 15, 20, 256, 77, torch.bfloat16, False),
-    "f32_64": (3, 7, 9, 64, 33, torch.float32, True),
-    "bf16_20": (1, 6, 5, 20, 50, torch.bfloat16, True),
-    "f32_300": (2, 4, 6, 300, 40, torch.float32, True),
-    "bf16_512_raw": (1, 5, 7, 512, 20, torch.bfloat16, False),
+    "bf16_256": (2, 15, 20, 256, 1000, torch.bfloat16, True, "spread",
+                 RING_KEY),
+    "bf16_256_raw": (2, 15, 20, 256, 77, torch.bfloat16, False, "spread",
+                     RING_KEY),
+    "path_b1": (1, 60, 80, 256, 1024, torch.bfloat16, True, "spread",
+                RING_KEY),
+    "path_b2_raw": (2, 60, 80, 256, 1024, torch.bfloat16, False, "spread",
+                    RING_KEY),
+    "path_b64": (64, 60, 80, 256, 1024, torch.bfloat16, True, "spread",
+                 RING_KEY),
+    "path_b64_raw": (64, 60, 80, 256, 1024, torch.bfloat16, False, "spread",
+                     RING_KEY),
+    "one_row_raw": (3, 60, 80, 256, 500, torch.bfloat16, False, "one row",
+                    RING_KEY),
+    "corner_raw": (2, 60, 80, 256, 300, torch.bfloat16, False, "corner",
+                   RING_KEY),
+    "k1": (4, 60, 80, 256, 1, torch.bfloat16, True, "spread", RING_KEY),
+    "hc3_raw": (2, 3, 9, 64, 200, torch.bfloat16, False, "spread", RING_KEY),
+    "wide_gather_raw": (2, 10, 120, 256, 300, torch.bfloat16, False,
+                        "spread", GATHER_KEY),
+    "wide_gather": (2, 10, 120, 256, 300, torch.bfloat16, True, "spread",
+                    GATHER_KEY),
+    "f32_64": (3, 7, 9, 64, 33, torch.float32, True, "spread", F32_KEY),
+    "f32_path_raw": (2, 60, 80, 256, 1024, torch.float32, False, "spread",
+                     F32_KEY),
+    "bf16_20": (1, 6, 5, 20, 50, torch.bfloat16, True, "spread", GATHER_KEY),
+    "bf16_20_raw": (2, 6, 5, 20, 50, torch.bfloat16, False, "spread",
+                    GATHER_KEY),
+    "f32_300": (2, 4, 6, 300, 40, torch.float32, True, "spread", F32_KEY),
+    "bf16_512_raw": (1, 5, 7, 512, 20, torch.bfloat16, False, "spread",
+                     RING_KEY),
+    "bf16_512": (2, 5, 7, 512, 20, torch.bfloat16, True, "spread", RING_KEY),
 }
+
+
+def _desc_sample_operands(B, Hc, Wc, C, K, dtype, points, seed=31):
+    rng = np.random.default_rng(seed)
+    desc = torch.from_numpy(rng.standard_normal((B, Hc, Wc, C)).astype(
+        np.float32)).to(dtype).cuda()
+    h, w = Hc * 8 - 1, Wc * 8 - 1
+    if points == "spread":
+        pts = np.stack([rng.uniform(-5, h + 5, (B, K)),
+                        rng.uniform(-5, w + 5, (B, K))], -1)
+        pts[:, :4] = [[0, 0], [h, w], [0, w], [h, 0]][:K]
+    elif points == "one row":
+        pts = np.stack([np.full((B, K), 8.0 * (Hc // 2) + 2.75),
+                        rng.uniform(-5, w + 5, (B, K))], -1)
+    else:  # beyond the bottom-right corner
+        pts = np.stack([rng.uniform(h, h + 40, (B, K)),
+                        rng.uniform(w, w + 40, (B, K))], -1)
+    return desc, torch.from_numpy(pts.astype(np.float32)).cuda()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", list(DESC_SAMPLE_CASES))
 def test_desc_sample_matches_plain_on_card(card, kind):
-    """Unnormalized rows equal to the plain version (same weights, same
-    bf16 roundings, the same float32 sum order); unit vectors within 1e-6
-    (the sum of squares runs in another order). Points cover every
-    border and lie beyond it; two runs bit-equal; one launch per call."""
+    """The instance the shape takes launches (once per call); unnormalized
+    rows equal to the plain version (same weights, same bf16 roundings,
+    the same float32 sum order); unit vectors within 1e-6 (the sum of
+    squares runs in another order); two runs bit-equal."""
     from spnerf_tpu_torch.kernels import _build
     from spnerf_tpu_torch.kernels.desc_sample import (
+        instance,
         sample_descriptors_fused,
         sample_descriptors_fused_plain,
     )
 
-    B, Hc, Wc, C, K, dtype, normalize = DESC_SAMPLE_CASES[kind]
-    rng = np.random.default_rng(31)
-    desc = torch.from_numpy(rng.standard_normal((B, Hc, Wc, C)).astype(
-        np.float32)).to(dtype).cuda()
-    pts = np.stack([rng.uniform(-5, Hc * 8 + 4, (B, K)),
-                    rng.uniform(-5, Wc * 8 + 4, (B, K))], -1)
-    pts[:, :4] = [[0, 0], [Hc * 8 - 1, Wc * 8 - 1], [0, Wc * 8 - 1],
-                  [Hc * 8 - 1, 0]]
-    pts = torch.from_numpy(pts.astype(np.float32)).cuda()
-    before = _build.launch_counts["desc_sample[" + (
-        "bf16]" if dtype == torch.bfloat16 else "f32]")]
+    B, Hc, Wc, C, K, dtype, normalize, points, key = DESC_SAMPLE_CASES[kind]
+    assert instance(dtype, Hc, Wc, C, K)[0] == key
+    desc, pts = _desc_sample_operands(B, Hc, Wc, C, K, dtype, points)
+    before = _build.launch_counts.copy()
     got = sample_descriptors_fused(desc, pts, 8, normalize)
     again = sample_descriptors_fused(desc, pts, 8, normalize)
     torch.cuda.synchronize()
-    after = _build.launch_counts["desc_sample[" + (
-        "bf16]" if dtype == torch.bfloat16 else "f32]")]
-    assert after == before + 2
+    assert dict(_build.launch_counts - before) == {key: 2}
     assert torch.equal(got, again)
     want = sample_descriptors_fused_plain(desc, pts, 8, normalize)
     assert got.shape == (B, K, C) and got.dtype == torch.float32
@@ -1011,6 +1054,59 @@ def test_desc_sample_matches_plain_on_card(card, kind):
         assert err <= 1e-6
     else:
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [False, True])
+def test_desc_sample_ring_bands_give_the_same_bits(card, normalize):
+    """The ring at every forced band count (one band, the default's two
+    at B 64 on 132 SMs, uneven bands, one base row a band), on an image
+    whose points crowd into its top quarter among two spread ones, gives
+    the bits of the default launch, and unnormalized the plain version's;
+    the gather instance on the same operands (the float32 map of the same
+    bf16 values) gives them too."""
+    from spnerf_tpu_torch.kernels import _build
+    from spnerf_tpu_torch.kernels.desc_sample import (
+        sample_descriptors_fused,
+        sample_descriptors_fused_plain,
+    )
+
+    desc, pts = _desc_sample_operands(3, 60, 80, 256, 1024, torch.bfloat16,
+                                      "spread", seed=5)
+    pts[1, :700, 0] = pts[1, :700, 0] * 0.25  # crowd a third into a band
+    want = sample_descriptors_fused(desc, pts, 8, normalize)
+    if not normalize:
+        assert torch.equal(want, sample_descriptors_fused_plain(desc, pts, 8,
+                                                                False))
+    before = _build.launch_counts.copy()
+    for bands in (1, 2, 7, 13, 30, 59, 60):
+        got = sample_descriptors_fused(desc, pts, 8, normalize, bands=bands)
+        assert torch.equal(got, want), bands
+    assert torch.equal(sample_descriptors_fused(desc.float(), pts, 8,
+                                                normalize), want)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts - before) == {RING_KEY: 7, F32_KEY: 1}
+
+
+@pytest.mark.cuda
+def test_desc_sample_ring_layout_matches_the_kernel(card):
+    """The wrapper's statement of the ring block's shared memory equals
+    the kernel's, and the shapes the wrapper sends to the gather are the
+    ones the kernel's ring refuses."""
+    import ctypes
+
+    from spnerf_tpu_torch.kernels import _build
+    from spnerf_tpu_torch.kernels.desc_sample import ring_bytes
+
+    fn = _build.load("desc_sample").desc_sample_ring_bytes
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    for Hc, Wc, C, K in ((60, 80, 256, 1024), (60, 80, 256, 1), (3, 9, 64, 200),
+                         (5, 7, 512, 20), (15, 20, 256, 1000), (60, 80, 256, 6000)):
+        assert fn(Hc, Wc, C, K) == ring_bytes(Hc, Wc, C, K)
+    for Hc, Wc, C, K in ((10, 120, 256, 300), (6, 5, 20, 50),
+                         (60, 80, 256, 9000)):
+        assert fn(Hc, Wc, C, K) == -1
 
 
 @pytest.mark.cuda
@@ -1027,6 +1123,11 @@ def test_desc_sample_raises_on_what_the_kernel_does_not_take(card):
         sample_descriptors_fused(
             torch.zeros(1 * 4 * 4 * 8 + 1, device="cuda")[1:].reshape(
                 1, 4, 4, 8), pts)
+    bf16 = torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="needs 1 to Hc"):
+        sample_descriptors_fused(bf16, pts, bands=5)
+    with pytest.raises(ValueError, match="takes no bands"):
+        sample_descriptors_fused(bf16.float(), pts, bands=2)
 
 
 # the tensor-core instances of head.cu (bf16) and dot_bias_act.cu (int8,
