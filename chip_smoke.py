@@ -73,7 +73,7 @@ Phases, each of which raises on failure (nothing is caught):
    threshold and NMS near-ties;
 6. export homographic-adaptation pseudo-labels with
    ``tasks.export.export_pseudo_labels`` at the configuration of
-   ``spnerf_tpu/configs/magicpoint_coco_export.yaml`` (full-width seeded
+   ``spnerf_tpu_torch/configs/magicpoint_coco_export.yaml`` (full-width seeded
    MagicPoint, 240 x 320, batch 8, 100 views in chunks of 10) for 20
    synthetic images, by four routes, each with the launch counters at 0
    before: (a) the default BN-folded bf16 forward, (b) ``export.serving:
@@ -89,7 +89,7 @@ Phases, each of which raises on failure (nothing is caught):
 8. run HA on 2 images of 64 x 80 by the int8 route on the card and on
    the CPU plain path (same weights, scales and homographies): heatmaps
    within 1e-6, keypoint sets equal;
-9. train the full-width SuperPoint of ``spnerf_tpu/configs/
+9. train the full-width SuperPoint of ``spnerf_tpu_torch/configs/
    superpoint_coco_train.yaml`` (240 x 320, batch 2, photometric and
    pair-homography augmentation on the card, blockwise descriptor loss)
    with ``tasks.train_task.train`` for 20 steps on synthetic images with
@@ -130,6 +130,24 @@ Phases, each of which raises on failure (nothing is caught):
    far-off warped cells a sample, their rows carrying the NeRF path's
    launches (``"path": "nerf-train"``); one NeRF step and one fused frame
    at 2 x 64 x 80 on the card against the CPU plain path;
+11b'. ``[cli]``, the task CLI (``spnerf_tpu_torch/cli.py``) as a user
+   runs it: the 11 configs of ``spnerf_tpu_torch/configs`` read by the
+   port's own YAML reader (the card's machine has no ``yaml``); 4
+   synthetic HPatches-layout sequences (2 ``i_``, 2 ``v_``, 1.ppm-6.ppm
+   and H_1_i from seeded homographies) under the data root;
+   ``python3 -m spnerf_tpu_torch.cli --task export_HPatches_Repeatability``
+   in a child process and ``cli.main`` with ``--task
+   export_HPatches_Descriptors`` (at 120 x 160), both scored by
+   ``eval.detector`` / ``eval.descriptor``, and ``eval.on_the_fly.main``
+   in both modes over the same sequences (pairs/s, the metrics and their
+   95% intervals); ``--task export_NeRF_labels`` for both box rooms and
+   splits (labels equal to the NeRF export phase's) and ``--task train
+   --train-nerf --nerf-loss --validate-training`` on them with NERF_CUTS,
+   the launch counters at 0 before: rows 10-11 once per step (the
+   forward once more per validation batch), the loss finite and falling,
+   steps/s; a ``profile:`` window of 5 steps leaving a Chrome trace with
+   rows 10-11 in it; ``ops.native_nms.exact_nms`` (g++-built from the
+   port's own source) against ``ops.nms.box_nms_greedy``;
 11c. the NeRF scene pipeline, on no kernel: ``train_nerf_scene`` at the
    classic NeRF's full width (``NeRFConfig()``, float32) on the first box
    room's 16 training frames at 480 x 640 for as many steps of 1,024 rays
@@ -180,7 +198,9 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import importlib.util
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -193,10 +213,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from spnerf_tpu_torch import settings
+from spnerf_tpu_torch import cli, settings
 from spnerf_tpu_torch.data.loader import DataLoader
+from spnerf_tpu_torch.data import pnm
 from spnerf_tpu_torch.data.nerf_dataset import NeRFDataset, camera_intrinsics
 from spnerf_tpu_torch.data.png import write_rgb
+from spnerf_tpu_torch.eval import descriptor as eval_descriptor
+from spnerf_tpu_torch.eval import detector as eval_detector
+from spnerf_tpu_torch.eval import on_the_fly
 from spnerf_tpu_torch.geometry.homography import (
     HomographyConfig,
     sample_homographies,
@@ -252,6 +276,7 @@ from spnerf_tpu_torch.models.superpoint import (
     superpoint_inference,
 )
 from spnerf_tpu_torch.ops import homography_adaptation as ha_mod
+from spnerf_tpu_torch.ops import native_nms
 from spnerf_tpu_torch.ops import serving
 from spnerf_tpu_torch.ops.fast_inference import (
     _cell_candidates,
@@ -271,7 +296,7 @@ from spnerf_tpu_torch.ops.image_warp import (
     warp_image,
 )
 from spnerf_tpu_torch.ops.nerf_label_fusion import fuse_nerf_labels
-from spnerf_tpu_torch.ops.nms import box_nms
+from spnerf_tpu_torch.ops.nms import box_nms, box_nms_greedy
 from spnerf_tpu_torch.ops.occupancy import chunk_flags, field_integral_volume
 from spnerf_tpu_torch.ops.photometric_device import (
     draw_photometric_randoms,
@@ -291,7 +316,6 @@ from spnerf_tpu_torch.tasks.nerf_task import (
 from spnerf_tpu_torch.tools import process_scene
 from spnerf_tpu_torch.tools.kernel_times import (
     HINGE_SHAPES,
-    PAIR_HOMOGRAPHY,
     RENDER_FIELDS,
     device_ms,
     hinge_operands,
@@ -311,6 +335,7 @@ from spnerf_tpu_torch.train.pipeline import (
     prepare_nerf_batch,
     prepare_superpoint_batch,
 )
+from spnerf_tpu_torch.utils.config import load_config
 from spnerf_tpu_torch.utils.factories import get_nerf_loaders
 
 H, W = 480, 640
@@ -329,23 +354,14 @@ PEAKS = {
     "H200": (1979e12, 4.8e12, 67e12, 989e12),
 }
 
-# spnerf_tpu/configs/magicpoint_coco_export.yaml as a dict (the card's
-# machine has no YAML reader)
-EXPORT_CONFIG = {
-    "data": {"experiment_name": "coco_export_v1_HA", "batch_size": 8},
-    "homography_adaptation": {
-        "num": 100, "aggregation": "sum", "filter_counts": 0,
-        "valid_border_margin": 3, "chunk": 10,
-        "params": {"translation": True, "rotation": True, "scaling": True,
-                   "perspective": True, "scaling_amplitude": 0.2,
-                   "perspective_amplitude_x": 0.2,
-                   "perspective_amplitude_y": 0.2, "allow_artifacts": True,
-                   "patch_ratio": 0.85, "max_angle": 1.57}},
-    "model": {"model_name": "magicpoint",
-              "vgg_cn": [64, 64, 64, 64, 128, 128, 128, 128],
-              "detector_head": {"detector_dim": [128, 256], "grid_size": 8,
-                                "nms": 4, "det_thresh": 0.015, "top_k": 0}},
-}
+# the configurations, read by the port's own YAML reader from its copies
+# of the configs
+CONFIGS = Path(__file__).resolve().parent / "spnerf_tpu_torch" / "configs"
+# magicpoint_coco_export.yaml; the export reads its data.experiment_name,
+# data.batch_size, homography_adaptation and model.detector_head, and
+# adds export.serving per route; the model is seeded (ha_model), so its
+# pretrained is not read
+EXPORT_CONFIG = load_config(CONFIGS / "magicpoint_coco_export.yaml")
 HA_H, HA_W = 240, 320
 HA_IMAGES = 20  # batches of 8, 8 and a padded 4
 # gain on the seeded detector's last conv: a random MagicPoint's
@@ -359,50 +375,9 @@ WARP_FLOPS_PER_PIXEL = 46
 # softmax (expf) may differ by float32 ulps (measured 5.6e-9)
 HA_SMALL_TOL = 1e-6
 
-# spnerf_tpu/configs/superpoint_coco_train.yaml as a dict, with the cuts of
-# TRAIN_CUTS applied by train_config()
-TRAIN_CONFIG = {
-    "data": {
-        "name": "COCO", "class_name": "COCO",
-        "has_labels": "outputs/coco_export_v1_HA",
-        "preprocessing": {"resize": [240, 320]},
-        "batch_size": 2, "truncate": False, "warped_pair": True,
-        "augmentation": {
-            "photometric": {
-                "enable": True, "on_device": True,
-                "primitives": ["random_brightness", "random_contrast",
-                               "additive_speckle_noise",
-                               "additive_gaussian_noise", "additive_shade",
-                               "motion_blur"],
-                "params": {
-                    "random_brightness": {"max_abs_change": 50},
-                    "random_contrast": {"strength_range": [0.5, 1.5]},
-                    "additive_gaussian_noise": {"stddev_range": [0, 10]},
-                    "additive_speckle_noise": {"prob_range": [0, 0.0035]},
-                    "additive_shade": {"transparency_range": [-0.5, 0.5],
-                                       "kernel_size_range": [100, 150],
-                                       "nb_ellipses": 20},
-                    "motion_blur": {"max_kernel_size": 3}}},
-            "homographic": {"enable": False},
-            "pair_homography": {"params": dict(PAIR_HOMOGRAPHY),
-                                "valid_border_margin": 3}}},
-    "model": {
-        "script": "SuperPoint", "class_name": "SuperPoint",
-        "model_name": "superpoint",
-        "vgg_cn": [64, 64, 64, 64, 128, 128, 128, 128],
-        "detector_head": {"detector_dim": [128, 256], "grid_size": 8,
-                          "nms": 4, "det_thresh": 0.001, "top_k": 0},
-        "descriptor_head": {"descriptor_dim": [128, 256], "grid_size": 8,
-                            "positive_margin": 1.0, "negative_margin": 0.2,
-                            "lambda_d": 250, "lambda_loss": 0.0001,
-                            "normalise_descriptors": False}},
-    "train": {"num_iters": 450000, "learning_rate": 0.001,
-              "pallas_desc_loss": True},
-    "save_or_validation_interval": 5000,
-    "ckpt_name": "Superpoint_Baseline",
-    "pretrained": "magicpoint_COCO_v1_HA/magicpoint_COCO_v1_HA_25000.ckpt",
-    "continue_training": False,
-}
+# superpoint_coco_train.yaml, with the cuts of TRAIN_CUTS applied by
+# train_config()
+TRAIN_CONFIG = load_config(CONFIGS / "superpoint_coco_train.yaml")
 # what the smoke run changes in that file: 20 steps, then validation of 2
 # batches and a checkpoint; seeded weights (no MagicPoint checkpoint is in
 # the repository); the loss read from the card every 5 steps. The data
@@ -478,31 +453,9 @@ DESC_MICRO_K = 1000  # benchmarks/micro_desc_sample.py's K
 # one-hot output: the same products summed in the product's order
 DESC_PLAIN_TOL, DESC_ONEHOT_TOL = 1e-6, 2e-6
 
-# spnerf_tpu/configs/magicpoint_repeatability.yaml and
-# superpoint_descriptors.yaml as dicts
-_HP_MODEL = {"script": "SuperPoint", "class_name": "SuperPoint",
-             "vgg_cn": [64, 64, 64, 64, 128, 128, 128, 128],
-             "detector_head": {"detector_dim": [128, 256], "grid_size": 8,
-                               "nms": 4, "det_thresh": 0.001, "top_k": 1000}}
 HP_CONFIGS = {
-    "repeatability": {
-        "data": {"name": "HPatches", "class_name": "HPatches",
-                 "experiment_name": "magicpoint_COCO_v1_HA_nms_4",
-                 "alteration": "i",
-                 "batch_size": 1, "preprocessing": {"resize": [240, 320]}},
-        "model": {"model_name": "magicpoint", **_HP_MODEL},
-        "pretrained": "magicpoint_COCO_v1_HA/magicpoint_COCO_v1_HA_25000.ckpt"},
-    "descriptors": {
-        "data": {"name": "HPatches", "class_name": "HPatches",
-                 "experiment_name": "Superpoint_Baseline_nms_4",
-                 "alteration": "v",
-                 "batch_size": 1, "preprocessing": {"resize": [480, 640]},
-                 "correctness_thresh": 3},
-        "model": {"model_name": "superpoint", **_HP_MODEL,
-                  "descriptor_head": {"descriptor_dim": [128, 256],
-                                      "grid_size": 8}},
-        "pretrained": "Superpoint_Baseline/Superpoint_Baseline_450000.ckpt"},
-}
+    "repeatability": load_config(CONFIGS / "magicpoint_repeatability.yaml"),
+    "descriptors": load_config(CONFIGS / "superpoint_descriptors.yaml")}
 # cuts: the repository's only checkpoint (a MagicPoint the JAX package
 # trained, under demo/) in place of both configs' own, and synthetic
 # pairs; the dense 480 x 640 x 256 float32 descriptors make each bundle
@@ -2073,52 +2026,13 @@ def phase_train_small():
 
 # ---------------------------------------------------------- NeRF pairs
 
-# spnerf_tpu/configs/magicpoint_NeRF_export.yaml and superpoint_NeRF_train
-# .yaml as dicts, driven on two procedural scenes (no rendered NeRF scene
-# is in the repository)
+# magicpoint_NeRF_export.yaml and superpoint_NeRF_train.yaml, driven on two
+# procedural scenes (no rendered NeRF scene is in the repository)
 NERF_SHAPE, NERF_FOV = (480, 640), 44
 NERF_SCENES = ("BoxRoomA", "BoxRoomB")
 NERF_FRAMES = {"training": 16, "validation": 4}
-NERF_EXPORT_CONFIG = {
-    "data": {"name": "NeRF", "class_name": "NeRF", "data_dir": "Train",
-             "experiment_name": "MP_NeRF_v1/Train", "image_size": [480, 640],
-             "fov": 44, "has_labels": False, "warped_pair": False,
-             "batch_size": 16,
-             "augmentation": {"photometric": {"enable": False}}},
-    "model": {"script": "SuperPoint", "class_name": "SuperPoint",
-              "model_name": "magicpoint",
-              "vgg_cn": [64, 64, 64, 64, 128, 128, 128, 128],
-              "detector_head": {"detector_dim": [128, 256], "grid_size": 8,
-                                "nms": 4, "det_thresh": 0.015, "top_k": 0}},
-    "pretrained": "magicpoint_syn_v1/magicpoint_syn_v1_200000.ckpt",
-    "continue_training": False,
-}
-_NERF_SCENE_DIRS = ["Desk", "Lab", "Graffiti", "Greece_Building", "Paintings",
-                    "Malet", "Train", "Art", "Dining", "Kitchen"]
-NERF_TRAIN_CONFIG = {
-    "data": {
-        "name": "NeRF", "class_name": "NeRF",
-        "all_data_dirs": list(_NERF_SCENE_DIRS), "data_dir": "",
-        "image_size": [480, 640], "downsample": False,
-        "downsample_size": [240, 320], "fov": 44, "batch_size": 2,
-        "truncate": False,
-        "all_label_dirs": [f"outputs/SP_NeRF_v1/{d}" for d in _NERF_SCENE_DIRS],
-        "has_labels": "", "warped_pair": True,
-        "augmentation": {"photometric": dict(
-            TRAIN_CONFIG["data"]["augmentation"]["photometric"],
-            params=dict(TRAIN_CONFIG["data"]["augmentation"]["photometric"]
-                        ["params"],
-                        additive_shade={"transparency_range": [-0.5, 0.5],
-                                        "kernel_size_range": [150, 200],
-                                        "nb_ellipses": 20}))}},
-    "model": copy.deepcopy(TRAIN_CONFIG["model"]),
-    "train": {"num_iters": 450000, "learning_rate": 0.001,
-              "pallas_desc_loss": True},
-    "save_or_validation_interval": 5000,
-    "ckpt_name": "SP_NeRF_v1",
-    "pretrained": "MP_NeRF_v1/MP_NeRF_v1_25000.ckpt",
-    "continue_training": False,
-}
+NERF_EXPORT_CONFIG = load_config(CONFIGS / "magicpoint_NeRF_export.yaml")
+NERF_TRAIN_CONFIG = load_config(CONFIGS / "superpoint_NeRF_train.yaml")
 # the smoke run's cuts: the two procedural scenes with the labels that
 # [nerf-export] wrote for them; 20 steps, validation of 2 batches and one
 # checkpoint; the demo MagicPoint (partial restore; the descriptor head
@@ -4009,6 +3923,336 @@ def phase_hpatches_small(config, model, root: Path):
         "side only (at the threshold or an NMS near-tie)")
 
 
+# [cli]: the port's task CLI as a user runs it, on 4 synthetic HPatches-
+# layout sequences (2 "i_", 2 "v_", 1.ppm-6.ppm and H_1_2-H_1_6 each, from
+# 480 x 640 sources) and on the NeRF pair phases' box rooms
+CLI_SEQUENCES = {"i": 2, "v": 2}
+CLI_SOURCE = (480, 640)
+CLI_PRETRAINED = "pretrained/demo_mp_5000.ckpt"
+# cut of superpoint_descriptors.yaml for the bundles and the on-the-fly
+# run: 120 x 160 in place of 480 x 640, whose dense float32 descriptors
+# make a pair's bundle 629 MB for np.savez_compressed on one host core
+CLI_DESC_CUTS = {"pretrained": CLI_PRETRAINED,
+                 "data.preprocessing.resize": [120, 160]}
+CLI_NERF_EXPER = "CLI_NeRF"
+CLI_PROFILE = {"steps": 8, "start": 2, "num_steps": 5}
+NMS_SHAPE, NMS_POINTS = (240, 320), 3000
+
+
+def set_args(cuts: dict) -> list:
+    """``--set key=value`` arguments, each value written as YAML."""
+    out = []
+    for key, value in cuts.items():
+        out += ["--set", f"{key}={json.dumps(value)}"]
+    return out
+
+
+def hpatches_sequences(root: Path) -> dict:
+    """Write CLI_SEQUENCES under root/HPatches as 8-bit PPM (gray in all
+    three channels): "i_" sequences change brightness and contrast under
+    the identity, "v_" ones warp by seeded homographies of HP_HOMOGRAPHY.
+    Returns {alteration: pairs}."""
+    h, w = CLI_SOURCE
+    n_seq = sum(CLI_SEQUENCES.values())
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    base = synthetic_images(n_seq, gen, CLI_SOURCE) * 0.6
+    base[:, h // 4:h // 2, w // 4:w // 2] += 0.4
+    rng = np.random.default_rng(SEED + 50)
+    k, pairs = 0, {}
+    for kind, count in CLI_SEQUENCES.items():
+        for j in range(count):
+            image = base[k:k + 1].expand(5, -1, -1, -1).contiguous()
+            if kind == "v":
+                homs = sample_homographies(
+                    torch.Generator().manual_seed(SEED + 50 + k), 5,
+                    CLI_SOURCE, HomographyConfig.from_dict(HP_HOMOGRAPHY))
+                others = warp_image(image, homs.cuda())
+            else:
+                homs = torch.eye(3).expand(5, 3, 3)
+                gain = torch.from_numpy(rng.uniform(0.6, 1.4, 5)).float()
+                bias = torch.from_numpy(rng.uniform(-0.15, 0.15, 5)).float()
+                others = (image * gain.cuda()[:, None, None, None]
+                          + bias.cuda()[:, None, None, None]).clamp(0, 1)
+            folder = root / "HPatches" / f"{kind}_synthetic{j}"
+            folder.mkdir(parents=True)
+            frames = torch.cat([image[:1], others])
+            u8 = (frames[..., 0] * 255).round().to(torch.uint8).cpu().numpy()
+            for i in range(6):
+                pnm.write(folder / f"{i + 1}.ppm",
+                          np.repeat(u8[i][..., None], 3, axis=2))
+            for i in range(2, 7):
+                np.savetxt(folder / f"H_1_{i}", homs[i - 2].double().numpy())
+            pairs[kind] = pairs.get(kind, 0) + 5
+            k += 1
+    return pairs
+
+
+def bundle_repeatabilities(exper: str) -> list:
+    """Per-pair repeatability (None without points) of the bundles under
+    EXPER_PATH/repeatability/<exper>, in file order."""
+    reps = []
+    for path in sorted(Path(settings.EXPER_PATH, "repeatability", exper)
+                       .glob("*.npz")):
+        b = np.load(path)
+        reps.append(eval_detector.repeatability_pair(
+            b["prob"], b["warped_prob"], b["homography"])[0])
+    return reps
+
+
+def phase_cli_hpatches(pairs: dict) -> None:
+    """(c)-(e): the repeatability export through ``python3 -m
+    spnerf_tpu_torch.cli`` in a child process, the descriptor export
+    through ``cli.main`` in this one, both scored by ``eval.detector`` /
+    ``eval.descriptor``, then ``eval.on_the_fly.main`` in both modes over
+    the same sequences."""
+    here = Path(__file__).resolve().parent
+    rep_cfg = CONFIGS / "magicpoint_repeatability.yaml"
+    desc_cfg = CONFIGS / "superpoint_descriptors.yaml"
+    env = dict(os.environ, SPNERF_DATA_PATH=str(settings.DATA_PATH),
+               SPNERF_EXPER_PATH=str(settings.EXPER_PATH),
+               SPNERF_CKPT_PATH=str(settings.CKPT_PATH))
+    cmd = [sys.executable, "-m", "spnerf_tpu_torch.cli", "--config-path",
+           str(rep_cfg.relative_to(here)), "--task",
+           "export_HPatches_Repeatability", "--set",
+           f"pretrained={CLI_PRETRAINED}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                          text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[cli] {' '.join(cmd)} exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    rep_exper = HP_CONFIGS["repeatability"]["data"]["experiment_name"]
+    reps = bundle_repeatabilities(rep_exper)
+    n_rep = len(reps)
+    if n_rep != pairs["i"]:
+        raise AssertionError(f"[cli] {n_rep} repeatability bundles for "
+                             f"{pairs['i']} pairs")
+    t0 = time.perf_counter()
+    rep_mean = eval_detector.compute_repeatability(rep_exper)
+    rep_s = time.perf_counter() - t0
+    valid = [r for r in reps if r is not None]
+    lo, hi = on_the_fly.bootstrap_ci(valid)
+    if not (0.0 <= rep_mean <= 1.0 and valid):
+        raise AssertionError(f"[cli] repeatability {rep_mean} over "
+                             f"{len(valid)} pairs")
+    log(f"[cli] python3 -m spnerf_tpu_torch.cli --task "
+        f"export_HPatches_Repeatability ({rep_cfg.name}, --set pretrained="
+        f"{CLI_PRETRAINED}; {pairs['i']} pairs of {len(CLI_SEQUENCES)} kinds "
+        f"of synthetic sequences at 240x320) in a child process: "
+        f"{child_s:.3f} s with the interpreter's start = "
+        f"{n_rep / child_s:.3f} pairs/s; eval.detector.compute_repeatability "
+        f"{rep_mean:.4f} (95% CI [{lo:.4f}, {hi:.4f}]) in {rep_s:.3f} s")
+
+    saved_exper = export.EXPER_PATH
+    export.EXPER_PATH = settings.EXPER_PATH
+    try:
+        t0 = time.perf_counter()
+        out_dir = cli.main(["--config-path", str(desc_cfg), "--task",
+                            "export_HPatches_Descriptors"]
+                           + set_args(CLI_DESC_CUTS))
+        torch.cuda.synchronize()
+        desc_s = time.perf_counter() - t0
+    finally:
+        export.EXPER_PATH = saved_exper
+    size = tuple(CLI_DESC_CUTS["data.preprocessing.resize"])
+    det = HP_CONFIGS["descriptors"]["model"]["detector_head"]["det_thresh"]
+    counts, worst_norm = check_bundles(out_dir, pairs["v"], size, True, det)
+    desc_exper = HP_CONFIGS["descriptors"]["data"]["experiment_name"]
+    t0 = time.perf_counter()
+    correct, mscore = eval_descriptor.homography_estimation(desc_exper)
+    score_s = time.perf_counter() - t0
+    log(f"[cli] cli.main --task export_HPatches_Descriptors ({desc_cfg.name}, "
+        f"cuts {json.dumps(CLI_DESC_CUTS)}; descriptor head from seed 0): "
+        f"{pairs['v']} pairs in {desc_s:.3f} s = {pairs['v'] / desc_s:.3f} "
+        f"pairs/s, {min(counts)}-{max(counts)} keypoints per image, max "
+        f"|norm - 1| {worst_norm:.3e}; eval.descriptor.homography_estimation "
+        f"correctness {correct:.4f}, matching score {mscore:.4f} in "
+        f"{score_s:.3f} s")
+
+    jsonl = Path(settings.EXPER_PATH) / "on_the_fly.jsonl"
+    runs = (("repeatability", rep_cfg, {"pretrained": CLI_PRETRAINED}),
+            ("descriptors", desc_cfg, CLI_DESC_CUTS))
+    for mode, cfg_path, cuts in runs:
+        t0 = time.perf_counter()
+        res = on_the_fly.main(["--config-path", str(cfg_path), "--mode", mode,
+                               "--json-out", str(jsonl)] + set_args(cuts))
+        secs = time.perf_counter() - t0
+        n = pairs["i" if mode == "repeatability" else "v"]
+        if res["pairs"] != n:
+            raise AssertionError(f"[cli] on-the-fly {mode}: {res}")
+        metrics = {k: v for k, v in res.items() if k != "pairs"}
+        if not all(np.isfinite(v) for k, v in metrics.items()
+                   if not k.endswith("ci95")):
+            raise AssertionError(f"[cli] on-the-fly {mode}: {res}")
+        log(f"[cli] eval.on_the_fly --mode {mode} ({cfg_path.name}, cuts "
+            f"{json.dumps(cuts)}): {n} pairs in {secs:.3f} s = "
+            f"{n / secs:.3f} pairs/s; {json.dumps(metrics)}"
+            + (f"; bundles {rep_mean:.4f}" if mode == "repeatability"
+               else f"; bundles {correct:.4f}, {mscore:.4f}"))
+    if len(jsonl.read_text().splitlines()) != 2:
+        raise AssertionError("[cli] --json-out did not append two records")
+
+
+def phase_cli_nerf(root: Path) -> dict:
+    """(f)-(g): ``export_NeRF_labels`` through ``cli.main`` for both box
+    rooms and splits (the labels equal those of [nerf-export], the same
+    model, config and seed), then ``--task train --train-nerf --nerf-loss
+    --validate-training`` on superpoint_NeRF_train.yaml with NERF_CUTS
+    over those labels, the launch counters at 0 before: rows 10-11 launch
+    once per step, the forward once more per validation batch; then a
+    short run with a ``profile:`` window that must leave a Chrome trace
+    holding the card's kernels. Returns the training run's launches."""
+    export_cfg = CONFIGS / "magicpoint_NeRF_export.yaml"
+    t0 = time.perf_counter()
+    frames = 0
+    for scene in NERF_SCENES:
+        for split in ("training", "validation"):
+            out_dir = cli.main(
+                ["--config-path", str(export_cfg), "--task",
+                 "export_NeRF_labels", "--split", split]
+                + set_args({"pretrained": CLI_PRETRAINED,
+                            "data.data_dir": scene,
+                            "data.experiment_name":
+                                f"{CLI_NERF_EXPER}/{scene}"}))
+            ref = Path(settings.EXPER_PATH, "outputs", "MP_NeRF_v1", scene,
+                       split)
+            files = sorted(p.name for p in out_dir.glob("*.npy"))
+            if files != sorted(p.name for p in ref.glob("*.npy")) \
+                    or not files:
+                raise AssertionError(f"[cli] {scene} {split}: {files}")
+            for name in files:
+                if not np.array_equal(np.load(out_dir / name),
+                                      np.load(ref / name)):
+                    raise AssertionError(f"[cli] {scene} {split} {name}: "
+                                         "labels differ from [nerf-export]")
+            frames += len(files)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    log(f"[cli] cli.main --task export_NeRF_labels ({export_cfg.name}, "
+        f"--set pretrained, data.data_dir, data.experiment_name), 2 scenes x "
+        f"2 splits: {frames} frames in {export_s:.3f} s = "
+        f"{frames / export_s:.2f} frames/s (each call builds and restores "
+        "its model); every label file equal to [nerf-export]'s")
+
+    train_cfg = CONFIGS / "superpoint_NeRF_train.yaml"
+    cuts = dict(NERF_CUTS, ckpt_name="cli_nerf")
+    cuts["data.all_label_dirs"] = [f"outputs/{CLI_NERF_EXPER}/{s}"
+                                   for s in NERF_SCENES]
+    args = ["--config-path", str(train_cfg), "--task", "train",
+            "--train-nerf", "--nerf-loss", "--validate-training"]
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    state = cli.main(args + set_args(cuts))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    steps, n_val = cuts["train.num_iters"], cuts["train.val_batches"]
+    expect = {"desc_loss[fwd]": steps + n_val, "desc_loss[dA]": steps,
+              "desc_loss[dB]": steps}
+    got = {k: v for k, v in counts.items() if k.startswith("desc_loss")}
+    if state.iteration != steps or got != expect:
+        raise AssertionError(f"[cli] train: {state.iteration} steps, "
+                             f"launches {got}, expected {expect}")
+    metrics = read_metrics("cli_nerf")
+    for tag, rows in metrics.items():
+        if not all(np.isfinite(v) for _, v in rows):
+            raise AssertionError(f"[cli] train: {tag} is not finite: {rows}")
+    losses = metrics["iter_loss/loss"]
+    if not losses[-1][1] < losses[0][1]:
+        raise AssertionError(f"[cli] train: the loss did not fall: {losses}")
+    rates = [v for _, v in metrics["perf/steps_per_sec"]]
+    log(f"[cli] cli.main --task train --train-nerf --nerf-loss "
+        f"--validate-training ({train_cfg.name}, cuts {json.dumps(cuts)}): "
+        f"{steps} steps + validation of {n_val} batches + checkpoint in "
+        f"{secs:.4f} s (model build and loaders included); perf/"
+        f"steps_per_sec (StepTimer, windows of 5): "
+        f"{', '.join(f'{r:.2f}' for r in rates)}; loss "
+        f"{', '.join(f'{s_}: {v:.4f}' for s_, v in losses)}; launches "
+        f"{json.dumps(got, sort_keys=True)}")
+    del state
+
+    trace_dir = root / "trace"
+    prof = {"enable": True, "logdir": str(trace_dir),
+            "start": CLI_PROFILE["start"],
+            "num_steps": CLI_PROFILE["num_steps"]}
+    pcuts = dict(cuts, ckpt_name="cli_profile", profile=prof)
+    pcuts.update({"train.num_iters": CLI_PROFILE["steps"],
+                  "save_or_validation_interval": CLI_PROFILE["steps"]})
+    t0 = time.perf_counter()
+    cli.main(args[:-1] + set_args(pcuts))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    traces = sorted(trace_dir.glob("*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"[cli] profile: {len(traces)} trace files")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    hinge = [e for e in kernels if "hinge" in e.get("name", "")]
+    if not hinge:
+        raise AssertionError(f"[cli] profile: no descriptor-loss kernel in "
+                             f"the trace ({len(kernels)} kernel events)")
+    log(f"[cli] profile: {{enable, start {prof['start']}, num_steps "
+        f"{prof['num_steps']}}} in a run of {CLI_PROFILE['steps']} steps "
+        f"({secs:.3f} s): {traces[0].name}, "
+        f"{traces[0].stat().st_size / 1e6:.1f} MB, {len(events)} events, "
+        f"{len(kernels)} kernel launches on the card, {len(hinge)} of them "
+        f"rows 10-11 ({sorted({e['name'] for e in hinge})})")
+    return counts
+
+
+def phase_native_nms() -> None:
+    """(h): ``ops.native_nms.exact_nms`` (the port's own source, built by
+    g++ here) on a seeded sparse heatmap against ``ops.nms.box_nms_greedy``
+    (torch, CPU), with and without keep_top_k."""
+    rng = np.random.default_rng(SEED + 60)
+    prob = np.zeros(NMS_SHAPE, np.float32)
+    ys = rng.integers(0, NMS_SHAPE[0], NMS_POINTS)
+    xs = rng.integers(0, NMS_SHAPE[1], NMS_POINTS)
+    prob[ys, xs] = rng.uniform(0.02, 1.0, NMS_POINTS).astype(np.float32)
+    t0 = time.perf_counter()
+    native_nms.exact_nms(prob[:8, :8])  # builds the library
+    build_s = time.perf_counter() - t0
+    for top_k in (0, 300):
+        t0 = time.perf_counter()
+        got = native_nms.exact_nms(prob, 4, 0.1, 0.015, top_k)
+        native_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = box_nms_greedy(torch.from_numpy(prob), 4, 0.1, 0.015,
+                              top_k).numpy()
+        greedy_ms = (time.perf_counter() - t0) * 1e3
+        err = float(np.abs(got - want).max())
+        if err > 1e-7:
+            raise AssertionError(f"[cli] native NMS against the greedy NMS: "
+                                 f"{err}")
+        log(f"[cli] native NMS {NMS_SHAPE[0]}x{NMS_SHAPE[1]}, {NMS_POINTS} "
+            f"seeded candidates, keep_top_k {top_k}: {int((got > 0).sum())} "
+            f"kept, equal to ops.nms.box_nms_greedy (max |diff| {err:.1e}); "
+            f"{native_ms:.3f} ms against {greedy_ms:.1f} ms (host clock)"
+            + (f"; g++ build and load {build_s:.3f} s" if not top_k else ""))
+
+
+def phase_cli(root: Path) -> dict:
+    """The [cli] phase: (a) every config of the port read by its own
+    reader; (b)-(e) HPatches through the CLI and the evaluation; (f)-(g)
+    NeRF labels, training and a profile window through the CLI; (h) the
+    native NMS. Returns the CLI training run's launches."""
+    t0 = time.perf_counter()
+    names = sorted(p.name for p in CONFIGS.glob("*.yaml"))
+    configs = {name: load_config(CONFIGS / name) for name in names}
+    if len(configs) != 11 or not all(isinstance(c, dict)
+                                     for c in configs.values()):
+        raise AssertionError(f"[cli] configs: {names}")
+    log(f"[cli] {len(configs)} configs read by utils.config.load_config "
+        f"(yaml importable: {importlib.util.find_spec('yaml') is not None}) "
+        f"in {(time.perf_counter() - t0) * 1e3:.2f} ms: {', '.join(names)}")
+    pairs = hpatches_sequences(Path(settings.DATA_PATH))
+    phase_cli_hpatches(pairs)
+    counts = phase_cli_nerf(root)
+    phase_native_nms()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4126,6 +4370,10 @@ def main() -> int:
         nerf_counts, state, nerf_call = phase_nerf_train(Path(tmp))
         phase_nerf_train_split(state)
         del state
+        torch.cuda.empty_cache()
+        # the task CLI on HPatches-layout sequences and on these scenes;
+        # its training run drives rows 10-11 once more
+        cli_counts = phase_cli(Path(tmp))
         settings.DATA_PATH, settings.EXPER_PATH, settings.CKPT_PATH = \
             saved_paths
     torch.cuda.empty_cache()
@@ -4133,9 +4381,10 @@ def main() -> int:
     for row in nerf_rows:
         row["path"] = "nerf-train"
         row["launches"] = nerf_counts.get(row["name"], 0)
-        if row["launches"] == 0:
+        row["cli_launches"] = cli_counts.get(row["name"], 0)
+        if row["launches"] == 0 or row["cli_launches"] == 0:
             raise AssertionError(f"{row['name']} never launched on the NeRF "
-                                 "training path")
+                                 "training path or through the CLI")
     for row in desc_rows:
         row["path"] = "train"
     phase_nerf_small()

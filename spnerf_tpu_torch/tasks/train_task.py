@@ -12,8 +12,8 @@ model where the config names no ``pretrained`` checkpoint.
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
-import time
 from pathlib import Path
 
 import numpy as np
@@ -39,8 +39,9 @@ from spnerf_tpu_torch.train.loop import (
     train_step,
 )
 from spnerf_tpu_torch.train.losses import DescriptorLossConfig
-from spnerf_tpu_torch.utils.factories import get_nerf_loaders
+from spnerf_tpu_torch.utils.factories import get_loaders
 from spnerf_tpu_torch.utils.logging import MetricWriter
+from spnerf_tpu_torch.utils.profiling import StepTimer, trace_if
 
 
 def build_step_config(config: dict, include_mask: bool,
@@ -108,18 +109,28 @@ def train(config: dict, loader=None, val_loader=None,
     """The ``--task train`` entry point, on the card unless
     ``device="cpu"``. Trains ``config["model"]`` from weights drawn from
     ``seed`` (or ``config["pretrained"]``) for ``train.num_iters`` steps
-    over ``loader``, cycling it; every ``save_or_validation_interval``
-    steps it validates on ``val_loader`` (if ``validate_training``; at
-    most ``train.val_batches`` batches when that is > 0) and writes a
-    checkpoint. Metrics go to CKPT_PATH/<ckpt_name>/logs/metrics.jsonl
-    and are read from the device only every ``log_every`` steps.
+    over ``loader`` (by default ``utils.factories.get_loaders`` of
+    ``config``, built before the weights), cycling it; every
+    ``save_or_validation_interval`` steps it validates on ``val_loader``
+    (if ``validate_training``; at most ``train.val_batches`` batches when
+    that is > 0) and writes a checkpoint. Metrics go to
+    CKPT_PATH/<ckpt_name>/logs/metrics.jsonl and are read from the device
+    only every ``log_every`` steps; ``perf/steps_per_sec`` per window of
+    ``log_every`` steps (``utils.profiling.StepTimer``).
 
     ``nerf_loss``: NeRF pairs warp the descriptor cells by depth
     reprojection. ``train_nerf``: ``loader`` and ``val_loader`` are lists
-    of per-scene loaders (by default ``utils.factories.get_nerf_loaders``
-    of ``config``); the steps take a batch from each scene in turn and
-    validation reads the first scene's loader."""
+    of per-scene loaders; the steps take a batch from each scene in turn
+    and validation reads the first scene's loader.
+
+    ``profile: {enable, logdir, start, num_steps}`` in the config traces
+    steps ``start`` to ``start + num_steps - 1`` with ``torch.profiler``
+    into ``logdir`` (default CKPT_PATH/<ckpt_name>/trace), a Chrome
+    trace; outside that window a step does the same work."""
     device = resolve_device(device)
+    if loader is None:
+        loaders = get_loaders(config, "train", nerf_train=train_nerf)
+        loader, val_loader = loaders["train"], loaders["validation"]
     model = init_superpoint(seed, SuperPointConfig.from_dict(config["model"]),
                             device=device)
     iteration = restore_pretrained(config, model)
@@ -135,11 +146,13 @@ def train(config: dict, loader=None, val_loader=None,
     interval = config.get("save_or_validation_interval", 1000)
     log_every = int(config.get("log_every", 50))
     val_batches = int(config.get("train", {}).get("val_batches", 0))
+    profile = config.get("profile", {}) or {}
+    trace_start = int(profile.get("start", 10))
+    trace_stop = trace_start + int(profile.get("num_steps", 20))
+    trace_dir = profile.get("logdir",
+                            str(Path(settings.CKPT_PATH, ckpt_name, "trace")))
 
     if train_nerf:
-        if loader is None:
-            loaders = get_nerf_loaders(config)
-            loader, val_loader = loaders["train"], loaders["validation"]
         streams = [iter_forever(scene) for scene in loader]
         scenes = itertools.cycle(streams)
         get_batch = lambda: next(next(scenes))  # noqa: E731
@@ -150,21 +163,26 @@ def train(config: dict, loader=None, val_loader=None,
     batches = device_prefetch(get_batch, device)
     running = []
     it = state.iteration
-    t_mark, it_mark = time.perf_counter(), it
+    timer = StepTimer(window=log_every)
+    trace = contextlib.ExitStack()
     try:
         while it < num_iters:
+            if profile.get("enable"):
+                if it == trace_start:
+                    trace.enter_context(trace_if(True, trace_dir))
+                if it == trace_stop:
+                    trace.close()
             metrics = train_step(state, next(batches), step_cfg, gens)
             it = state.iteration
             # metrics are read only now and then: a float() every step
             # would make the host wait for the device every step
             if it % log_every == 0 or it % interval == 0 or it >= num_iters:
                 host_metrics = {k: float(v) for k, v in metrics.items()}
-                now = time.perf_counter()
-                writer.scalar("perf/steps_per_sec",
-                              (it - it_mark) / (now - t_mark), it)
-                t_mark, it_mark = now, it
                 running.append(host_metrics["loss"])
                 writer.scalars(host_metrics, it, prefix="iter_loss/")
+            sps = timer.tick()
+            if sps is not None:
+                writer.scalar("perf/steps_per_sec", sps, it)
 
             if it % interval == 0 or it >= num_iters:
                 if running:
@@ -186,8 +204,9 @@ def train(config: dict, loader=None, val_loader=None,
                                    prefix="val/")
                 save_checkpoint(ckpt_name, state, it)
                 writer.flush()
-                t_mark, it_mark = time.perf_counter(), it
+                timer.restart()
     finally:
+        trace.close()
         batches.close()
         for stream in streams:
             stream.close()

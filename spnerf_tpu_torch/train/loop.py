@@ -319,26 +319,31 @@ def model_batch_stats(model: SuperPoint) -> dict:
             if k.endswith(("running_mean", "running_var"))}
 
 
-def save_checkpoint(ckpt_name: str, state: TrainState,
-                    step: int | None = None) -> Path:
-    """``torch.save`` {iteration, params, batch_stats, opt_state} to
-    CKPT_PATH/<ckpt_name>/<ckpt_name>_<step>.ckpt, tensors on the CPU."""
-    step = state.iteration if step is None else step
-    path = Path(settings.CKPT_PATH, ckpt_name)
-    path.mkdir(parents=True, exist_ok=True)
+def checkpoint_payload(state: TrainState) -> dict:
+    """{iteration, params, batch_stats, opt_state} of ``state``, tensors
+    on the CPU: what a checkpoint file holds."""
     cpu = lambda tree: {k: v.detach().cpu() for k, v in tree.items()}  # noqa: E731
     opt = state.optimizer.state_dict()
     opt["state"] = {i: {k: v.cpu() if torch.is_tensor(v) else v
                         for k, v in s.items()}
                     for i, s in opt["state"].items()}
-    payload = {
+    return {
         "iteration": int(state.iteration),
         "params": cpu(model_params(state.model)),
         "batch_stats": cpu(model_batch_stats(state.model)),
         "opt_state": opt,
     }
+
+
+def save_checkpoint(ckpt_name: str, state: TrainState,
+                    step: int | None = None) -> Path:
+    """``torch.save`` the ``checkpoint_payload`` of ``state`` to
+    CKPT_PATH/<ckpt_name>/<ckpt_name>_<step>.ckpt."""
+    step = state.iteration if step is None else step
+    path = Path(settings.CKPT_PATH, ckpt_name)
+    path.mkdir(parents=True, exist_ok=True)
     out = path / f"{ckpt_name}_{step}.ckpt"
-    torch.save(payload, out)
+    torch.save(checkpoint_payload(state), out)
     return out
 
 

@@ -1,23 +1,62 @@
-"""Dataset and loader factories (``spnerf_tpu/utils/factories.py``).
+"""Model, dataset and loader factories (``spnerf_tpu/utils/factories.py``).
 
-Only the NeRF dataset so far: the other readers of the reference
-(SyntheticShapes, COCO, HPatches) use cv2 and wait for ROADMAP Queue 1
-item 5 (host data readers and augmentation).
+The port reads NeRF scenes and HPatches; the other readers of the
+reference (SyntheticShapes, COCO) decode JPEG and augment with cv2 and
+wait for ROADMAP Queue 1 item 5 (host data readers and augmentation).
 """
 
 from __future__ import annotations
 
+from spnerf_tpu_torch.data.hpatches import HPatches
 from spnerf_tpu_torch.data.loader import DataLoader
 from spnerf_tpu_torch.data.nerf_dataset import NeRFDataset
+from spnerf_tpu_torch.models.superpoint import (
+    SuperPoint,
+    SuperPointConfig,
+    init_superpoint,
+)
+
+
+def get_model(model_config: dict, seed: int = 0, device="cuda") -> SuperPoint:
+    """The config's SuperPoint (``class_name`` SuperPoint) with weights
+    drawn from ``seed``, on ``device``."""
+    name = model_config.get("class_name", "SuperPoint")
+    if name != "SuperPoint":
+        raise ValueError(f"Unknown model class: {name}")
+    return init_superpoint(seed, SuperPointConfig.from_dict(model_config),
+                           device=device)
 
 
 def get_dataset(data_config: dict, task: str = "training"):
     name = data_config.get("class_name", data_config.get("name"))
     if name == "NeRF":
         return NeRFDataset(data_config, task)
+    if name == "HPatches":
+        return HPatches(data_config)
     raise NotImplementedError(
         f"get_dataset: {name!r} is not ported yet (ROADMAP Queue 1 item 5, "
-        "host data readers and augmentation); only 'NeRF' is")
+        "host data readers and augmentation); only 'NeRF' and 'HPatches' "
+        "are")
+
+
+def get_loaders(config: dict, task: str, nerf_train: bool = False) -> dict:
+    """Loaders of ``config["data"]``: for ``task`` "train" (or
+    "training") {"train", "validation"}, the training one shuffled and
+    dropping its last partial batch; with ``nerf_train`` the lists of
+    ``get_nerf_loaders``; else {task: loader}."""
+    if nerf_train:
+        return get_nerf_loaders(config)
+    data_cfg = config["data"]
+    batch_size = data_cfg.get("batch_size", 1)
+
+    def make(split):
+        training = split == "training"
+        return DataLoader(get_dataset(data_cfg, split), batch_size=batch_size,
+                          shuffle=training, drop_last=training)
+
+    if task in ("train", "training"):
+        return {"train": make("training"), "validation": make("validation")}
+    return {task: make(task)}
 
 
 def get_nerf_loaders(config: dict) -> dict:

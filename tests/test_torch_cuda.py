@@ -1908,3 +1908,153 @@ def test_hash_render_on_card_against_cpu(card):
         got = render_rays_hash(gpu, o.cuda(), d.cuda(), cfg, u=u.cuda())
     for k, tol in (("rgb", 1e-6), ("acc", 1e-6), ("depth", 2e-5)):
         assert float((got[k].cpu() - want[k]).abs().max()) <= tol, k
+
+
+# ------------------------------------------------------------------- CLI
+
+_CLI_ROOT = __import__("pathlib").Path(__file__).resolve().parents[1]
+_CLI_SHAPE = (64, 80)
+
+
+@pytest.fixture
+def cli_roots(tmp_path, monkeypatch):
+    """The port's data, checkpoint and export roots under ``tmp_path``;
+    two small box rooms "A" and "B" with random labels of every frame
+    under EXPER_PATH/outputs/lab/<scene>/<split>."""
+    import importlib.util
+
+    from spnerf_tpu_torch import settings
+    from spnerf_tpu_torch.tasks.nerf_task import write_scene
+
+    for name in ("DATA_PATH", "EXPER_PATH", "CKPT_PATH"):
+        monkeypatch.setattr(settings, name, tmp_path / name.lower())
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", _CLI_ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for seed, name in enumerate("AB"):
+        scene = smoke.box_room(seed + 40, shape=_CLI_SHAPE)
+        write_scene(name, scene["rgb"], scene["depth"], scene["poses"],
+                    scene["splits"])
+        rng = np.random.default_rng(seed)
+        for split, frames in scene["splits"].items():
+            out = tmp_path / "exper_path" / "outputs" / "lab" / name / split
+            out.mkdir(parents=True)
+            for j in range(len(frames)):
+                np.save(out / f"{j}.npy", rng.integers(
+                    0, _CLI_SHAPE, (40, 2)).astype(np.int64))
+    return tmp_path
+
+
+def _cli_nerf_args(steps, **cuts):
+    """``cli.main`` arguments for NeRF-pair training on the scenes of
+    ``cli_roots``: superpoint_NeRF_train.yaml, narrow, ``steps`` steps."""
+    import json
+
+    cuts = {"data.all_data_dirs": ["A", "B"],
+            "data.all_label_dirs": ["outputs/lab/A", "outputs/lab/B"],
+            "data.augmentation.photometric.params.additive_shade"
+            ".kernel_size_range": [9, 15],
+            "model.vgg_cn": [8, 8, 16, 16, 32, 32, 32, 32],
+            "model.detector_head.detector_dim": [32, 32],
+            "model.descriptor_head.descriptor_dim": [32, 32],
+            "train.num_iters": steps, "save_or_validation_interval": steps,
+            "train.val_batches": 1, "log_every": 1, "pretrained": None,
+            **cuts}
+    args = ["--config-path",
+            str(_CLI_ROOT / "spnerf_tpu_torch/configs/superpoint_NeRF_train"
+                ".yaml"), "--task", "train", "--train-nerf", "--nerf-loss"]
+    for key, value in cuts.items():
+        args += ["--set", f"{key}={json.dumps(value)}"]
+    return args
+
+
+@pytest.mark.cuda
+def test_cli_trains_nerf_pairs_through_the_loss_kernels_on_card(card,
+                                                                cli_roots):
+    """3 steps and a validation batch through ``cli.main``: rows 10-11
+    launch once per step (the forward once more for validation)."""
+    from spnerf_tpu_torch import cli
+    from spnerf_tpu_torch.kernels import _build
+
+    _build.launch_counts.clear()
+    state = cli.main(_cli_nerf_args(3, ckpt_name="cli")
+                     + ["--validate-training"])
+    counts = {k: v for k, v in _build.launch_counts.items()
+              if k.startswith("desc_loss")}
+    assert state.iteration == 3
+    assert counts == {"desc_loss[fwd]": 4, "desc_loss[dA]": 3,
+                      "desc_loss[dB]": 3}
+    assert all(p.is_cuda and torch.isfinite(p).all()
+               for p in state.model.parameters())
+
+
+@pytest.mark.cuda
+def test_profile_window_writes_a_trace_on_card(card, cli_roots):
+    """A ``profile:`` window of one step writes one Chrome trace that
+    holds the card's kernels, rows 10-11 among them."""
+    import json
+
+    from spnerf_tpu_torch import cli
+
+    logdir = cli_roots / "trace"
+    cli.main(_cli_nerf_args(3, ckpt_name="prof", profile={
+        "enable": True, "start": 1, "num_steps": 1, "logdir": str(logdir)}))
+    traces = list(logdir.glob("*.json"))
+    assert len(traces) == 1
+    kernels = [e["name"] for e in json.loads(traces[0].read_text())
+               ["traceEvents"] if e.get("cat") == "kernel"]
+    assert any("hinge" in k for k in kernels), sorted(set(kernels))[:20]
+
+
+@pytest.mark.cuda
+def test_on_the_fly_repeatability_on_card_against_cpu(card, tmp_path,
+                                                      monkeypatch):
+    """2 synthetic pairs through ``eval.on_the_fly`` (the demo
+    MagicPoint, 64 x 80): NMS'd heatmaps within 1e-5 where both keep a
+    point, and the pair's repeatability equal where the keypoint sets
+    are."""
+    from spnerf_tpu_torch import settings
+    from spnerf_tpu_torch.data import pnm
+    from spnerf_tpu_torch.eval import on_the_fly
+    from spnerf_tpu_torch.eval.detector import repeatability_pair
+    from spnerf_tpu_torch.utils.config import load_config
+
+    monkeypatch.setattr(settings, "DATA_PATH", tmp_path)
+    monkeypatch.setattr(settings, "CKPT_PATH", _CLI_ROOT / "demo")
+    seq = tmp_path / "HPatches" / "v_synthetic"
+    seq.mkdir(parents=True)
+    rng = np.random.default_rng(3)
+    coarse = rng.uniform(0, 255, (8, 10))
+    image = np.repeat(np.repeat(coarse, 8, 0), 8, 1).astype(np.uint8)
+    image[20:44, 24:60] = 255
+    for i, (dy, dx) in enumerate([(0, 0), (3, 5), (-2, 4)], start=1):
+        pnm.write(seq / f"{i}.ppm", np.roll(image, (dy, dx), (0, 1)))
+        if i > 1:
+            np.savetxt(seq / f"H_1_{i}", [[1, 0, dx], [0, 1, dy], [0, 0, 1]])
+    config = load_config(
+        _CLI_ROOT / "spnerf_tpu_torch/configs/magicpoint_repeatability.yaml")
+    config["data"].update(alteration="all",
+                          preprocessing={"resize": list(_CLI_SHAPE)})
+    config["pretrained"] = "pretrained/demo_mp_5000.ckpt"
+    cpu = list(on_the_fly.pair_outputs(config, "cpu"))
+    gpu = list(on_the_fly.pair_outputs(config, "cuda"))
+    assert len(cpu) == len(gpu) == 2
+    same_sets = 0
+    for (H, *want), (_, *got) in zip(cpu, gpu):
+        probs = [(g["prob_heatmap_nms"], w["prob_heatmap_nms"])
+                 for g, w in zip(got, want)]
+        for g, w in probs:
+            both = (g > 0) & (w > 0)
+            assert both.any()
+            np.testing.assert_allclose(g[both], w[both], atol=1e-5, rtol=0)
+        if all(np.array_equal(g > 0, w > 0) for g, w in probs):
+            same_sets += 1
+            assert repeatability_pair(probs[0][0], probs[1][0], H) \
+                == repeatability_pair(probs[0][1], probs[1][1], H)
+    assert same_sets >= 1
+    results = [on_the_fly.run_repeatability(config, device=d)
+               for d in ("cpu", "cuda")]
+    assert results[0]["pairs"] == results[1]["pairs"] == 2
+    if same_sets == 2:
+        assert results[0] == results[1]
