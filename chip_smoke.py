@@ -163,6 +163,28 @@ Phases, each of which raises on failure (nothing is caught):
    a render of 65,536 rays, 50 Adam steps whose loss must fall); and the
    full-width field and the hash field on the card against the CPU
    (``[nerf-scene-small]``);
+11d. ``[pose]``, the relative-pose evaluation (``eval/pose.py``, no
+   kernel): one box room (its own seed, 14 frames of 480 x 640) written
+   as PNGs with a SuperGlue-format pair list (gaps of 2-5 frames drawn
+   with seed 7, and three pairs again with quarter-turns: 16 pairs);
+   ``python3 -m spnerf_tpu_torch.eval.pose`` at
+   ``pose_estimation_indoor.yaml`` (the demo MagicPoint, a seed-0
+   descriptor head, top_k 1,024) in a child process (pairs/s, AUC@5/10/20,
+   precision and matching score with their 95% intervals) and
+   ``estimate_pose_errors`` again in this process (results equal to the
+   child's); one pair split into
+   inference and sampling on the card (CUDA events), matching and RANSAC
+   + ``recover_pose`` on the host, beside the dense x8 upsample the path
+   never reads; ``find_essential_mat`` + ``recover_pose`` on matches from
+   the room's exact depth (within 2 deg of the true poses) and with 0.5
+   px noise and 30% outliers (each pair's support at least 0.85 of the
+   true E's, its errors those of the CPU run); 2 pairs at 120 x 160 on the card
+   against the CPU (within 1e-5, matches equal but for near-ties).
+   ``[quant]``: ``QuantizedSuperPoint`` from the full-width seeded
+   SuperPoint, calibrated on 8 synthetic 480 x 640 images: ms a batch of
+   8 and the im2col's share, the logit error against the BN-folded
+   float32 model (under 0.1 of the range); at 2 x 64 x 80 the card's
+   int32 sums equal to the CPU's, the heads within 1 bf16 ulp;
 12. render the committed tiny NeRF sphere fields
    (``benchmarks/data/sphere_field*.npz``, bf16 weights) as
    ``bench_nerf.py`` does: 131,072 rays of an orbit camera (362 x 362
@@ -217,10 +239,12 @@ from spnerf_tpu_torch import cli, settings
 from spnerf_tpu_torch.data.loader import DataLoader
 from spnerf_tpu_torch.data import pnm
 from spnerf_tpu_torch.data.nerf_dataset import NeRFDataset, camera_intrinsics
-from spnerf_tpu_torch.data.png import write_rgb
+from spnerf_tpu_torch.data.png import write_gray, write_rgb
 from spnerf_tpu_torch.eval import descriptor as eval_descriptor
 from spnerf_tpu_torch.eval import detector as eval_detector
 from spnerf_tpu_torch.eval import on_the_fly
+from spnerf_tpu_torch.eval import pose as eval_pose
+from spnerf_tpu_torch.eval.essential import find_essential_mat, sampson_errors
 from spnerf_tpu_torch.geometry.homography import (
     HomographyConfig,
     sample_homographies,
@@ -272,11 +296,14 @@ from spnerf_tpu_torch.models.nerf import (
 )
 from spnerf_tpu_torch.models.superpoint import (
     SuperPointConfig,
+    fold_batch_norm,
+    folded_superpoint,
     init_superpoint,
     superpoint_inference,
 )
 from spnerf_tpu_torch.ops import homography_adaptation as ha_mod
 from spnerf_tpu_torch.ops import native_nms
+from spnerf_tpu_torch.ops import quantization
 from spnerf_tpu_torch.ops import serving
 from spnerf_tpu_torch.ops.fast_inference import (
     _cell_candidates,
@@ -295,6 +322,7 @@ from spnerf_tpu_torch.ops.image_warp import (
     valid_mask_from_inverse,
     warp_image,
 )
+from spnerf_tpu_torch.ops.descriptor_sampling import sample_descriptors
 from spnerf_tpu_torch.ops.nerf_label_fusion import fuse_nerf_labels
 from spnerf_tpu_torch.ops.nms import box_nms, box_nms_greedy
 from spnerf_tpu_torch.ops.occupancy import chunk_flags, field_integral_volume
@@ -302,6 +330,7 @@ from spnerf_tpu_torch.ops.photometric_device import (
     draw_photometric_randoms,
     photometric_from_draws,
 )
+from spnerf_tpu_torch.ops.upsample import upsample_bicubic
 from spnerf_tpu_torch.tasks import export, export_nerf, train_task
 from spnerf_tpu_torch.tasks.nerf_task import (
     create_nerf_optimizer,
@@ -335,7 +364,7 @@ from spnerf_tpu_torch.train.pipeline import (
     prepare_nerf_batch,
     prepare_superpoint_batch,
 )
-from spnerf_tpu_torch.utils.config import load_config
+from spnerf_tpu_torch.utils.config import apply_overrides, load_config
 from spnerf_tpu_torch.utils.factories import get_nerf_loaders
 
 H, W = 480, 640
@@ -4253,6 +4282,448 @@ def phase_cli(root: Path) -> dict:
     return counts
 
 
+# [pose]: the relative-pose evaluation (``eval/pose.py``; no kernel) over
+# posed pairs of one box room, from the demo MagicPoint (descriptor head
+# from seed 0); [quant]: the int8 PTQ graph (``ops/quantization.py``; no
+# kernel) at full width
+POSE_SEED = SEED + 60
+POSE_SCENE = "PoseRoom"
+POSE_FRAMES = 14  # 13 pairs at gaps of 2-5 frames, 3 of them again turned
+POSE_ROTATIONS = ((1, 1), (2, 0), (0, 3))
+POSE_CONFIG = CONFIGS / "pose_estimation_indoor.yaml"
+POSE_CUTS = {"data.resize": [W, H], "model.detector_head.top_k": TOP_K,
+             "pretrained": "pretrained/demo_mp_5000.ckpt",
+             "data.images_path": POSE_SCENE,
+             "data.gt_pairs": f"{POSE_SCENE}/pairs.txt"}
+# the estimator alone on matches from the scene's exact depth: as they are
+# (above POSE_MAX_DEG a failure), and with seeded noise and outliers. On
+# these short baselines the noisy matches leave the translation up to 61
+# deg off, as cv2.findEssentialMat + cv2.recoverPose leave it on the same
+# matches: there each pair's best model must hold POSE_NOISY_SUPPORT of the
+# inliers that the true E holds (0.902-0.981 on the CPU), and each pair's
+# (translation, rotation) error must repeat POSE_NOISY_DEG, the CPU run's
+# (numpy; cv2 5.0 gives the same inlier masks), within POSE_NOISY_TOL deg
+POSE_POINTS = 1000
+POSE_NOISY = {"noise_px": 0.5, "outliers": 0.3}
+POSE_MAX_DEG = 2.0
+POSE_NOISY_SUPPORT = 0.85
+POSE_NOISY_DEG = {
+    "0-5": (1.4303, 0.6654), "1-5": (2.2571, 0.2761), "2-6": (4.9898, 0.6037),
+    "3-8": (1.5959, 0.6091), "4-8": (3.6355, 0.3991), "5-10": (4.5032, 0.7121),
+    "6-11": (36.0186, 3.7066), "7-9": (9.4844, 0.7183),
+    "8-10": (43.1659, 1.6578), "9-12": (39.4924, 2.5162),
+    "10-13": (45.9993, 2.5822), "11-13": (37.2617, 1.5257),
+    "12-13": (60.8240, 1.0413)}
+POSE_NOISY_TOL = 1e-3
+POSE_SMALL, POSE_SMALL_TOL = (120, 160), 1e-5
+QUANT_BATCH, QUANT_REPS, QUANT_BOUND = 8, 5, 0.1
+QUANT_SMALL = (64, 80)
+
+
+def write_pose_pairs(scene: dict, root: Path, rotations=POSE_ROTATIONS):
+    """The frames of ``scene`` as 8-bit gray PNGs in ``root`` and a
+    SuperGlue-format pair list ``root/pairs.txt`` (names relative to
+    ``root``): each frame with the one 2-5 frames on (gaps drawn with seed
+    7, as ``demo/render_gt_test_views.write_gt_pose_pairs`` draws them),
+    then the first pairs again with the quarter-turns ``rotations`` (rot0,
+    rot1). Returns the pairs as (i, j, rot0, rot1)."""
+    root.mkdir(parents=True, exist_ok=True)
+    poses = scene["poses"].astype(np.float64)
+    n = len(poses)
+    for f in range(n):
+        gray = np.clip(scene["rgb"][f].mean(-1) * 255.0, 0, 255)
+        write_gray(root / f"{f}.png", gray.astype(np.uint8))
+    K = camera_intrinsics(scene["rgb"].shape[1:3], NERF_FOV)
+    k_flat = " ".join(f"{v:.6f}" for v in K.ravel())
+    rng = np.random.default_rng(7)
+    pairs = [(i, min(i + int(rng.integers(2, 6)), n - 1), 0, 0)
+             for i in range(n - 1)]
+    pairs += [(i, j, r0, r1)
+              for (i, j, _, _), (r0, r1) in zip(pairs, rotations)]
+    lines = []
+    for i, j, r0, r1 in pairs:
+        T = np.linalg.inv(poses[j]) @ poses[i]
+        t_flat = " ".join(f"{v:.8f}" for v in T.ravel())
+        lines.append(f"{i}.png {j}.png {r0} {r1} {k_flat} {k_flat} {t_flat}")
+    (root / "pairs.txt").write_text("\n".join(lines) + "\n")
+    return pairs
+
+
+def exact_matches(scene: dict, i: int, j: int, seed: int, noise_px=0.0,
+                  outliers=0.0):
+    """(x, y) pixel matches of frame ``i`` in frame ``j`` from the scene's
+    exact depth, away from depth edges, with seeded Gaussian noise of
+    ``noise_px`` and a share ``outliers`` moved to random pixels."""
+    h, w = scene["rgb"].shape[1:3]
+    src, dst = reprojection_truth(scene, i, j, POSE_POINTS, seed,
+                                  shape=(h, w))
+    rng = np.random.default_rng(seed)
+    k0 = src[:, ::-1].astype(np.float64) + rng.normal(0, noise_px, src.shape)
+    k1 = dst[:, ::-1] + rng.normal(0, noise_px, dst.shape)
+    bad = rng.random(len(k1)) < outliers
+    k1[bad] = rng.uniform([0, 0], [w - 1, h - 1], (int(bad.sum()), 2))
+    return k0, k1
+
+
+def pose_config(**cuts) -> dict:
+    """pose_estimation_indoor.yaml with POSE_CUTS and ``cuts``."""
+    return apply_overrides(load_config(POSE_CONFIG),
+                           set_args(dict(POSE_CUTS, **cuts))[1::2])
+
+
+def phase_pose(root: Path, card: str) -> None:
+    """[pose]: render and write the pairs; run ``python3 -m
+    spnerf_tpu_torch.eval.pose`` on them in a child process (the card);
+    repeat the run in this process; split one pair; the estimator alone
+    on exact matches; the card against the CPU at 120 x 160."""
+    here = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    scene = box_room(POSE_SEED, frames={"training": POSE_FRAMES,
+                                        "validation": 0})
+    data = root / "data"
+    pairs = write_pose_pairs(scene, data / POSE_SCENE)
+    log(f"[pose] box room {POSE_SEED}: {POSE_FRAMES} frames of {H}x{W} "
+        f"rendered and written as PNGs, {len(pairs)} pairs "
+        f"({len(POSE_ROTATIONS)} turned), in {time.perf_counter() - t0:.3f} s")
+
+    jsonl = root / "pose.jsonl"
+    env = dict(os.environ, SPNERF_DATA_PATH=str(data),
+               SPNERF_CKPT_PATH=str(here / "demo"))
+    cmd = [sys.executable, "-m", "spnerf_tpu_torch.eval.pose",
+           "--config-path", str(POSE_CONFIG.relative_to(here)),
+           "--json-out", str(jsonl)] + set_args(POSE_CUTS)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                          text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[pose] {' '.join(cmd)} exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    res = json.loads(jsonl.read_text().splitlines()[-1])
+    metrics = ("auc5", "auc10", "auc20", "precision", "matching_score")
+    if res["num_pairs"] != len(pairs) or not all(
+            0.0 <= res[k] <= 100.0 for k in metrics) \
+            or sorted(res["ci95"]) != sorted(metrics):
+        raise AssertionError(f"[pose] {res}")
+    log(f"[pose] python3 -m spnerf_tpu_torch.eval.pose "
+        f"({POSE_CONFIG.name}, --set {json.dumps(POSE_CUTS)}) in a child "
+        f"process: {len(pairs)} pairs in {child_s:.3f} s with the "
+        f"interpreter's start = {len(pairs) / child_s:.3f} pairs/s; "
+        + "; ".join(f"{k} {res[k]:.2f} (95% CI [{res['ci95'][k][0]:.2f}, "
+                    f"{res['ci95'][k][1]:.2f}])" for k in metrics)
+        + f" ({card})")
+
+    saved = (settings.DATA_PATH, settings.CKPT_PATH)
+    settings.DATA_PATH, settings.CKPT_PATH = data, here / "demo"
+    try:
+        config = pose_config()
+        infer = eval_pose.build_infer_fn(config, "cuda")
+        t0 = time.perf_counter()
+        again = eval_pose.estimate_pose_errors(
+            config, infer, eval_pose.read_pairs(config))
+        run_s = time.perf_counter() - t0
+        child = {k: v for k, v in res.items() if k != "pretrained"}
+        if json.loads(json.dumps(again)) != child:
+            raise AssertionError(f"[pose] this process's results {again} "
+                                 f"differ from the child's {child}")
+        log(f"[pose] estimate_pose_errors in this process: {len(pairs)} "
+            f"pairs in {run_s:.3f} s = {len(pairs) / run_s:.3f} pairs/s; "
+            f"results equal to the child's ({card})")
+        del infer
+        pose_split(config, data, pairs[0], card)
+        pose_estimator(scene, pairs, card)
+        pose_small(data, pairs[:2], card)
+    finally:
+        settings.DATA_PATH, settings.CKPT_PATH = saved
+    torch.cuda.empty_cache()
+
+
+def pose_split(config: dict, data: Path, pair, card: str) -> None:
+    """One pair's time by stage: inference (``superpoint_inference``) and
+    descriptor sampling on the card by CUDA events, matching and RANSAC +
+    ``recover_pose`` on the host; and the dense x8 upsample that
+    ``superpoint_inference`` computes and the pose path never reads."""
+    model = cli.model_for_inference(config, torch.device("cuda"))
+    i, j, r0, r1 = pair
+    size = config["data"]["resize"]
+    images = [eval_pose.load_gray(data / POSE_SCENE / f"{f}.png", size, r)[0]
+              for f, r in ((i, r0), (j, r1))]
+    xs = [torch.from_numpy(np.ascontiguousarray(im / 255.0)).cuda()[
+        None, ..., None] for im in images]
+    outs = [superpoint_inference(model, x) for x in xs]
+    infer_ms = sum(cuda_ms(lambda x=x: superpoint_inference(model, x), 5)
+                   for x in xs)
+    probs = [o["prob_heatmap_nms"][0].cpu().numpy() for o in outs]
+    top_k = config["model"]["detector_head"]["top_k"]
+    kpts = [eval_pose.top_keypoints_with_border(p, top_k) for p in probs]
+    pts = [torch.from_numpy(k.astype(np.float32)).cuda() for k in kpts]
+
+    def sample(o, p):
+        return sample_descriptors(o["desc_raw"][0], p, model.config.grid_size)
+
+    sample_ms = sum(cuda_ms(lambda o=o, p=p: sample(o, p), 5)
+                    for o, p in zip(outs, pts))
+    descs = [sample(o, p).cpu().numpy() for o, p in zip(outs, pts)]
+    t0 = time.perf_counter()
+    i0, i1 = eval_descriptor.mutual_nn_match(descs[0], descs[1])
+    match_ms = (time.perf_counter() - t0) * 1e3
+    mk0 = kpts[0][i0][:, ::-1].astype(np.float64)
+    mk1 = kpts[1][i1][:, ::-1].astype(np.float64)
+    K = camera_intrinsics((H, W), NERF_FOV).astype(np.float64)
+    t0 = time.perf_counter()
+    ret = eval_pose.recover_relative_pose(mk0, mk1, K, K, thresh=1.0)
+    ransac_ms = (time.perf_counter() - t0) * 1e3
+    desc_raw = outs[0]["desc_raw"]
+
+    def dense():
+        d = upsample_bicubic(desc_raw, model.config.grid_size)
+        return d / (torch.linalg.norm(d, dim=-1, keepdim=True) + 1e-12)
+
+    dense_ms = cuda_ms(dense, 5)
+    dense_mb = dense().numel() * 4 / 1e6
+    log(f"[pose] one pair ({i}.png-{j}.png, {len(kpts[0])} / {len(kpts[1])} "
+        f"keypoints, {len(mk0)} mutual matches, pose "
+        f"{'found' if ret is not None else 'not found'}) split: inference "
+        f"of both images {infer_ms:.3f} ms (the dense upsample below "
+        f"included) and descriptor sampling "
+        f"{sample_ms:.3f} ms on the card (CUDA events), matching "
+        f"{match_ms:.3f} ms and RANSAC + recover_pose {ransac_ms:.3f} ms "
+        f"on the host; the dense x8 upsample + normalization that "
+        f"superpoint_inference computes and the pose path never reads: "
+        f"{dense_ms:.3f} ms an image ({dense_mb:.1f} MB float32) ({card})")
+
+
+def pose_estimator(scene: dict, pairs, card: str) -> None:
+    """``recover_relative_pose`` on matches of every unturned pair from
+    the scene's exact depth, against the scene's poses: as they are (the
+    worst error at most POSE_MAX_DEG), then with POSE_NOISY's noise and
+    outliers (each pair's RANSAC support against the true E's, and its
+    errors against POSE_NOISY_DEG)."""
+    poses = scene["poses"].astype(np.float64)
+    K = camera_intrinsics(scene["rgb"].shape[1:3], NERF_FOV).astype(
+        np.float64)
+    norm_thresh = 2.0 / (K[0, 0] + K[1, 1])  # recover_relative_pose's
+    for label, cuts in (("exact", {}), ("noisy", POSE_NOISY)):
+        errs, secs, shares, supports = [], 0.0, [], []
+        for k, (i, j, r0, r1) in enumerate(pairs):
+            if r0 or r1:
+                continue
+            k0, k1 = exact_matches(scene, i, j, POSE_SEED + k, **cuts)
+            t0 = time.perf_counter()
+            ret = eval_pose.recover_relative_pose(k0, k1, K, K, thresh=1.0)
+            secs += time.perf_counter() - t0
+            if ret is None:
+                raise AssertionError(f"[pose] no pose for pair {i}-{j}")
+            R, t, inliers = ret
+            T = np.linalg.inv(poses[j]) @ poses[i]
+            errs.append((i, j, float(np.linalg.norm(T[:3, 3])))
+                        + eval_pose.pose_errors_deg(T, R, t))
+            shares.append(float(inliers.mean()))
+            if label == "exact":
+                continue
+            n0, n1 = (eval_pose._normalized(p, K)[:, :2] for p in (k0, k1))
+            _, mask = find_essential_mat(n0, n1, norm_thresh, prob=0.99999)
+            true_E = eval_pose._cross_matrix(T[:3, 3]) @ T[:3, :3]
+            held = sampson_errors(true_E[None], n0, n1)[0] <= np.float32(
+                norm_thresh**2)
+            supports.append(int(mask.sum()) / int(held.sum()))
+            pin = POSE_NOISY_DEG[f"{i}-{j}"]
+            if supports[-1] < POSE_NOISY_SUPPORT or max(
+                    abs(a - b) for a, b in zip(errs[-1][3:], pin)) > \
+                    POSE_NOISY_TOL:
+                raise AssertionError(
+                    f"[pose] noisy pair {i}-{j}: support {supports[-1]:.4f} "
+                    f"of the true E's (at least {POSE_NOISY_SUPPORT}), "
+                    f"errors {errs[-1][3:]} deg against {pin}")
+        err_t = max(e[3] for e in errs)
+        err_R = max(e[4] for e in errs)
+        if label == "exact" and max(err_t, err_R) > POSE_MAX_DEG:
+            raise AssertionError(f"[pose] estimator on exact matches: "
+                                 f"rotation {err_R:.3f} deg, translation "
+                                 f"{err_t:.3f} deg")
+        log(f"[pose] find_essential_mat + recover_pose on {label} matches of "
+            f"{len(errs)} pairs ({POSE_POINTS} points from the depth, "
+            f"{json.dumps(cuts) if cuts else 'no noise, no outliers'}): "
+            f"worst rotation error {err_R:.4f} deg, translation direction "
+            f"{err_t:.4f} deg"
+            + (f" (at most {POSE_MAX_DEG})" if label == "exact" else
+               f" (each pair's within {POSE_NOISY_TOL} deg of the CPU's; "
+               f"RANSAC support {min(supports):.4f}-{max(supports):.4f} of "
+               f"the true E's, at least {POSE_NOISY_SUPPORT})")
+            + f"; inlier share {min(shares):.3f}-{max(shares):.3f}; "
+            f"{secs / len(errs) * 1e3:.1f} ms a pair on the host; per pair "
+            "(i-j, baseline m, t deg, R deg): "
+            + ", ".join(f"{i}-{j} {b:.3f} {et:.4f} {eR:.4f}"
+                        for i, j, b, et, eR in errs) + f" ({card})")
+
+
+def _near_tie_flips(got, want, d1, d2, gap=1e-4):
+    """The mutual matches (i, j) found on one side only, each checked to
+    sit where ``d1`` row i's or ``d2`` row j's nearest neighbour lies within
+    ``gap`` (squared distance) of its second nearest."""
+    d = ((d1[:, None] - d2[None]) ** 2).sum(-1)
+    rows, cols = np.sort(d, 1), np.sort(d, 0)
+    flips = set(map(tuple, got)) ^ set(map(tuple, want))
+    for i, j in flips:
+        if min(rows[i, 1] - rows[i, 0], cols[1, j] - cols[0, j]) >= gap:
+            raise AssertionError(f"[pose-small] match ({i}, {j}) on one side")
+    return len(flips)
+
+
+def pose_small(data: Path, pairs, card: str) -> None:
+    """Two pairs at 120 x 160 through the pose path's inference on the
+    card and on the CPU plain path (same weights): dense heatmaps and the
+    descriptors sampled at the CPU's keypoints within POSE_SMALL_TOL, the
+    NMS'd keypoints equal away from near-ties, the mutual matches equal
+    away from near-ties."""
+    config = pose_config(**{"data.resize": list(POSE_SMALL[::-1])})
+    model = cli.model_for_inference(config, torch.device("cuda"))
+    cpu_model = copy.deepcopy(model).cpu()
+    top_k = config["model"]["detector_head"]["top_k"]
+    grid = model.config.grid_size
+    worst, flips, apart = 0.0, 0, 0
+    for i, j, r0, r1 in pairs:
+        outs = {}
+        for dev, m in (("cuda", model), ("cpu", cpu_model)):
+            side = []
+            for f, r in ((i, r0), (j, r1)):
+                im = eval_pose.load_gray(data / POSE_SCENE / f"{f}.png",
+                                         POSE_SMALL[::-1], r)[0]
+                x = torch.from_numpy(np.ascontiguousarray(im / 255.0))
+                side.append(superpoint_inference(m, x.to(dev)[None, ...,
+                                                              None]))
+            outs[dev] = side
+        kpts = []
+        for k in range(2):
+            card_o, cpu_o = outs["cuda"][k], outs["cpu"][k]
+            dense = cpu_o["prob_heatmap"][0].numpy()
+            worst = max(worst, float((card_o["prob_heatmap"][0].cpu()
+                                      - cpu_o["prob_heatmap"][0]).abs().max()))
+            a = eval_pose.top_keypoints_with_border(
+                card_o["prob_heatmap_nms"][0].cpu().numpy(), top_k)
+            b = eval_pose.top_keypoints_with_border(
+                cpu_o["prob_heatmap_nms"][0].numpy(), top_k)
+            for y, x in {tuple(p) for p in a} ^ {tuple(p) for p in b}:
+                win = dense[max(y - 4, 0):y + 5, max(x - 4, 0):x + 5]
+                if np.sort(np.abs(win - dense[y, x]).ravel())[1] \
+                        > POSE_SMALL_TOL:
+                    raise AssertionError(f"[pose-small] keypoint ({y}, {x}) "
+                                         "on one side")
+                apart += 1
+            pts = torch.from_numpy(b.astype(np.float32))
+            d_card = sample_descriptors(card_o["desc_raw"][0], pts.cuda(),
+                                        grid).cpu().numpy()
+            d_cpu = sample_descriptors(cpu_o["desc_raw"][0], pts,
+                                       grid).numpy()
+            worst = max(worst, float(np.abs(d_card - d_cpu).max()))
+            kpts.append((b, d_card, d_cpu))
+        (b0, c0, p0), (b1, c1, p1) = kpts
+        got = np.stack(eval_descriptor.mutual_nn_match(c0, c1), -1)
+        want = np.stack(eval_descriptor.mutual_nn_match(p0, p1), -1)
+        flips += _near_tie_flips(got, want, p0, p1)
+    if worst > POSE_SMALL_TOL:
+        raise AssertionError(f"[pose-small] card against CPU: {worst}")
+    log(f"[pose-small] {len(pairs)} pairs at {POSE_SMALL[0]}x{POSE_SMALL[1]}"
+        f", card against the CPU plain path: heatmaps and sampled "
+        f"descriptors within {worst:.3e}, {apart} keypoints and {flips} "
+        f"mutual matches on one side only (near-ties) ({card})")
+
+
+def phase_quant(card: str) -> None:
+    """[quant]: ``QuantizedSuperPoint`` from the full-width seeded
+    SuperPoint, calibrated on 8 synthetic 480 x 640 images: ms a batch of
+    8 and the im2col's share, the logit error against the BN-folded float
+    model; then the card against the CPU at 2 x 64 x 80."""
+    cfg = SuperPointConfig()
+    model = init_superpoint(SEED + 61, cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 62)
+    calib = synthetic_images(QUANT_BATCH, gen)
+    t0 = time.perf_counter()
+    q = quantization.QuantizedSuperPoint.build(cfg, model, calib)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    batch = synthetic_images(QUANT_BATCH, gen)
+    ms = cuda_ms(lambda: q(batch), QUANT_REPS)
+    spans = []
+    real = quantization.im2col
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    quantization.im2col = timed
+    try:
+        start.record()
+        got = q(batch)
+        end.record()
+    finally:
+        quantization.im2col = real
+    end.synchronize()
+    im2col_ms = sum(a.elapsed_time(b) for a, b in spans)
+    share = im2col_ms / start.elapsed_time(end)
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=False):
+        ref = folded_superpoint(fold_batch_norm(model), cfg,
+                                torch.float32)(batch)
+    scale = float(ref["logits"].abs().max()) + 1e-9
+    err = float((got["logits"] - ref["logits"]).abs().max()) / scale
+    if not err < QUANT_BOUND or not torch.isfinite(got["desc_raw"]).all():
+        raise AssertionError(f"[quant] logit error {err} of the range")
+    log(f"[quant] QuantizedSuperPoint (full width, seeded, calibrated on "
+        f"{QUANT_BATCH} synthetic {H}x{W} images in {build_s:.3f} s): "
+        f"{ms:.3f} ms a batch of {QUANT_BATCH} = "
+        f"{QUANT_BATCH / ms * 1e3:.1f} frames/s; {len(spans)} im2cols "
+        f"{im2col_ms:.3f} ms = {share:.1%} of a batch; logit error "
+        f"{err:.4f} of the logit range against the BN-folded float32 model "
+        f"(bound {QUANT_BOUND}) ({card})")
+
+    small = synthetic_images(2, gen, QUANT_SMALL)
+    cpu_q = quantization.QuantizedSuperPoint.build(
+        cfg, copy.deepcopy(model).cpu(), None,
+        act_scales={k: float(v) for k, v in q.act_scales.items()},
+        device="cpu")
+    sums, outs = {}, {}
+    real = quantization.conv_int32
+    for dev, qm in (("cuda", q), ("cpu", cpu_q)):
+        sums[dev] = []
+
+        def record(*args, out=sums[dev]):
+            acc = real(*args)
+            out.append(acc.cpu())
+            return acc
+
+        quantization.conv_int32 = record
+        try:
+            outs[dev] = qm(small.to(dev))
+        finally:
+            quantization.conv_int32 = real
+    if len(sums["cuda"]) != len(sums["cpu"]) or not all(
+            torch.equal(a, b) for a, b in zip(sums["cuda"], sums["cpu"])):
+        raise AssertionError("[quant-small] int32 sums differ")
+    over = 0.0
+    for key, head in (("logits", "detector/convPb"),
+                      ("desc_raw", "descriptor/convDb")):
+        g, w = outs["cuda"][key].cpu(), outs["cpu"][key]
+        s = w - cpu_q.params[head]["bias"]
+        ulp = torch.exp2(torch.floor(torch.log2(s.abs().clamp_min(1e-30)))
+                         - 7)
+        over = max(over, float(((g - w).abs() / ulp).max()))
+    if over > 1.0 + 1e-3:
+        raise AssertionError(f"[quant-small] heads {over} bf16 ulps apart")
+    log(f"[quant-small] 2x{QUANT_SMALL[0]}x{QUANT_SMALL[1]}, card against "
+        f"the CPU plain path (the card's scales): {len(sums['cpu'])} int32 "
+        f"sums equal, the heads within {over:.3f} bf16 ulps ({card})")
+    del q, cpu_q, model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4410,6 +4881,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_nerf_scene_small()
     del room
+
+    # relative pose and int8 PTQ (no kernel on either path)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_pose(Path(tmp), card)
+    phase_quant(card)
 
     # the fused tiny-NeRF serving renderer: the 10 renders per variant are
     # the drive of the main path

@@ -80,3 +80,36 @@ def resize_linear(img: np.ndarray, size) -> np.ndarray:
     r1 = rows[np.clip(ys + 1, 0, sh - 1)]
     out = _vertical(r0, r1, b0[:, None], b1[:, None])
     return out.reshape((dh, dw) + img.shape[2:])
+
+
+def resize_linear_float(img: np.ndarray, size) -> np.ndarray:
+    """``img`` (H, W) float32 resized to ``size`` = (width, height) as
+    ``cv2.resize(img, size)`` (``INTER_LINEAR``) returns it, to a few
+    float32 ulps (module docstring)."""
+    img = np.asarray(img)
+    if img.dtype != np.float32 or img.ndim != 2:
+        raise ValueError(f"resize_linear_float takes (H, W) float32, got "
+                         f"{img.shape} {img.dtype}")
+    dw, dh = int(size[0]), int(size[1])
+    sh, sw = img.shape
+    if (dh, dw) == (sh, sw):
+        return img.copy()
+    if sw == 2 * dw and sh == 2 * dh:  # INTER_AREA, as for uint8
+        return ((img[0::2, 0::2] + img[0::2, 1::2]) + img[1::2, 0::2]
+                + img[1::2, 1::2]) * np.float32(0.25)
+
+    def taps(dst, src):
+        f = (np.arange(dst, dtype=np.float64) + 0.5) * (src / dst) - 0.5
+        s = np.floor(f).astype(np.int64)
+        f -= s
+        clamped = (s < 0) | (s >= src - 1)
+        f[clamped] = 0.0
+        s = np.clip(s, 0, src - 1)
+        return s, np.minimum(s + 1, src - 1), 1.0 - f, f
+
+    x0, x1, a0, a1 = taps(dw, sw)
+    y0, y1, b0, b1 = taps(dh, sh)
+    rows = img.astype(np.float64)
+    rows = rows[:, x0] * a0 + rows[:, x1] * a1
+    out = rows[y0] * b0[:, None] + rows[y1] * b1[:, None]
+    return out.astype(np.float32)

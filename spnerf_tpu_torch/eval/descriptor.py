@@ -4,8 +4,8 @@ score (``spnerf_tpu/eval/descriptor.py``).
 Mutual-nearest-neighbor (cross-check) matching is a dense distance
 matrix + argmin both ways in numpy, host-side by design, like the RANSAC
 homography. Where the reference calls ``cv2.findHomography`` with RANSAC,
-the port runs its own estimator (``eval/ransac.py``) with cv2's defaults
-and an explicit seeded generator.
+the port runs its own estimator (``eval/ransac.py``) with cv2's defaults,
+drawing OpenCV's samples.
 """
 
 from __future__ import annotations
@@ -63,13 +63,11 @@ def compute_homography_estimation(
     real_H: np.ndarray,
     keep_k_points: int = 1000,
     correctness_thresh: float = 3.0,
-    rng: np.random.Generator | None = None,
 ) -> dict:
     """One-pair homography estimation (reference
     descriptor_evaluation.py:55-128): shared top-k points, mutual-NN
-    match on dense descriptors, RANSAC homography (samples drawn from
-    ``rng``, default ``np.random.default_rng(0)``), corner-error
-    correctness + matching score."""
+    match on dense descriptors, RANSAC homography (OpenCV's samples),
+    corner-error correctness + matching score."""
     shape = prob.shape
     keypoints = keep_shared_points(prob, real_H, keep_k_points)
     warped_keypoints = keep_shared_points(
@@ -92,7 +90,7 @@ def compute_homography_estimation(
     m2 = warped_keypoints[i2]
     H, inliers = find_homography(
         m1[:, ::-1].astype(np.float32), m2[:, ::-1].astype(np.float32),
-        np.random.default_rng(0) if rng is None else rng, max_iters=3000,
+        max_iters=3000,
     )
     if H is None:
         return {"correctness": 0.0, "matching_score": 0.0, "homography": None,
@@ -123,12 +121,10 @@ def compute_homography_estimation(
 
 def homography_estimation(
     exper_name: str, keep_k_points: int = 1000, correctness_thresh: float = 3.0,
-    seed: int = 0,
 ):
     """Mean correctness + matching score over an exported experiment
-    (reference descriptor_evaluation.py:129-143); the RANSAC samples of
-    all pairs come in turn from ``np.random.default_rng(seed)``."""
-    rng = np.random.default_rng(seed)
+    (reference descriptor_evaluation.py:129-143); the RANSAC samples are
+    OpenCV's."""
     paths = sorted(Path(settings.EXPER_PATH, "descriptors", exper_name)
                    .glob("*.npz"))
     correctness, mscores = [], []
@@ -137,7 +133,7 @@ def homography_estimation(
         est = compute_homography_estimation(
             data["prob"], data["warped_prob"], data["desc"],
             data["warped_desc"], data["homography"],
-            keep_k_points, correctness_thresh, rng,
+            keep_k_points, correctness_thresh,
         )
         correctness.append(est["correctness"])
         mscores.append(est["matching_score"])

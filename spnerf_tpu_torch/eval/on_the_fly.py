@@ -89,15 +89,13 @@ def run_repeatability(config, k_points=300, distance_thresh=3,
 
 
 def run_descriptors(config, k_points=1000, correctness_thresh=3.0,
-                    device="cuda", seed=0):
-    """The RANSAC samples of all pairs come in turn from
-    ``np.random.default_rng(seed)``."""
-    rng = np.random.default_rng(seed)
+                    device="cuda"):
+    """The RANSAC samples are OpenCV's."""
     correctness, mscores = [], []
     for H, out1, out2 in pair_outputs(config, device):
         est = compute_homography_estimation(
             out1["prob_heatmap_nms"], out2["prob_heatmap_nms"],
-            out1["desc"], out2["desc"], H, k_points, correctness_thresh, rng)
+            out1["desc"], out2["desc"], H, k_points, correctness_thresh)
         correctness.append(est["correctness"])
         mscores.append(est["matching_score"])
     clo, chi = bootstrap_ci(correctness)

@@ -134,11 +134,12 @@ def test_on_the_fly_matches_jax(roots):
     """Both modes over the ``v`` pairs against the reference's inference
     and metrics: the same keypoint sets; repeatability within 1e-6; the
     same mutual matches but for near ties (so matching scores within one
-    match a pair), correctness equal on each pair (cv2's RANSAC inside the
-    reference: equal away from the 3 px threshold, tests/
-    test_torch_eval.py); the aggregates and their bootstrap intervals as
-    the reference's ``run_repeatability`` / ``run_descriptors`` form
-    them."""
+    match a pair); on a pair whose matches are equal the RANSAC draws
+    cv2's samples, so matching score, inliers and correctness equal and
+    the corner distance within 1e-4 px (tests/test_torch_eval.py), else
+    correctness equal away from the 3 px threshold; the aggregates and
+    their bootstrap intervals as the reference's ``run_repeatability`` /
+    ``run_descriptors`` form them."""
     from spnerf_tpu.eval import descriptor as jdesc
     from spnerf_tpu.eval import detector as jdet
 
@@ -147,6 +148,7 @@ def test_on_the_fly_matches_jax(roots):
         SETS[1::2])
     infer, loader = jotf._build(cfg)
     reps, est = {"port": [], "jax": []}, {"port": [], "jax": []}
+    same_matches = 0
     for (H, out1, out2), batch in zip(totf.pair_outputs(cfg, "cpu"),
                                       loader):
         w1, w2 = ({k: np.asarray(v[0]) for k, v in
@@ -174,9 +176,18 @@ def test_on_the_fly_matches_jax(roots):
                              w2["desc"][k2[:, 0], k2[:, 1]])
         assert abs(g["matching_score"] - w["matching_score"]) \
             <= 1.0 / len(k1) + 1e-12
-        if abs(w.get("mean_dist", 0.0) - 3.0) > 0.5:
+        if np.array_equal(g["matches"], w["matches"]):
+            # the same RANSAC input: cv2's draws, the same inliers
+            assert g["matching_score"] == w["matching_score"]
+            assert g["correctness"] == w["correctness"]
+            np.testing.assert_array_equal(g["inliers"], w["inliers"])
+            assert abs(g.get("mean_dist", 0.0) - w.get("mean_dist", 0.0)) \
+                < 1e-4
+            same_matches += 1
+        elif abs(w.get("mean_dist", 0.0) - 3.0) > 0.5:
             assert g["correctness"] == w["correctness"]
     assert len(reps["jax"]) == len(NAMES["v"])
+    assert same_matches >= 1
     for (r, n1, n2), (q, m1, m2) in zip(reps["port"], reps["jax"]):
         assert (n1, n2) == (m1, m2) and r == pytest.approx(q, abs=1e-6)
 

@@ -2058,3 +2058,114 @@ def test_on_the_fly_repeatability_on_card_against_cpu(card, tmp_path,
     assert results[0]["pairs"] == results[1]["pairs"] == 2
     if same_sets == 2:
         assert results[0] == results[1]
+
+
+# ------------------------------------------------------- pose evaluation
+
+@pytest.mark.cuda
+def test_pose_inference_on_card_against_cpu(card, tmp_path, monkeypatch):
+    """``eval.pose.build_infer_fn`` on a small box room's frames (the demo
+    MagicPoint, seed-0 descriptor head, 96 x 128) on the card and on the
+    CPU: heatmaps within 1e-5 where both keep a point, descriptors at the
+    CPU's keypoints within 1e-5; then ``estimate_pose_errors`` on the
+    card's outputs runs through every pair."""
+    import importlib.util
+
+    from spnerf_tpu_torch import settings
+    from spnerf_tpu_torch.eval import pose
+    from spnerf_tpu_torch.utils.config import apply_overrides, load_config
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", _CLI_ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    scene = smoke.box_room(5, shape=(96, 128),
+                           frames={"training": 4, "validation": 0})
+    smoke.write_pose_pairs(scene, tmp_path / "Room")
+    monkeypatch.setattr(settings, "DATA_PATH", tmp_path)
+    monkeypatch.setattr(settings, "CKPT_PATH", _CLI_ROOT / "demo")
+    config = apply_overrides(load_config(
+        _CLI_ROOT / "spnerf_tpu_torch/configs/pose_estimation_indoor.yaml"),
+        ["data.resize=[128, 96]", "data.images_path=Room",
+         "data.gt_pairs=Room/pairs.txt", "model.detector_head.top_k=300",
+         "pretrained=pretrained/demo_mp_5000.ckpt"])
+    infer = {d: pose.build_infer_fn(config, d) for d in ("cpu", "cuda")}
+    for f in range(4):
+        image, _ = pose.load_gray(tmp_path / "Room" / f"{f}.png",
+                                  config["data"]["resize"])
+        want, got = infer["cpu"](image), infer["cuda"](image)
+        both = (got["prob"] > 0) & (want["prob"] > 0)
+        assert both.any()
+        np.testing.assert_allclose(got["prob"][both], want["prob"][both],
+                                   atol=1e-5, rtol=0)
+        kpts = pose.top_keypoints_with_border(want["prob"], 300)
+        np.testing.assert_allclose(got["desc"](kpts), want["desc"](kpts),
+                                   atol=1e-5, rtol=0)
+    pairs = pose.read_pairs(config)
+    res = pose.estimate_pose_errors(config, infer["cuda"], pairs)
+    assert res["num_pairs"] == len(pairs) == 6
+
+
+# ----------------------------------------------------------- int8 PTQ
+
+@pytest.mark.cuda
+def test_quantized_superpoint_on_card_against_cpu(card):
+    """``QuantizedSuperPoint`` (narrow, seeded) on the card and on the CPU
+    with the card's scales: every int32 sum equal (``torch._int_mm`` on
+    the card, the CPU's own product), the heads within 1 bf16 ulp."""
+    from spnerf_tpu_torch.models.superpoint import (
+        SuperPointConfig,
+        init_superpoint,
+    )
+    from spnerf_tpu_torch.ops import quantization
+
+    cfg = SuperPointConfig(vgg_cn=(8, 8, 16, 16, 32, 32, 32, 32),
+                           detector_dim=(32, 64), descriptor_dim=(32, 64))
+    model = init_superpoint(7, cfg, device="cuda")
+    x = torch.rand((2, 48, 72, 1), generator=torch.Generator().manual_seed(1))
+    q = quantization.QuantizedSuperPoint.build(cfg, model, x.cuda())
+    cpu_q = quantization.QuantizedSuperPoint.build(
+        cfg, init_superpoint(7, cfg, device="cpu"), None,
+        act_scales={k: float(v) for k, v in q.act_scales.items()},
+        device="cpu")
+    sums = {}
+    real = quantization.conv_int32
+    outs = {}
+    for dev, qm in (("cuda", q), ("cpu", cpu_q)):
+        sums[dev] = []
+
+        def record(*args, out=sums[dev]):
+            acc = real(*args)
+            out.append(acc.cpu())
+            return acc
+
+        quantization.conv_int32 = record
+        try:
+            outs[dev] = qm(x.to(dev))
+        finally:
+            quantization.conv_int32 = real
+    assert len(sums["cuda"]) == len(sums["cpu"]) == 10
+    for a, b in zip(sums["cuda"], sums["cpu"]):
+        assert torch.equal(a, b)
+    for key, head in (("logits", "detector/convPb"),
+                      ("desc_raw", "descriptor/convDb")):
+        got, want = outs["cuda"][key].cpu(), outs["cpu"][key]
+        s = (want - cpu_q.params[head]["bias"]).abs().clamp_min(1e-30)
+        ulp = torch.exp2(torch.floor(torch.log2(s)) - 7)
+        assert float(((got - want).abs() / ulp).max()) <= 1.0 + 1e-3, key
+
+
+@pytest.mark.cuda
+def test_conv_int32_on_card_at_block_shapes(card):
+    """The im2col + ``torch._int_mm`` product at block 1's K = 9 (padded),
+    a cout not of 8 and fewer than 17 rows, equal to the CPU's."""
+    from spnerf_tpu_torch.ops.quantization import conv_int32
+
+    rng = np.random.default_rng(3)
+    for shape, kernel in (((2, 9, 13, 1), (3, 3, 1, 64)),
+                          ((1, 5, 7, 64), (3, 3, 64, 65)),
+                          ((1, 1, 3, 8), (3, 3, 8, 8))):
+        x = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+        k = torch.from_numpy(rng.integers(-127, 128, kernel).astype(np.int8))
+        assert torch.equal(conv_int32(x.cuda(), k.cuda()).cpu(),
+                           conv_int32(x, k))

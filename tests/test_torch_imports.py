@@ -15,7 +15,9 @@ import importlib, importlib.util, pkgutil, sys
 import spnerf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(spnerf_tpu_torch.__path__,
                                                "spnerf_tpu_torch.")]
-assert "spnerf_tpu_torch.kernels.desc_sample" in names, names
+for name in ("kernels.desc_sample", "eval.pose", "eval.essential",
+             "eval.cv_rng", "ops.quantization"):
+    assert "spnerf_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
