@@ -11,14 +11,20 @@ Tasks: train, export_pseudo_labels, export_NeRF_labels,
 export_HPatches_Repeatability, export_HPatches_Descriptors. Configs are
 read by the port's own YAML reader (``utils.config``), so no ``yaml``
 package is needed. Every task runs on the card unless ``--device cpu``.
+The bootstrap of the README runs from its datasets: ``train`` on
+``magicpoint_syn.yaml`` (Synthetic Shapes, generated on first use),
+``export_pseudo_labels`` on ``magicpoint_coco_export.yaml`` (COCO JPEGs
+through the port's own decoder), then ``train`` on
+``magicpoint_coco_train.yaml`` and ``superpoint_coco_train.yaml`` over
+those labels.
 
 The reference first joins a multi-host JAX cluster where one is
 configured (``parallel.distributed.maybe_initialize_distributed``); the
 port runs on one device and has no counterpart yet (ROADMAP Queue 1
-item 6), so it skips that step. A task whose dataset is not ported
-(COCO, SyntheticShapes) raises before any weights are built. ``--split``
-also picks the split of ``export_NeRF_labels`` (the reference exports
-the training split only), so that validation labels can be written too.
+item 6), so it skips that step (a COCO ``shard: auto`` raises).
+``--split`` also picks the split of ``export_NeRF_labels`` (the
+reference exports the training split only), so that validation labels
+can be written too.
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 Yields image pairs + the GT homography adapted to the ratio-preserving
 resize, as float32 numpy, from DATA_PATH/<name>/<sequence>/{1..6}.ppm
 and H_1_{2..6}. ``alteration``: 'i' (illumination), 'v' (viewpoint) or
-'all'. Images are read by ``data/pnm.py``; a sequence of ``.jpg`` files
-raises (no JPEG decoder yet).
+'all'. Images are read by ``data/imread.py`` (``.ppm`` and ``.jpg``
+among them), as ``cv2.imread(..., IMREAD_GRAYSCALE)`` reads them.
 """
 
 from __future__ import annotations
@@ -14,21 +14,11 @@ from pathlib import Path
 import numpy as np
 
 from spnerf_tpu_torch import settings
-from spnerf_tpu_torch.data import pnm
+from spnerf_tpu_torch.data.imread import read_gray
 from spnerf_tpu_torch.data.preprocessing import (
     adapt_homography_to_ratio_resize,
     ratio_preserving_resize,
 )
-
-
-def read_gray(path: str) -> np.ndarray:
-    """``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` for the formats the
-    port reads; JPEG raises."""
-    if Path(path).suffix.lower() in (".jpg", ".jpeg"):
-        raise NotImplementedError(
-            f"HPatches: {path}: JPEG decoding is not ported yet (ROADMAP "
-            "Queue 1 item 5, host data readers and augmentation)")
-    return pnm.read_gray(path)
 
 
 class HPatches:

@@ -23,6 +23,7 @@ from pathlib import Path
 import numpy as np
 
 from spnerf_tpu_torch import settings
+from spnerf_tpu_torch.data.photometric import PhotometricAug
 from spnerf_tpu_torch.data.png import read_gray
 from spnerf_tpu_torch.data.rng import ThreadLocalRNG, stable_seed
 
@@ -47,8 +48,10 @@ class NeRFDataset:
     ``has_labels`` {"kpts" (1024, 2), "kpts_mask"} from
     EXPER_PATH/<has_labels>/<split>, with ``warped_pair`` the partner's
     {"image_warp", "rotation_warp", "translation_warp", "warped_name"};
-    training frames are randomly cropped to ``downsample_size`` where
-    ``downsample`` is set, the intrinsics recomputed for the crop."""
+    training frames are photometric-augmented on the host where
+    ``augmentation.photometric`` is enabled and not ``on_device``, and
+    randomly cropped to ``downsample_size`` where ``downsample`` is set,
+    the intrinsics recomputed for the crop."""
 
     def __init__(self, data_config: dict, task: str = "training"):
         self.config = data_config
@@ -59,12 +62,11 @@ class NeRFDataset:
         )
         self.samples = self._init_dataset()
         photo = self.config.get("augmentation", {}).get("photometric", {})
-        if photo.get("enable") and not photo.get("on_device"):
-            raise NotImplementedError(
-                "NeRFDataset: host photometric augmentation (data/"
-                "photometric.py) is not ported yet (ROADMAP Queue 1 item 5, "
-                "host data readers and augmentation); set augmentation."
-                "photometric.on_device: true to run it in the training step")
+        self.photometric = (
+            PhotometricAug(photo)
+            if photo.get("enable") and not photo.get("on_device")
+            else None
+        )
         self.warped_pair = bool(self.config.get("warped_pair"))
         self._rng = ThreadLocalRNG(stable_seed("nerf", self.split))
 
@@ -137,9 +139,16 @@ class NeRFDataset:
             out["kpts"] = kpts
             out["kpts_mask"] = mask
 
+        # host photometric augmentation of both frames, each its own draw
+        aug = self.photometric is not None and self.split == "training"
+        if aug:
+            img = self.photometric(img, self._rng.get())
+
         if self.warped_pair:
             j = self._random_partner(index)
             wimg, Rw, tw = self._load_frame(j)
+            if aug:
+                wimg = self.photometric(wimg, self._rng.get())
             out["image_warp"] = (wimg / 255.0)[..., None].astype(np.float32)
             out["rotation_warp"] = Rw
             out["translation_warp"] = tw

@@ -11,11 +11,22 @@ each redrawn while it equals an earlier one of the same sample.
 
 A ``np.random.Generator`` may stand in for the generator: its
 ``integers`` draws then take the place of ``uniform``.
+
+``the_rng()`` is the process-global generator ``cv::theRNG()``: a fresh
+OpenCV process starts it at state 0xffffffff (not at ``CvRNG()``'s
+(uint64)-1), and ``set_rng_seed`` copies ``cv2.setRNGSeed``. ``randu``
+fills an 8-bit image as ``cv2.randu`` does, in row-major order by
+``uniform``; the draws run in C++ (``native/cv_rng.cpp``, built at first
+use), since a 960 x 1280 fill is 1.2 M draws.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
+
+from spnerf_tpu_torch.utils import native
 
 _MASK64 = (1 << 64) - 1
 _MASK32 = (1 << 32) - 1
@@ -53,3 +64,41 @@ def draw_subset(rng, count: int, size: int) -> np.ndarray:
             i = _uniform(rng, count)
         idx.append(i)
     return np.array(idx, np.int64)
+
+
+_THE_RNG = CvRNG(_MASK32)
+
+
+def the_rng() -> CvRNG:
+    """The process-global generator (``cv::theRNG()``)."""
+    return _THE_RNG
+
+
+def set_rng_seed(seed: int) -> None:
+    """``cv2.setRNGSeed(seed)``: the global generator restarts at
+    ``seed`` (0 at 2^32 - 1)."""
+    _THE_RNG.state = CvRNG(int(seed)).state
+
+
+def randu(img: np.ndarray, low: int, high: int, rng: CvRNG | None = None):
+    """``cv2.randu(img, low, high)`` on a contiguous uint8 array, in place,
+    from ``rng`` (default: the global generator): each element
+    ``uniform(low, high)`` in row-major order. OpenCV draws ranges of a
+    power-of-two width by a bit mask instead; those raise."""
+    rng = _THE_RNG if rng is None else rng
+    low, high = int(low), int(high)
+    d = high - low
+    if img.dtype != np.uint8 or not img.flags.c_contiguous:
+        raise ValueError(f"randu fills a contiguous uint8 array, got "
+                         f"{img.dtype}")
+    if not 0 <= low < high <= 256 or d & (d - 1) == 0:
+        raise ValueError(f"randu: range [{low}, {high}) is not reproduced "
+                         "(8-bit, width not a power of two)")
+    lib = native.load("cv_rng")
+    lib.cv_rng_fill_u8.restype = ctypes.c_uint64
+    lib.cv_rng_fill_u8.argtypes = [ctypes.c_uint64, ctypes.c_void_p,
+                                   ctypes.c_int64, ctypes.c_int32,
+                                   ctypes.c_uint32]
+    rng.state = lib.cv_rng_fill_u8(rng.state, img.ctypes.data, img.size,
+                                   low, d)
+    return img

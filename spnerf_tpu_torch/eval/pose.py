@@ -9,8 +9,8 @@ float32, cuDNN's TF32 off, descriptors sampled at the keypoints). The
 geometry stays on the host in numpy, with the port's own counterparts of
 ``cv2.findEssentialMat`` and ``cv2.recoverPose`` (``eval/essential.py``),
 which draw OpenCV's RANSAC samples, so a run repeats the reference's
-numbers. Images are read by the port's PNG / PNM readers; a JPEG raises
-(ROADMAP Queue 1 item 5).
+numbers. Images are read by the port's PNG, PNM and gray JPEG readers
+(``data/imread.py``); other formats raise (ROADMAP Queue 1 item 7).
 
     python -m spnerf_tpu_torch.eval.pose --config-path \\
         spnerf_tpu_torch/configs/pose_estimation_indoor.yaml \\
@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from spnerf_tpu_torch import settings
-from spnerf_tpu_torch.data import png, pnm
+from spnerf_tpu_torch.data.imread import gray_reader
 from spnerf_tpu_torch.data.resize import resize_linear, resize_linear_float
 from spnerf_tpu_torch.eval.descriptor import mutual_nn_match
 from spnerf_tpu_torch.eval.essential import find_essential_mat, recover_pose
@@ -53,24 +53,16 @@ def resize_dims(w: int, h: int, spec) -> tuple[int, int]:
     return int(round(w * s)), int(round(h * s))
 
 
-_READERS = {".png": png.read_gray, ".pgm": pnm.read_gray,
-            ".ppm": pnm.read_gray}  # cv2.imread(path, IMREAD_GRAYSCALE)
-
-
 def load_gray(path, spec, rotation: int = 0, resize_float: bool = False):
     """Grayscale image, resized per ``spec`` and rotated by ``rotation``
     quarter-turns CCW. Returns (image float32, (sx, sy) original/new
     pixel scale, post-rotation), or (None, None) for a missing file, as
-    ``cv2.imread`` does. A format the port does not decode (8-bit PNG,
-    binary PGM / PPM) raises, whether or not the file exists, so that a
-    pair list is never skipped through silently."""
+    ``cv2.imread`` does. A format the port does not decode (it reads
+    8-bit PNG, binary PGM / PPM and gray sequential JPEG) raises, whether
+    or not the file exists, so that a pair list is never skipped through
+    silently."""
     path = Path(path)
-    reader = _READERS.get(path.suffix.lower())
-    if reader is None:
-        raise NotImplementedError(
-            f"pose: {path}: {path.suffix or 'this'} decoding is not ported "
-            "yet (ROADMAP Queue 1 item 5, host data readers and "
-            "augmentation)")
+    reader = gray_reader(path)
     if not path.is_file():
         return None, None
     img = reader(path)

@@ -1,15 +1,14 @@
-"""Model, dataset and loader factories (``spnerf_tpu/utils/factories.py``).
-
-The port reads NeRF scenes and HPatches; the other readers of the
-reference (SyntheticShapes, COCO) decode JPEG and augment with cv2 and
-wait for ROADMAP Queue 1 item 5 (host data readers and augmentation).
-"""
+"""Model, dataset and loader factories (``spnerf_tpu/utils/factories.py``):
+the reference's four datasets, SyntheticShapes, COCO, NeRF and HPatches,
+by ``class_name`` (or ``name``)."""
 
 from __future__ import annotations
 
+from spnerf_tpu_torch.data.coco import COCO
 from spnerf_tpu_torch.data.hpatches import HPatches
 from spnerf_tpu_torch.data.loader import DataLoader
 from spnerf_tpu_torch.data.nerf_dataset import NeRFDataset
+from spnerf_tpu_torch.data.synthetic_shapes import SyntheticShapes
 from spnerf_tpu_torch.models.superpoint import (
     SuperPoint,
     SuperPointConfig,
@@ -29,14 +28,15 @@ def get_model(model_config: dict, seed: int = 0, device="cuda") -> SuperPoint:
 
 def get_dataset(data_config: dict, task: str = "training"):
     name = data_config.get("class_name", data_config.get("name"))
+    if name == "SyntheticShapes":
+        return SyntheticShapes(data_config, task)
+    if name == "COCO":
+        return COCO(data_config, task)
     if name == "NeRF":
         return NeRFDataset(data_config, task)
     if name == "HPatches":
         return HPatches(data_config)
-    raise NotImplementedError(
-        f"get_dataset: {name!r} is not ported yet (ROADMAP Queue 1 item 5, "
-        "host data readers and augmentation); only 'NeRF' and 'HPatches' "
-        "are")
+    raise ValueError(f"Unknown dataset class: {name}")
 
 
 def get_loaders(config: dict, task: str, nerf_train: bool = False) -> dict:

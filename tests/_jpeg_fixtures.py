@@ -1,0 +1,108 @@
+"""The JPEG fixtures of ``tests/data/jpeg/``: how they were made and the
+digests of what cv2 reads from them.
+
+    python tests/_jpeg_fixtures.py   # rewrites the files and digests.json
+
+Each colour file carries three 480 x 640 synthetic-shapes samples drawn by
+the port's generator (seed 0) as its B, G, R planes, encoded by
+``cv2.imencode`` (libjpeg-turbo); ``digests.json`` holds the shape
+and sha256 of ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` of each file, so
+that a machine without cv2 can hold a decoder to it.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import struct
+from pathlib import Path
+
+import numpy as np
+
+DIR = Path(__file__).resolve().parent / "data" / "jpeg"
+SIZE = (480, 640)
+PRIMITIVES = ("draw_checkerboard", "draw_cube", "draw_star")
+
+
+def orientation_app1(orientation: int) -> bytes:
+    """An APP1 EXIF segment whose IFD0 holds one tag, the orientation."""
+    tiff = (b"II*\0" + struct.pack("<I", 8) + struct.pack("<H", 1)
+            + struct.pack("<HHIHH", 0x0112, 3, 1, orientation, 0)
+            + struct.pack("<I", 0))
+    body = b"Exif\0\0" + tiff
+    return b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body
+
+
+def with_app1(data: bytes, segment: bytes) -> bytes:
+    """``data`` with ``segment`` inserted after SOI and any APP0."""
+    pos = 2
+    if data[2:4] == b"\xff\xe0":
+        pos = 4 + struct.unpack(">H", data[4:6])[0]
+    return data[:pos] + segment + data[pos:]
+
+
+def colour_image(size=SIZE, seed: int = 0) -> np.ndarray:
+    from spnerf_tpu_torch.data.synthetic_draw import generate_sample
+    from spnerf_tpu_torch.eval.cv_rng import CvRNG
+
+    planes = []
+    for i, primitive in enumerate(PRIMITIVES):
+        img, _ = generate_sample(
+            primitive, np.random.default_rng(seed + i), size,
+            {"generate_background": {"min_kernel_size": 20,
+                                     "max_kernel_size": 60}},
+            cv_rng=CvRNG(seed + i + 1))
+        planes.append(img)
+    return np.stack(planes, axis=-1)
+
+
+def fixtures() -> dict:
+    """{file name: bytes} of every fixture."""
+    import cv2
+
+    def enc(img, **kw):
+        params = []
+        for key, value in kw.items():
+            params += [getattr(cv2, "IMWRITE_JPEG_" + key.upper()), value]
+        ok, buf = cv2.imencode(".jpg", img, params)
+        assert ok
+        return buf.tobytes()
+
+    bgr = colour_image()
+    return {
+        "q95_420.jpg": enc(bgr, quality=95, sampling_factor=
+                           cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420),
+        "q80_422.jpg": enc(bgr, quality=80, sampling_factor=
+                           cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422),
+        "q90_444.jpg": enc(bgr, quality=90, sampling_factor=
+                           cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444),
+        "gray_q85.jpg": enc(bgr[..., 1], quality=85),
+        "q75_420_rst.jpg": enc(bgr, quality=75, rst_interval=3),
+        "odd_479x637.jpg": enc(bgr[:479, :637], quality=90),
+        "exif6.jpg": with_app1(enc(bgr, quality=85), orientation_app1(6)),
+    }
+
+
+def digest(gray: np.ndarray) -> dict:
+    return {"shape": list(gray.shape),
+            "sha256": hashlib.sha256(np.ascontiguousarray(gray).tobytes())
+            .hexdigest()}
+
+
+def main() -> None:
+    import cv2
+
+    DIR.mkdir(parents=True, exist_ok=True)
+    digests = {}
+    for name, data in fixtures().items():
+        (DIR / name).write_bytes(data)
+        digests[name] = digest(cv2.imread(str(DIR / name),
+                                          cv2.IMREAD_GRAYSCALE))
+    (DIR / "digests.json").write_text(json.dumps(digests, indent=1) + "\n")
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    main()

@@ -9,8 +9,17 @@ export: images and homographies equal, NMS'd heatmaps equal to 1e-5
 where both keep a point (a point on one side only has a neighbour within
 1e-5 of its score), descriptors within 1e-5. The on-the-fly metrics
 within 1e-6 on the pairs whose keypoint sets agree.
+
+The bootstrap's tasks (``train`` on ``magicpoint_syn.yaml`` and
+``superpoint_coco_train.yaml``, ``export_pseudo_labels`` on
+``magicpoint_coco_export.yaml``) run through the port's CLI alone on a
+tiny tree (generated shapes, COCO-layout copies of the JPEG fixtures)
+at narrow widths and 2 steps: their checkpoints and label files are
+checked, not compared.
 """
 
+import json
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -21,6 +30,7 @@ import pytest
 import torch
 
 from _hpatches_tree import NAMES, write_tree
+from _jpeg_fixtures import DIR as JPEG_DIR
 from _torch_port import flax_superpoint
 from spnerf_tpu import cli as jcli
 from spnerf_tpu.data import hpatches as jhp
@@ -208,27 +218,106 @@ def test_on_the_fly_matches_jax(roots):
         assert got[f"{key}_ci95"] == list(totf.bootstrap_ci(mine))
 
 
-def test_unported_dataset_raises_before_weights(monkeypatch):
-    """``--task train`` and ``export_pseudo_labels`` on COCO raise naming
-    the queue item before any model is built."""
-    from spnerf_tpu_torch.models import superpoint as tsp
+BOOT_NARROW = {"model.vgg_cn": [8, 8, 8, 8, 16, 16, 16, 16],
+               "model.detector_head.detector_dim": [16, 32],
+               "data.preprocessing.resize": [120, 160],
+               "train.num_iters": 2, "save_or_validation_interval": 2}
+BOOT_STEPS = [
+    # README's bootstrap, cut: Synthetic Shapes generated at 120 x 160
+    ("train", "magicpoint_syn.yaml", {
+        "data.generation.split_sizes": {"training": 2, "validation": 2,
+                                        "test": 1},
+        "data.generation.image_size": [120, 160],
+        "data.generation.params": {"generate_background": {
+            "min_kernel_size": 5, "max_kernel_size": 30}},
+        "data.preprocessing.blur_size": 5, "data.batch_size": 4}),
+    ("export_pseudo_labels", "magicpoint_coco_export.yaml", {
+        "pretrained": "magicpoint_syn_v1/magicpoint_syn_v1_2.ckpt",
+        "homography_adaptation.num": 3, "homography_adaptation.chunk": 2}),
+    ("train", "superpoint_coco_train.yaml", {
+        "pretrained": "magicpoint_syn_v1/magicpoint_syn_v1_2.ckpt",
+        "model.descriptor_head.descriptor_dim": [16, 32]}),
+]
 
-    def no_model(*a, **k):
-        raise AssertionError("weights built before the dataset")
 
-    monkeypatch.setattr(tsp, "init_superpoint", no_model)
-    monkeypatch.setattr("spnerf_tpu_torch.tasks.train_task.init_superpoint",
-                        no_model)
-    monkeypatch.setattr("spnerf_tpu_torch.utils.factories.init_superpoint",
-                        no_model)
-    for task, config in (("train", "superpoint_coco_train.yaml"),
-                         ("export_pseudo_labels",
-                          "magicpoint_coco_export.yaml"),
-                         ("train", "magicpoint_syn.yaml")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            tcli.main(["--config-path", str(ROOT / "spnerf_tpu_torch/configs"
-                                            / config), "--task", task,
-                       "--device", "cpu"])
+@pytest.fixture(scope="module")
+def bootstrap(tmp_path_factory):
+    """The bootstrap's tasks through ``cli.main --device cpu`` on a tiny
+    tree: COCO/images/{training,validation} from the JPEG fixtures."""
+    root = tmp_path_factory.mktemp("boot")
+    for split, n in (("training", 4), ("validation", 2)):
+        d = root / "data" / "COCO" / "images" / split
+        d.mkdir(parents=True)
+        for i, f in enumerate(sorted(JPEG_DIR.glob("*.jpg"))[:n]):
+            shutil.copy(f, d / f"{i}_{f.name}")
+    mp = pytest.MonkeyPatch()
+    mp.setattr(settings, "DATA_PATH", root / "data")
+    mp.setattr(settings, "CKPT_PATH", root / "ckpt_path")
+    for mod in (settings, texport):
+        mp.setattr(mod, "EXPER_PATH", root / "exper_path")
+    results = []
+    for task, config, cuts in BOOT_STEPS:
+        argv = ["--config-path", str(ROOT / "spnerf_tpu_torch/configs"
+                                     / config), "--task", task,
+                "--device", "cpu"]
+        if task == "export_pseudo_labels":
+            outs = [tcli.main(argv + _sets(BOOT_NARROW, cuts)
+                              + ["--split", split])
+                    for split in ("training", "validation")]
+        else:
+            outs = tcli.main(argv + _sets(BOOT_NARROW, cuts))
+        results.append(outs)
+    yield root, results
+    mp.undo()
+
+
+def _sets(*cuts):
+    merged = {k: v for c in cuts for k, v in c.items()}
+    return [a for k, v in merged.items()
+            for a in ("--set", f"{k}={json.dumps(v)}")]
+
+
+@pytest.mark.parametrize("step", range(len(BOOT_STEPS)))
+def test_unported_dataset_raises_before_weights(bootstrap, step):
+    """The three tasks whose datasets raised before SyntheticShapes and
+    COCO were ported now run through the CLI: checkpoints of both
+    training runs and one (N, 2) int64 label file per COCO image."""
+    root, results = bootstrap
+    task, config, _ = BOOT_STEPS[step]
+    if task == "train":
+        state = results[step]
+        name = load_config(ROOT / "spnerf_tpu_torch/configs" /
+                           config)["ckpt_name"]
+        assert state.iteration == 2
+        assert (root / "ckpt_path" / name / f"{name}_2.ckpt").is_file()
+        rows = (root / "ckpt_path" / name / "logs" / "metrics.jsonl"
+                ).read_text().splitlines()
+        assert rows
+        if config == "magicpoint_syn.yaml":
+            pngs = list((root / "data" / "synthetic_shapes").glob(
+                "*/images/training/*.png"))
+            assert len(pngs) == 2 * 9
+    else:
+        for split, out_dir in zip(("training", "validation"),
+                                  results[step]):
+            images = sorted((root / "data" / "COCO" / "images" / split)
+                            .glob("*.jpg"))
+            labels = sorted(out_dir.glob("*.npy"))
+            assert [p.stem for p in labels] == [p.stem for p in images]
+            for f in labels:
+                pts = np.load(f)
+                assert pts.dtype == np.int64 and pts.ndim == 2 \
+                    and pts.shape[1] == 2
+
+
+def test_coco_shard_auto_raises_naming_the_queue_item(bootstrap):
+    root, _ = bootstrap
+    argv = ["--config-path", str(ROOT / "spnerf_tpu_torch/configs"
+                                 / "magicpoint_coco_export.yaml"),
+            "--task", "export_pseudo_labels", "--device", "cpu",
+            "--set", "data.shard=auto"]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        tcli.main(argv + _sets(BOOT_NARROW))
 
 
 def test_parser_takes_the_references_options_and_device():

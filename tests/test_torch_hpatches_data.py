@@ -122,13 +122,24 @@ def test_hpatches_items_equal_jax(tree, monkeypatch, alteration, resize):
 
 
 def test_hpatches_jpeg_sequences_raise(tmp_path, monkeypatch):
+    """A sequence of ``.jpg`` files (which raised before the port had a
+    JPEG decoder) reads as the JAX package reads it through cv2."""
     monkeypatch.setattr(settings, "DATA_PATH", tmp_path)
+    monkeypatch.setattr(jhp, "DATA_PATH", tmp_path)
     seq = tmp_path / "HPatches" / "v_jpeg"
     seq.mkdir(parents=True)
+    rng = np.random.default_rng(5)
     for i in (1, 2):
-        cv2.imwrite(str(seq / f"{i}.jpg"), np.zeros((8, 8), np.uint8))
+        img = cv2.GaussianBlur(rng.integers(0, 256, (45, 61, 3),
+                                            dtype=np.uint8), (5, 5), 0)
+        cv2.imwrite(str(seq / f"{i}.jpg"), img)
     np.savetxt(seq / "H_1_2", np.eye(3))
-    ds = thp.HPatches({"name": "HPatches"})
+    config = {"name": "HPatches", "preprocessing": {"resize": [24, 32]}}
+    ds = thp.HPatches(config)
     assert ds.samples["names"] == ["v_jpeg_1_2"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        ds[0]
+    got, want = ds[0], jhp.HPatches(config)[0]
+    for key in ("image", "warped_image"):
+        np.testing.assert_array_equal(got[key], want[key])
+    np.testing.assert_array_equal(
+        thp.read_gray(str(seq / "1.jpg")),
+        cv2.imread(str(seq / "1.jpg"), cv2.IMREAD_GRAYSCALE))

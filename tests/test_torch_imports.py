@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of ``spnerf_tpu_torch``
 and loading ``chip_smoke.py`` (without running it) loads no JAX, no flax,
-no msgpack, cv2 or yaml (the card's machine has none of them) and
-nothing of ``spnerf_tpu``. Runs in a fresh interpreter, since this
+no msgpack, cv2, yaml, PIL, imageio or torchvision (the card's machine
+has none of them) and nothing of ``spnerf_tpu``. Runs in a fresh interpreter, since this
 test process has JAX loaded already."""
 
 import subprocess
@@ -16,7 +16,10 @@ import spnerf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(spnerf_tpu_torch.__path__,
                                                "spnerf_tpu_torch.")]
 for name in ("kernels.desc_sample", "eval.pose", "eval.essential",
-             "eval.cv_rng", "ops.quantization"):
+             "eval.cv_rng", "ops.quantization", "data.coco", "data.jpeg",
+             "data.synthetic_shapes", "data.synthetic_draw",
+             "data.photometric", "data.cv_draw", "data.cv_filter",
+             "data.imread"):
     assert "spnerf_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
@@ -26,7 +29,8 @@ spec.loader.exec_module(smoke)
 assert callable(smoke.main)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "cv2",
-                                    "yaml", "spnerf_tpu"))
+                                    "yaml", "PIL", "imageio", "torchvision",
+                                    "spnerf_tpu"))
 print(len(names), "modules;", "forbidden:", bad)
 sys.exit(1 if bad else 0)
 """

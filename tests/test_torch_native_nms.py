@@ -11,6 +11,7 @@ import pytest
 
 from spnerf_tpu.ops import native_nms as jnms
 from spnerf_tpu_torch.ops import native_nms as tnms
+from spnerf_tpu_torch.utils import native
 from test_ops import _greedy_nms_numpy
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -52,16 +53,17 @@ def test_native_top_k():
 
 def test_builds_its_own_source_into_build():
     tnms.exact_nms(_prob(0))
-    assert tnms.SOURCE == ROOT / "spnerf_tpu_torch/native/exact_nms.cpp"
-    assert tnms._LIB_PATH.parent == ROOT / "build/spnerf_tpu_torch/native"
-    assert tnms._LIB_PATH.is_file()
-    assert tnms._LIB_PATH != ROOT / "native/libexact_nms.so"
+    assert native.SOURCE_DIR == ROOT / "spnerf_tpu_torch/native"
+    assert (native.SOURCE_DIR / "exact_nms.cpp").is_file()
+    assert native.BUILD_DIR == ROOT / "build/spnerf_tpu_torch/native"
+    assert (native.BUILD_DIR / "libexact_nms.so").is_file()
+    assert native.BUILD_DIR / "libexact_nms.so" != \
+        ROOT / "native/libexact_nms.so"
 
 
 def test_raises_without_a_compiler(tmp_path, monkeypatch):
-    monkeypatch.setattr(tnms, "_lib", None)
-    monkeypatch.setattr(tnms, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(tnms, "_LIB_PATH", tmp_path / "libexact_nms.so")
+    monkeypatch.setattr(native, "_libs", {})
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         tnms.exact_nms(_prob(0))
@@ -69,11 +71,9 @@ def test_raises_without_a_compiler(tmp_path, monkeypatch):
 
 
 def test_raises_with_the_compiler_output(tmp_path, monkeypatch):
-    bad = tmp_path / "bad.cpp"
-    bad.write_text("this is not C++\n")
-    monkeypatch.setattr(tnms, "_lib", None)
-    monkeypatch.setattr(tnms, "SOURCE", bad)
-    monkeypatch.setattr(tnms, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(tnms, "_LIB_PATH", tmp_path / "libexact_nms.so")
+    (tmp_path / "exact_nms.cpp").write_text("this is not C++\n")
+    monkeypatch.setattr(native, "_libs", {})
+    monkeypatch.setattr(native, "SOURCE_DIR", tmp_path)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="(?s)g\\+\\+ failed.*error: "):
         tnms.exact_nms(_prob(0))

@@ -144,12 +144,27 @@ def test_nerf_dataset_samples_equal_jax(roots, split, crop):
 
 
 def test_nerf_dataset_host_photometric_raises(roots):
+    """Host photometric augmentation (which raised before the port had
+    ``data/photometric.py``): both frames augmented by their own draws,
+    within ``test_torch_photometric_host.CHAIN_TOL`` of the JAX package's,
+    and nothing on the host where ``on_device`` is set."""
+    from spnerf_tpu.data.nerf_dataset import NeRFDataset as JaxNeRFDataset
+    from test_torch_photometric_host import CHAIN_TOL
+
     _write_scene("Room", 0)
     config = _data_config(augmentation={"photometric": {"enable": True}})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tds.NeRFDataset(config, "training")
+    got_ds = tds.NeRFDataset(config, "training")
+    want_ds = JaxNeRFDataset(config, "training")
+    assert got_ds.photometric is not None
+    for i in range(3):
+        got, want = got_ds[i], want_ds[i]
+        assert got["warped_name"] == want["warped_name"]
+        for key in ("image", "image_warp"):
+            assert np.abs(got[key] - want[key]).max() * 255 <= CHAIN_TOL
+        np.testing.assert_array_equal(got["kpts"], want["kpts"])
     config["augmentation"]["photometric"]["on_device"] = True
-    assert len(tds.NeRFDataset(config, "training")) == 16
+    on_device = tds.NeRFDataset(config, "training")
+    assert len(on_device) == 16 and on_device.photometric is None
 
 
 def test_factories(roots):
@@ -165,8 +180,10 @@ def test_factories(roots):
     assert not val.shuffle and not val.drop_last and len(val) == 2
     assert train.dataset.samples["label_paths"][0].endswith(
         "outputs/lab/B/training/0.npy")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        factories.get_dataset({"name": "COCO"})
+    # COCO, which raised before it was ported, builds over an empty root
+    assert len(factories.get_dataset({"name": "COCO"})) == 0
+    with pytest.raises(ValueError, match="Unknown dataset"):
+        factories.get_dataset({"name": "Nope"})
 
 
 def _nerf_batch(seed=0, B=2, n_pts=40):

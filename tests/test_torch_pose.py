@@ -236,12 +236,25 @@ def test_load_gray_equals_jax(images, rotation, resize_float):
 
 
 def test_load_gray_missing_and_jpeg(tmp_path):
+    """A missing file is (None, None) in both; a JPEG reads as the JAX
+    package reads it through cv2; a format the port does not decode
+    raises, present or not."""
     assert tpose.load_gray(tmp_path / "none.png", [64]) == (None, None)
     assert jpose.load_gray(tmp_path / "none.png", [64]) == (None, None)
+    assert tpose.load_gray(tmp_path / "none.jpg", [64]) == (None, None)
     jpg = tmp_path / "a.jpg"
-    cv2.imwrite(str(jpg), np.zeros((8, 8), np.uint8))
-    for path in (jpg, tmp_path / "missing.jpg"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    rng = np.random.default_rng(3)
+    cv2.imwrite(str(jpg), cv2.GaussianBlur(
+        rng.integers(0, 256, (48, 70, 3), dtype=np.uint8), (5, 5), 0))
+    for spec in ([64], [-1], [40, 30]):
+        got, got_scale = tpose.load_gray(jpg, spec)
+        want, want_scale = jpose.load_gray(jpg, spec)
+        np.testing.assert_array_equal(got, want)
+        assert got_scale == want_scale
+    bmp = tmp_path / "a.bmp"
+    cv2.imwrite(str(bmp), np.zeros((8, 8), np.uint8))
+    for path in (bmp, tmp_path / "missing.bmp"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
             tpose.load_gray(path, [64])
 
 
