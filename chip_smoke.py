@@ -186,30 +186,19 @@ Phases, each of which raises on failure (nothing is caught):
    float32 model (under 0.1 of the range); at 2 x 64 x 80 the card's
    int32 sums equal to the CPU's, the heads within 1 bf16 ulp;
 11e. README's bootstrap from its own data, every task through
-   ``cli.main --device cuda``: ``[jpeg]`` the committed JPEG fixtures
-   (``tests/data/jpeg``) decoded by the port's C++ decoder to the shape
-   and sha256 of cv2's gray read (``digests.json``), ms per 480 x 640
-   image; ``[syn-gen]`` magicpoint_syn.yaml's Synthetic Shapes at its
-   widths (960 x 1280, blur 21, resize 120 x 160, nine primitives, its
-   truncate), ``split_sizes`` cut to 24 / 8 / 0 (ms per sample by
-   primitive, counts, points inside 120 x 160, at least 3 a sample where
-   the primitive has corners, 2 for one segment, 3 in the stripes'
-   median, none for ellipses and noise), and a second pass into
-   a fresh directory byte-identical; ``[syn-train]`` 20 steps of it
-   (batch 32, photometric and homographic augmentation on the card), 2
-   validation batches and a checkpoint, the loss falling; ``[coco-export]``
-   ``export_pseudo_labels`` on magicpoint_coco_export.yaml (240 x 320,
-   batch 8, 100 views in chunks of 10) from that checkpoint over 32 + 8
-   COCO-layout copies of the fixtures, the training split again with
-   ``export.serving=int8``: labels checked, the warp twice a chunk and the
-   int8 kernels once a forward per batch, images/s; ``[coco-train]``
-   magicpoint_coco_train.yaml for 20 steps (no kernel of ours), then
-   superpoint_coco_train.yaml (240 x 320, batch 2) over those labels with
-   the photometric augmentation on the card and on the host: rows 10-11
-   once per step (the forward once more per validation batch), steps/s
-   both ways and the host augmentation's ms per image. The kernel rows
-   carry these launches as ``coco_export_launches`` (rows 1-4, 9) and
-   ``coco_train_launches`` (rows 10-11);
+   ``cli.main --device cuda``, by ``spnerf_tpu_torch/tools/smoke_data.py``
+   (its docstring lists the phases): ``[jpeg]`` every committed JPEG
+   fixture read gray and colour to cv2's digests and ms per 480 x 640
+   image, baseline and progressive; ``[process-scene-jpeg]``
+   ``tools.process_scene`` over the colour fixtures as frames;
+   ``[syn-gen]`` / ``[syn-train]`` magicpoint_syn.yaml's Synthetic Shapes
+   and 20 steps on them; ``[coco-export]`` HA labels over COCO-layout
+   copies of the fixtures (as written and ``export.serving=int8``);
+   ``[coco-train]`` MagicPoint and SuperPoint (photometric on the card,
+   and on the host) at ``data.num_workers`` 1 and 4, the training batch
+   indices equal. The kernel rows carry these launches as
+   ``coco_export_launches`` (rows 1-4, 9) and ``coco_train_launches``
+   (rows 10-11);
 12. render the committed tiny NeRF sphere fields
    (``benchmarks/data/sphere_field*.npz``, bf16 weights) as
    ``bench_nerf.py`` does: 131,072 rays of an orbit camera (362 x 362
@@ -245,11 +234,9 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
-import hashlib
 import importlib.util
 import json
 import os
-import shutil
 import statistics
 import subprocess
 import sys
@@ -264,11 +251,9 @@ import torch.nn.functional as F
 
 from spnerf_tpu_torch import cli, settings
 from spnerf_tpu_torch.data.loader import DataLoader
-from spnerf_tpu_torch.data import coco, jpeg, photometric, pnm
-from spnerf_tpu_torch.data import synthetic_shapes
+from spnerf_tpu_torch.data import pnm
 from spnerf_tpu_torch.data.nerf_dataset import NeRFDataset, camera_intrinsics
 from spnerf_tpu_torch.data.png import write_gray, write_rgb
-from spnerf_tpu_torch.eval import cv_rng
 from spnerf_tpu_torch.eval import descriptor as eval_descriptor
 from spnerf_tpu_torch.eval import detector as eval_detector
 from spnerf_tpu_torch.eval import on_the_fly
@@ -371,7 +356,14 @@ from spnerf_tpu_torch.tasks.nerf_task import (
     train_nerf_scene,
     write_scene,
 )
-from spnerf_tpu_torch.tools import process_scene
+from spnerf_tpu_torch.tools import process_scene, smoke_data
+from spnerf_tpu_torch.tools.smoke_data import (
+    check_labels,
+    cut as _cut,
+    log,
+    read_metrics,
+    set_args,
+)
 from spnerf_tpu_torch.tools.kernel_times import (
     HINGE_SHAPES,
     RENDER_FIELDS,
@@ -570,10 +562,6 @@ KERNEL_SYMBOLS = {"conv12_fused": "::conv12_", "double_packed_conv3x3":
 # head[bf16-256] at batch 64 on an H100)
 BF16_FLOOR, BF16_CHAIN_FLOOR = 2.0 ** -8, 2.0 ** -2
 BF16_MAX_ULPS, BF16_SHARE_OVER_1 = 2, 1e-3
-
-
-def log(msg: str) -> None:
-    print(msg, flush=True)
 
 
 def card_peaks(name: str):
@@ -1381,23 +1369,6 @@ def run_export(model, images, config, root: Path):
     return out_dir, time.perf_counter() - t0
 
 
-def check_labels(out_dir: Path, n: int):
-    files = sorted(out_dir.glob("*.npy"))
-    if len(files) != n:
-        raise AssertionError(f"{len(files)} label files for {n} images")
-    counts = []
-    for f in files:
-        pts = np.load(f)
-        if pts.dtype != np.int64 or pts.ndim != 2 or pts.shape[1] != 2:
-            raise AssertionError(f"{f.name}: {pts.dtype} {pts.shape}")
-        if len(pts) == 0:
-            raise AssertionError(f"{f.name}: no keypoint")
-        if pts.min() < 0 or (pts >= [HA_H, HA_W]).any():
-            raise AssertionError(f"{f.name}: keypoint outside the image")
-        counts.append(len(pts))
-    return counts
-
-
 def phase_ha_export(model, images, route, config):
     """Drive export_pseudo_labels once (after a warm-up batch) with the
     launch counters at 0 before; check files and launches."""
@@ -1598,18 +1569,6 @@ def phase_ha_small(model):
         f"of values differ), {len(sets[0])} keypoints, equal sets")
 
 
-def _cut(config: dict, cuts: dict) -> dict:
-    """A copy of ``config`` with ``cuts`` ({"dotted.path": value}) set."""
-    config = copy.deepcopy(config)
-    for dotted, value in cuts.items():
-        *path, leaf = dotted.split(".")
-        node = config
-        for part in path:
-            node = node[part]
-        node[leaf] = copy.deepcopy(value)
-    return config
-
-
 def train_config() -> dict:
     """TRAIN_CONFIG with TRAIN_CUTS applied."""
     return _cut(TRAIN_CONFIG, TRAIN_CUTS)
@@ -1624,16 +1583,6 @@ def train_dataset(n: int, seed: int, size=(TRAIN_H, TRAIN_W)) -> list:
     kpts = rng.uniform(0, size, (n, TRAIN_KPTS, 2)).astype(np.float32)
     return [{"image": images[i], "kpts": kpts[i],
              "kpts_mask": np.ones(TRAIN_KPTS, bool)} for i in range(n)]
-
-
-def read_metrics(ckpt_name: str) -> dict:
-    """{tag: [(step, value), ...]} of a run's metrics.jsonl."""
-    path = Path(settings.CKPT_PATH, ckpt_name, "logs", "metrics.jsonl")
-    out = collections.defaultdict(list)
-    for line in path.read_text().splitlines():
-        row = json.loads(line)
-        out[row["tag"]].append((row["step"], row["value"]))
-    return out
 
 
 @contextlib.contextmanager
@@ -3997,14 +3946,6 @@ CLI_PROFILE = {"steps": 8, "start": 2, "num_steps": 5}
 NMS_SHAPE, NMS_POINTS = (240, 320), 3000
 
 
-def set_args(cuts: dict) -> list:
-    """``--set key=value`` arguments, each value written as YAML."""
-    out = []
-    for key, value in cuts.items():
-        out += ["--set", f"{key}={json.dumps(value)}"]
-    return out
-
-
 def hpatches_sequences(root: Path) -> dict:
     """Write CLI_SEQUENCES under root/HPatches as 8-bit PPM (gray in all
     three channels): "i_" sequences change brightness and contrast under
@@ -4753,368 +4694,6 @@ def phase_quant(card: str) -> None:
     torch.cuda.empty_cache()
 
 
-# [jpeg], [syn-gen], [syn-train], [coco-export], [coco-train]: README's
-# bootstrap from its own data through cli.main: Synthetic Shapes generated
-# by the port's copies of cv2's rasteriser, filters and RNG; MagicPoint
-# trained on them; HA labels on COCO-layout JPEGs read by the port's own
-# decoder (rows 9 and, with export.serving, 1-4); MagicPoint and SuperPoint
-# trained on those labels (rows 10-11), with the photometric augmentation
-# on the card and on the host
-JPEG_DIR = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
-JPEG_TIMED, JPEG_REPS = "q95_420.jpg", 20
-SYN_CONFIG = CONFIGS / "magicpoint_syn.yaml"
-# the only cut of magicpoint_syn.yaml's data: 24 training and 8
-# validation samples per primitive (10,000 / 200 / 500 in the file)
-SYN_CUTS = {"data.generation.split_sizes": {"training": 24, "validation": 8,
-                                            "test": 0}}
-BOOT_STEPS = 20
-BOOT_TRAIN_CUTS = {"train.num_iters": BOOT_STEPS,
-                   "save_or_validation_interval": BOOT_STEPS,
-                   "train.val_batches": 2, "log_every": 5}
-# points a sample must carry: one segment has two corners, every other
-# corner-bearing primitive at least three; ellipses and noise none. The
-# stripes' corners all lie on the top and bottom edges, which the board's
-# homography may push out of the image: a sample may keep none, so three
-# is asked of their median
-SYN_MIN_POINTS = {"draw_lines": 2, "draw_ellipses": 0, "gaussian_noise": 0,
-                  "draw_stripes": 0}
-SYN_MEDIAN_POINTS = {"draw_stripes": 3}
-COCO_IMAGES = {"training": 32, "validation": 8}
-COCO_EXPORT = CONFIGS / "magicpoint_coco_export.yaml"
-COCO_INT8_EXPER = "coco_export_int8"
-PHOTO_REPS = 20
-
-
-def phase_jpeg() -> None:
-    """[jpeg]: every committed fixture decoded by ``data/jpeg.py`` (the
-    port's C++ decoder, built by g++ at first use) to the shape and sha256
-    that cv2 gave when the fixtures were made; ms per 480 x 640 image."""
-    digests = json.loads((JPEG_DIR / "digests.json").read_text())
-    t0 = time.perf_counter()
-    jpeg.read_gray(JPEG_DIR / JPEG_TIMED)  # builds the library
-    build_s = time.perf_counter() - t0
-    for name, want in sorted(digests.items()):
-        img = jpeg.read_gray(JPEG_DIR / name)
-        got = {"shape": list(img.shape),
-               "sha256": hashlib.sha256(img.tobytes()).hexdigest()}
-        if got != want:
-            raise AssertionError(f"[jpeg] {name}: {got} against cv2's {want}")
-    data = (JPEG_DIR / JPEG_TIMED).read_bytes()
-    times = []
-    for _ in range(JPEG_REPS):
-        t0 = time.perf_counter()
-        img = jpeg.decode_gray(data)
-        times.append((time.perf_counter() - t0) * 1e3)
-    log(f"[jpeg] {len(digests)} fixtures ({', '.join(sorted(digests))}) "
-        f"decoded to cv2.imread(..., IMREAD_GRAYSCALE)'s shape and sha256; "
-        f"{JPEG_TIMED} ({img.shape[0]}x{img.shape[1]}, "
-        f"{len(data) / 1e3:.1f} kB): {statistics.median(times):.4f} ms per "
-        f"image (median of {JPEG_REPS}, host clock; min {min(times):.4f}); "
-        f"g++ build + first decode {build_s:.3f} s")
-
-
-def syn_data_config() -> dict:
-    return _cut(load_config(SYN_CONFIG), SYN_CUTS)["data"]
-
-
-def files_of(root: Path) -> dict:
-    return {p.relative_to(root): p.read_bytes()
-            for p in sorted(root.rglob("*")) if p.is_file()}
-
-
-def phase_syn_gen(root: Path) -> None:
-    """[syn-gen]: magicpoint_syn.yaml's dataset (960 x 1280, blur 21,
-    resize 120 x 160, all nine primitives, its truncate) with SYN_CUTS,
-    one primitive at a time (ms per sample); the datasets' counts and
-    points checked; a second pass into a fresh directory, OpenCV's
-    generator restarted at the first pass's state, byte-identical."""
-    data_cfg = syn_data_config()
-    gen = data_cfg["generation"]
-    sizes = gen["split_sizes"]
-    per_primitive = sum(sizes.values())
-    start = cv_rng.the_rng().state
-    settings.DATA_PATH = root / "data"
-    rates = {}
-    t_all = time.perf_counter()
-    for primitive in synthetic_shapes.PRIMITIVES:
-        t0 = time.perf_counter()
-        synthetic_shapes.SyntheticShapes(dict(data_cfg,
-                                              primitives=[primitive]))
-        rates[primitive] = (time.perf_counter() - t0) / per_primitive * 1e3
-    first_s = time.perf_counter() - t_all
-    truncate = data_cfg["truncate"]
-    resize = data_cfg["preprocessing"]["resize"]
-    counts = collections.defaultdict(list)  # points per sample, both splits
-    n_samples = {}
-    for split in ("training", "validation"):
-        ds = synthetic_shapes.SyntheticShapes(data_cfg, split)
-        want = sum(max(1, int(sizes[split] * (truncate.get(p, 1.0) or 1.0)))
-                   for p in synthetic_shapes.PRIMITIVES)
-        if len(ds) != want:
-            raise AssertionError(f"[syn-gen] {split}: {len(ds)} samples, "
-                                 f"expected {want}")
-        n_samples[split] = len(ds)
-        for img_path, pts_path in zip(ds.samples["images"],
-                                      ds.samples["points"]):
-            pts = np.load(pts_path)
-            if pts.dtype != np.float32 or (len(pts) and (
-                    pts.min() < 0 or (pts >= resize).any())):
-                raise AssertionError(f"[syn-gen] {img_path}: points "
-                                     f"{pts.dtype} outside {resize}")
-            counts[img_path.parts[-4]].append(len(pts))
-        sample = ds[0]
-        if sample["image"].shape != tuple(resize) + (1,):
-            raise AssertionError(f"[syn-gen] sample {sample['image'].shape}")
-    for primitive, n in counts.items():
-        least = SYN_MIN_POINTS.get(primitive, 3)
-        none = primitive in ("draw_ellipses", "gaussian_noise")
-        if (min(n) < least or (none and max(n) > 0)
-                or statistics.median(n) < SYN_MEDIAN_POINTS.get(primitive, 0)):
-            raise AssertionError(f"[syn-gen] {primitive}: points per sample "
-                                 f"{n}")
-    points = {p: (min(n), statistics.median(n), max(n))
-              for p, n in counts.items()}
-    first = files_of(root / "data")
-    cv_rng.the_rng().state = start
-    settings.DATA_PATH = root / "again"
-    t0 = time.perf_counter()
-    synthetic_shapes.SyntheticShapes(data_cfg)
-    second_s = time.perf_counter() - t0
-    if files_of(root / "again") != first:
-        raise AssertionError("[syn-gen] the second pass wrote other files")
-    settings.DATA_PATH = root / "data"
-    n_files = len(first)
-    log(f"[syn-gen] {SYN_CONFIG.name}, {gen['image_size'][0]}x"
-        f"{gen['image_size'][1]} -> {resize[0]}x{resize[1]}, blur "
-        f"{data_cfg['preprocessing']['blur_size']}, 9 primitives, cut: "
-        f"split_sizes {json.dumps(sizes)}; {9 * per_primitive} samples in "
-        f"{first_s:.3f} s; ms per sample: "
-        + ", ".join(f"{p} {v:.1f}" for p, v in rates.items())
-        + f"; datasets (truncate {json.dumps(truncate)}): "
-        f"{n_samples['training']} training, {n_samples['validation']} "
-        f"validation; points per sample (min, median, max): "
-        + ", ".join(f"{p} {v}" for p, v in points.items())
-        + f"; second pass {second_s:.3f} s, {n_files} files byte-identical")
-
-
-def boot_train(config: Path, cuts: dict, label: str):
-    """``cli.main --task train --validate-training`` on ``config`` with
-    ``cuts``, the launch counters at 0 before: (state, launches, seconds,
-    metrics); the losses finite, the checkpoint written."""
-    args = ["--config-path", str(config), "--task", "train",
-            "--validate-training", "--device", "cuda"] + set_args(cuts)
-    _build.launch_counts.clear()
-    t0 = time.perf_counter()
-    state = cli.main(args)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    counts = dict(_build.launch_counts)
-    name = cuts.get("ckpt_name") or load_config(config)["ckpt_name"]
-    steps = cuts["train.num_iters"]
-    metrics = read_metrics(name)
-    for tag, rows in metrics.items():
-        if not all(np.isfinite(v) for _, v in rows):
-            raise AssertionError(f"[{label}] {tag} is not finite: {rows}")
-    losses = metrics["iter_loss/loss"]
-    if state.iteration != steps or [s for s, _ in losses] != [5, 10, 15, 20]:
-        raise AssertionError(f"[{label}] {state.iteration} steps, loss "
-                             f"logged at {losses}")
-    if len(metrics["val/val_loss"]) != 1:
-        raise AssertionError(f"[{label}] validation {metrics['val/val_loss']}")
-    if not Path(settings.CKPT_PATH, name, f"{name}_{steps}.ckpt").is_file():
-        raise AssertionError(f"[{label}] no checkpoint")
-    return state, counts, secs, metrics
-
-
-def boot_line(label, config, cuts, state, counts, secs, metrics, extra=""):
-    rates = [v for _, v in metrics["perf/steps_per_sec"]]
-    losses = metrics["iter_loss/loss"]
-    log(f"[{label}] cli.main --task train --validate-training "
-        f"({config.name}, cuts {json.dumps(cuts)}): {state.iteration} steps "
-        f"+ validation + checkpoint in {secs:.4f} s (model build, restore "
-        f"and loaders included); perf/steps_per_sec (windows of 5): "
-        f"{', '.join(f'{r:.2f}' for r in rates)}; loss "
-        f"{', '.join(f'{s}: {v:.4f}' for s, v in losses)}; val loss "
-        f"{metrics['val/val_loss'][0][1]:.4f}; launches "
-        f"{json.dumps(counts, sort_keys=True)}{extra}")
-
-
-def phase_syn_train() -> str:
-    """[syn-train]: 20 steps of magicpoint_syn.yaml at its widths (batch
-    32, photometric and homographic augmentation on the card) over
-    [syn-gen]'s data, validation and a checkpoint; the loss must fall.
-    Returns the checkpoint's path under CKPT_PATH."""
-    cuts = dict(SYN_CUTS, **BOOT_TRAIN_CUTS)
-    out = boot_train(SYN_CONFIG, cuts, "syn-train")
-    losses = out[3]["iter_loss/loss"]
-    if not losses[-1][1] < losses[0][1]:
-        raise AssertionError(f"[syn-train] the loss did not fall: {losses}")
-    boot_line("syn-train", SYN_CONFIG, cuts, *out)
-    name = load_config(SYN_CONFIG)["ckpt_name"]
-    return f"{name}/{name}_{BOOT_STEPS}.ckpt"
-
-
-def coco_layout(root: Path) -> None:
-    """DATA_PATH/COCO/images/{training,validation}: the JPEG fixtures in
-    turn under distinct names."""
-    fixtures = sorted(JPEG_DIR.glob("*.jpg"))
-    for split, n in COCO_IMAGES.items():
-        out = root / "COCO" / "images" / split
-        out.mkdir(parents=True)
-        for i in range(n):
-            src = fixtures[(i + (split == "validation")) % len(fixtures)]
-            shutil.copy(src, out / f"{i:06d}_{src.stem}.jpg")
-
-
-def ha_expected(config: dict, n_images: int) -> dict:
-    """Launches of one HA export per kernel family (phase_ha_export's
-    count: per batch, the warp twice a chunk; with export.serving the int8
-    kernels once for the identity view and once a chunk)."""
-    ha = config["homography_adaptation"]
-    n_chunks = -(-(ha["num"] - 1) // ha["chunk"])
-    n_batches = -(-n_images // config["data"]["batch_size"])
-    expect = {"warp[bf16]": 2 * n_chunks}
-    if (config.get("export") or {}).get("serving"):
-        fwd = n_chunks + 1
-        expect.update({"conv12_fused": fwd, "double_conv3x3": 3 * fwd,
-                       "head": fwd})
-    return {k: v * n_batches for k, v in expect.items()}
-
-
-def phase_coco_export(pretrained: str) -> dict:
-    """[coco-export]: ``cli.main --task export_pseudo_labels`` on
-    magicpoint_coco_export.yaml at its widths (240 x 320, batch 8, 100
-    homographies in chunks of 10) from [syn-train]'s checkpoint over the
-    COCO layout: the validation split, then the training split as written
-    and with ``export.serving=int8``, the counters at 0 before each;
-    labels checked, launches per batch counted. Returns the launches of
-    the training-split runs."""
-    coco_layout(Path(settings.DATA_PATH))
-    base = load_config(COCO_EXPORT)
-    all_counts = collections.Counter()
-    for split, serving in (("validation", False), ("training", False),
-                           ("training", True)):
-        cuts = {"pretrained": pretrained}
-        if serving:
-            cuts.update({"export.serving": "int8",
-                         "data.experiment_name": COCO_INT8_EXPER})
-        config = apply_overrides(copy.deepcopy(base),
-                                 [f"{k}={json.dumps(v)}"
-                                  for k, v in cuts.items()])
-        n = COCO_IMAGES[split]
-        _build.launch_counts.clear()
-        t0 = time.perf_counter()
-        out_dir = cli.main(["--config-path", str(COCO_EXPORT), "--task",
-                            "export_pseudo_labels", "--split", split,
-                            "--device", "cuda"] + set_args(cuts))
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        counts = dict(_build.launch_counts)
-        n_pts = check_labels(out_dir, n)
-        got = {family: sum(v for k, v in counts.items()
-                           if k.startswith(family))
-               for family in ha_expected(config, n)}
-        if got != ha_expected(config, n):
-            raise AssertionError(f"[coco-export] {split} serving={serving}: "
-                                 f"launches {got}, expected "
-                                 f"{ha_expected(config, n)}")
-        if split == "training":
-            all_counts.update(counts)
-        log(f"[coco-export] cli.main --task export_pseudo_labels --split "
-            f"{split} ({COCO_EXPORT.name}, cuts {json.dumps(cuts)}): {n} "
-            f"JPEGs of the layout at {HA_H}x{HA_W}, batch "
-            f"{config['data']['batch_size']}, "
-            f"{config['homography_adaptation']['num']} views in chunks of "
-            f"{config['homography_adaptation']['chunk']}: {secs:.4f} s, "
-            f"{n / secs:.2f} images/s (model build and restore included); "
-            f"keypoints per image min {min(n_pts)} median "
-            f"{statistics.median(n_pts)} max {max(n_pts)}; launches "
-            f"{json.dumps(counts, sort_keys=True)}")
-    return dict(all_counts)
-
-
-def host_photometric_ms(config: Path) -> float:
-    """Median ms of the config's host ``PhotometricAug`` on one 240 x 320
-    COCO sample (host clock)."""
-    data = load_config(config)["data"]
-    aug = photometric.PhotometricAug(data["augmentation"]["photometric"])
-    image = coco.COCO(data, "training")[0]["image"][..., 0] * 255.0
-    rng = np.random.default_rng(SEED)
-    times = []
-    for _ in range(PHOTO_REPS):
-        t0 = time.perf_counter()
-        aug(image, rng)
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
-def phase_coco_train(pretrained: str) -> dict:
-    """[coco-train]: README step 3, magicpoint_coco_train.yaml for 20 steps
-    from [syn-train]'s checkpoint (no kernel of ours); step 4,
-    superpoint_coco_train.yaml (240 x 320, batch 2) from that run's
-    checkpoint over [coco-export]'s labels, 20 steps, 2 validation batches
-    and a checkpoint, with the photometric augmentation on the card and
-    again on the host (``on_device=false``); rows 10-11 launched once per
-    step (the forward once more per validation batch). Returns the launches
-    of both SuperPoint runs."""
-    mp_config = CONFIGS / "magicpoint_coco_train.yaml"
-    mp_cuts = dict(BOOT_TRAIN_CUTS, pretrained=pretrained)
-    out = boot_train(mp_config, mp_cuts, "coco-train")
-    boot_line("coco-train", mp_config, mp_cuts, *out)
-    mp_name = load_config(mp_config)["ckpt_name"]
-    sp_config = CONFIGS / "superpoint_coco_train.yaml"
-    steps, n_val = BOOT_STEPS, BOOT_TRAIN_CUTS["train.val_batches"]
-    expect = {"desc_loss[fwd]": steps + n_val, "desc_loss[dA]": steps,
-              "desc_loss[dB]": steps}
-    all_counts = collections.Counter()
-    rates = {}
-    for where, on_device in (("card", True), ("host", False)):
-        cuts = dict(BOOT_TRAIN_CUTS,
-                    pretrained=f"{mp_name}/{mp_name}_{steps}.ckpt",
-                    ckpt_name=f"superpoint_coco_{where}")
-        cuts["data.augmentation.photometric.on_device"] = on_device
-        state, counts, secs, metrics = boot_train(sp_config, cuts,
-                                                  "coco-train")
-        got = {k: v for k, v in counts.items() if k.startswith("desc_loss")}
-        if got != expect:
-            raise AssertionError(f"[coco-train] photometric on the {where}: "
-                                 f"launches {got}, expected {expect}")
-        all_counts.update(counts)
-        rates[where] = statistics.median(
-            v for _, v in metrics["perf/steps_per_sec"])
-        extra = ""
-        if not on_device:
-            extra = (f"; host PhotometricAug {host_photometric_ms(sp_config):.3f}"
-                     f" ms per 240x320 image (median of {PHOTO_REPS})")
-        boot_line("coco-train", sp_config, cuts, state, counts, secs,
-                  metrics, extra)
-    log(f"[coco-train] SuperPoint steps/s (median of the windows): "
-        f"photometric on the card {rates['card']:.2f}, on the host "
-        f"{rates['host']:.2f}")
-    return dict(all_counts)
-
-
-def phase_bootstrap(root: Path):
-    """[jpeg] .. [coco-train] under ``root``; returns the launches of the
-    COCO export (training split, both routes) and of the SuperPoint runs."""
-    saved = (settings.DATA_PATH, settings.CKPT_PATH, settings.EXPER_PATH,
-             export.EXPER_PATH)
-    settings.DATA_PATH = root / "data"
-    settings.CKPT_PATH = root / "ckpt"
-    settings.EXPER_PATH = export.EXPER_PATH = root / "exper"
-    try:
-        phase_jpeg()
-        phase_syn_gen(root / "syn")
-        pretrained = phase_syn_train()
-        settings.DATA_PATH = root / "coco"
-        export_counts = phase_coco_export(pretrained)
-        train_counts = phase_coco_train(pretrained)
-    finally:
-        (settings.DATA_PATH, settings.CKPT_PATH, settings.EXPER_PATH,
-         export.EXPER_PATH) = saved
-    return export_counts, train_counts
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5282,7 +4861,7 @@ def main() -> int:
     # export drives rows 9 and 1-4, SuperPoint training rows 10-11, each
     # run with the counters at 0 before it
     with tempfile.TemporaryDirectory() as tmp:
-        export_counts, boot_counts = phase_bootstrap(Path(tmp))
+        export_counts, boot_counts = smoke_data.phase_bootstrap(Path(tmp))
     torch.cuda.empty_cache()
     for row in ha_rows:
         row["coco_export_launches"] = export_counts.get(row["name"], 0)

@@ -1,23 +1,27 @@
-"""Gray JPEG reading as ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` does it
-(libjpeg-turbo asked for ``JCS_GRAYSCALE``), byte for byte, without cv2.
+"""JPEG reading as ``cv2.imread`` does it, gray (``IMREAD_GRAYSCALE``) or
+colour (``IMREAD_COLOR``), byte for byte, without cv2.
 
-The decoder is the port's own C++ (``native/jpeg_gray.cpp``, built by g++
-at first use): baseline and extended-sequential Huffman files of 8-bit
-samples, 1 or 3 components at any sampling where luma is at full
-resolution, with restart markers. It returns the luma plane through
-libjpeg's integer inverse DCT, which is what libjpeg hands back for a
-YCbCr file read as gray (chroma is entropy-decoded and dropped). The
-EXIF orientation of the first APP1 segment is then applied as OpenCV's
-``ExifTransform`` does. Progressive, arithmetic-coded, lossless,
-12-bit, CMYK/YCCK and RGB-coded files raise (ROADMAP Queue 1 item 7),
-as do broken ones (a truncated file, a missing restart marker), which
-libjpeg would pad with gray and warn about.
+The decoder is the port's own C++ (``native/jpeg.cpp``, built by g++ at
+first use), a copy of what libjpeg-turbo does when cv2 asks it for
+``JCS_GRAYSCALE``, BGR or ``JCS_CMYK``: baseline, extended-sequential and
+progressive Huffman files of 8-bit samples, gray, YCbCr, CMYK and YCCK
+(Adobe marker), any integral chroma sampling, restart markers; libjpeg's
+integer inverse DCT, its "fancy" chroma upsampling and its fixed-point
+colour conversion, then OpenCV's own CMYK formulas. The EXIF orientation
+of the first APP1 segment is applied as OpenCV's ``ExifTransform`` does.
+A file cut inside its scans decodes as libjpeg pads it (the MCUs past
+the cut left gray, or at their earlier scans' values), with one warning
+on stderr. Arithmetic-coded, 12-bit, lossless and hierarchical files,
+RGB-coded colour, a missing restart marker (libjpeg's resync) and
+progressive files that libjpeg would block-smooth raise, naming ROADMAP
+Queue 1 item 7; so does a file cut inside its headers.
 """
 
 from __future__ import annotations
 
 import ctypes
 import struct
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -25,19 +29,20 @@ import numpy as np
 from spnerf_tpu_torch.utils import native
 
 SUFFIXES = (".jpg", ".jpeg")
-UNSUPPORTED = "ROADMAP Queue 1 item 7, colour and progressive JPEG"
+UNSUPPORTED = ("ROADMAP Queue 1 item 7: arithmetic, 12-bit, lossless, "
+               "RGB-coded, block-smoothed and resynced JPEG")
 
 
 def _lib():
-    lib = native.load("jpeg_gray")
-    lib.jpeg_gray_header.restype = ctypes.c_int
-    lib.jpeg_gray_header.argtypes = [
+    lib = native.load("jpeg")
+    lib.jpeg_header.restype = ctypes.c_int
+    lib.jpeg_header.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
         ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int]
-    lib.jpeg_gray_decode.restype = ctypes.c_int
-    lib.jpeg_gray_decode.argtypes = [
-        ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_char_p,
-        ctypes.c_int]
+    lib.jpeg_decode.restype = ctypes.c_int
+    lib.jpeg_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int]
     return lib
 
 
@@ -87,10 +92,10 @@ def exif_orientation(data: bytes) -> int:
 
 
 def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
-    """OpenCV's ``ExifTransform``: flips and transposes by the EXIF
-    orientation."""
+    """OpenCV's ``ExifTransform``: flips and transposes of the first two
+    axes by the EXIF orientation."""
     if orientation in (5, 6, 7, 8):
-        img = img.T
+        img = img.swapaxes(0, 1)
     if orientation in (2, 3, 6, 7):
         img = img[:, ::-1]
     if orientation in (3, 4, 7, 8):
@@ -100,26 +105,49 @@ def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
 
 def _fail(name: str, err) -> None:
     msg = err.value.decode()
-    if "not decoded" in msg:  # a kind of file, not a broken one
+    if "not decoded" in msg or "resyncs" in msg:  # a kind of file
         msg += f" ({UNSUPPORTED})"
     raise ValueError(f"jpeg: {name}: {msg}")
 
 
-def decode_gray(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """(H, W) uint8 gray image of a JPEG file's bytes, EXIF orientation
-    applied."""
+def decode(data: bytes, channels: int, name: str = "<bytes>") -> np.ndarray:
+    """A JPEG file's bytes as cv2 decodes them, EXIF orientation applied:
+    (H, W) uint8 for ``channels`` 1 (``IMREAD_GRAYSCALE``), (H, W, 3) B, G,
+    R for 3 (``IMREAD_COLOR``). A file cut inside its scans decodes with
+    one warning on stderr, as libjpeg's "Premature end of JPEG file"."""
     lib = _lib()
     err = ctypes.create_string_buffer(256)
     h, w = ctypes.c_int32(), ctypes.c_int32()
-    if lib.jpeg_gray_header(data, len(data), ctypes.byref(h), ctypes.byref(w),
-                            err, len(err)):
+    if lib.jpeg_header(data, len(data), ctypes.byref(h), ctypes.byref(w),
+                       err, len(err)):
         _fail(name, err)
-    out = np.empty((h.value, w.value), np.uint8)
-    if lib.jpeg_gray_decode(data, len(data), out.ctypes.data, err, len(err)):
+    out = np.empty((h.value, w.value) + ((3,) if channels == 3 else ()),
+                   np.uint8)
+    cut = ctypes.c_int32()
+    if lib.jpeg_decode(data, len(data), out.ctypes.data, channels,
+                       ctypes.byref(cut), err, len(err)):
         _fail(name, err)
+    if cut.value:
+        print(f"jpeg: {name}: Premature end of JPEG file", file=sys.stderr)
     return apply_orientation(out, exif_orientation(data))
+
+
+def decode_gray(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """(H, W) uint8: ``cv2.imdecode(data, cv2.IMREAD_GRAYSCALE)``."""
+    return decode(data, 1, name)
+
+
+def decode_bgr(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """(H, W, 3) uint8 B, G, R: ``cv2.imdecode(data, cv2.IMREAD_COLOR)``."""
+    return decode(data, 3, name)
 
 
 def read_gray(path) -> np.ndarray:
     """``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` of a JPEG file."""
     return decode_gray(Path(path).read_bytes(), str(path))
+
+
+def read_rgb(path) -> np.ndarray:
+    """``cv2.imread(path)[..., ::-1]`` of a JPEG file: (H, W, 3) R, G, B."""
+    return np.ascontiguousarray(
+        decode_bgr(Path(path).read_bytes(), str(path))[..., ::-1])

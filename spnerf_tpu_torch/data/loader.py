@@ -2,7 +2,9 @@
 (``spnerf_tpu/data/loader.py``; numpy only).
 
 A daemon thread assembles numpy batches ahead of the consumer, so host
-data work overlaps device work. Iterating returns a generator: its
+data work overlaps device work; with ``num_workers`` above 1 it loads
+each batch's samples on a pool of that many threads, as the reference
+does (``data.num_workers``). Iterating returns a generator: its
 ``close()`` (or the end of the loop) stops the thread and joins it.
 """
 
@@ -10,6 +12,7 @@ from __future__ import annotations
 
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -30,11 +33,16 @@ class DataLoader:
     """Batches of the dataset with thread prefetch: in order, or with
     ``shuffle`` in an order drawn anew for every epoch from
     ``np.random.default_rng(seed)``; with ``infinite`` the epochs never
-    end. The reference's worker pool is not ported."""
+    end. With ``num_workers`` above 1 a batch's samples are loaded by
+    ``ThreadPoolExecutor(num_workers).map`` (a fresh pool per batch, the
+    samples in index order); with 0 or 1 on the loader's own thread. A
+    dataset that draws from thread-local generators (``data/rng.py``)
+    then draws on threads that differ from batch to batch, so its
+    samples are no longer repeatable; the indices are."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = True, seed: int = 0, prefetch: int = 2,
-                 infinite: bool = False):
+                 infinite: bool = False, num_workers: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -42,12 +50,14 @@ class DataLoader:
         self.seed = seed
         self.prefetch = prefetch
         self.infinite = infinite
+        self.num_workers = num_workers
 
     def __len__(self):
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
-    def _batches(self):
+    def batch_indices(self):
+        """The index array of each batch, in the order they are loaded."""
         rng = np.random.default_rng(self.seed)
         n = len(self.dataset)
         stop = n - self.batch_size + 1 if self.drop_last else n
@@ -56,10 +66,18 @@ class DataLoader:
             if self.shuffle:
                 rng.shuffle(idx)
             for s in range(0, max(stop, 0), self.batch_size):
-                yield collate([self.dataset[int(i)]
-                               for i in idx[s:s + self.batch_size]])
+                yield idx[s:s + self.batch_size]
             if not self.infinite:
                 return
+
+    def _load(self, batch_idx) -> dict:
+        def sample(i):
+            return self.dataset[int(i)]
+
+        if self.num_workers > 1:
+            with ThreadPoolExecutor(self.num_workers) as pool:
+                return collate(list(pool.map(sample, batch_idx)))
+        return collate([sample(i) for i in batch_idx])
 
     def __iter__(self):
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
@@ -79,8 +97,8 @@ class DataLoader:
 
         def worker():
             try:
-                for batch in self._batches():
-                    if not put(batch):
+                for batch_idx in self.batch_indices():
+                    if not put(self._load(batch_idx)):
                         return
                 put(stop)
             except BaseException as e:  # noqa: BLE001 - raised in the consumer

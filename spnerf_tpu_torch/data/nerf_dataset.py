@@ -4,14 +4,15 @@ numpy.
 Scene layout on disk (``tasks/nerf_task.write_scene`` writes it, as does
 any NerfStudio-compatible exporter):
 
-    DATA_PATH/<name>/<scene>/images/<split>/<i>.png
+    DATA_PATH/<name>/<scene>/images/<split>/<i>.png  (or .jpg, .ppm, ...)
     DATA_PATH/<name>/<scene>/camera_transforms/<split>/<i>.npy  (4x4 c2w)
     DATA_PATH/<name>/<scene>/depth/<split>/<i>.npy              (H, W) along-ray
 
 The host loads a frame, its partner frame 7-15% of the sequence away and
 their cameras; the partner's keypoints are reprojected on the device
 (``train/pipeline.prepare_nerf_batch``). Images are read by
-``data/png.read_gray`` (byte-equal to ``cv2.imread(..., GRAYSCALE)``);
+``data/imread.read_gray`` (PNG, PGM / PPM or JPEG by suffix, byte-equal
+to ``cv2.imread(..., IMREAD_GRAYSCALE)``);
 the draws come from the same seeded numpy streams as the reference's, so
 its samples and the port's are equal.
 """
@@ -24,7 +25,7 @@ import numpy as np
 
 from spnerf_tpu_torch import settings
 from spnerf_tpu_torch.data.photometric import PhotometricAug
-from spnerf_tpu_torch.data.png import read_gray
+from spnerf_tpu_torch.data.imread import read_gray
 from spnerf_tpu_torch.data.rng import ThreadLocalRNG, stable_seed
 
 MAX_KPTS = 1024

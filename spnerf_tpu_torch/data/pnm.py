@@ -1,9 +1,12 @@
 """Binary PGM / PPM reading on numpy (no cv2): the port's counterpart of
-``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` for HPatches' ``.ppm`` files.
+``cv2.imread`` for HPatches' ``.ppm`` files.
 
 ``read_gray`` decodes P5 (gray) and P6 (RGB) files of maxval 255, with
-``#`` comments in the header, and returns an (H, W) uint8 array. Colour
-goes to gray as OpenCV's image codecs convert it, in 14-bit fixed point
+``#`` comments in the header, and returns an (H, W) uint8 array, as
+``cv2.imread(path, IMREAD_GRAYSCALE)``; ``read_rgb`` returns (H, W, 3) R,
+G, B, as ``cv2.imread(path)[..., ::-1]``: P6 as stored, P5 in three
+equal planes. Colour goes to gray as OpenCV's image codecs convert it,
+in 14-bit fixed point
 with rounding: (4899 R + 9617 G + 1868 B + 8192) >> 14 (0.299, 0.587,
 0.114; not libpng's weights, which ``data/png.py`` uses). Other magic
 numbers, maxvals and truncated files raise ``ValueError``. ``write``
@@ -47,9 +50,8 @@ def _header(data: bytes):
     return magic, width, height, maxval, pos + 1
 
 
-def read_gray(path) -> np.ndarray:
-    """The image at ``path`` as ``cv2.imread(path, IMREAD_GRAYSCALE)``
-    returns it, for binary 8-bit PGM (P5) and PPM (P6) files."""
+def _read(path):
+    """The (H, W, 1) or (H, W, 3) pixels of a P5 / P6 file."""
     data = Path(path).read_bytes()
     magic, width, height, maxval, offset = _header(data)
     if magic not in ("P5", "P6"):
@@ -62,14 +64,29 @@ def read_gray(path) -> np.ndarray:
     n = width * height * channels
     if width <= 0 or height <= 0 or len(data) - offset < n:
         raise ValueError(f"pnm: {path}: truncated ({width} x {height})")
-    pixels = np.frombuffer(data, np.uint8, n, offset)
-    if channels == 1:
-        return pixels.reshape(height, width).copy()
-    rgb = pixels.reshape(height, width, 3).astype(np.int32)
+    return np.frombuffer(data, np.uint8, n, offset).reshape(
+        height, width, channels)
+
+
+def read_gray(path) -> np.ndarray:
+    """The image at ``path`` as ``cv2.imread(path, IMREAD_GRAYSCALE)``
+    returns it, for binary 8-bit PGM (P5) and PPM (P6) files."""
+    pixels = _read(path)
+    if pixels.shape[2] == 1:
+        return pixels[..., 0].copy()
+    rgb = pixels.astype(np.int32)
     cr, cg, cb = _RGB_TO_GRAY
     gray = (rgb[..., 0] * cr + rgb[..., 1] * cg + rgb[..., 2] * cb
             + (1 << 13)) >> 14
     return gray.astype(np.uint8)
+
+
+def read_rgb(path) -> np.ndarray:
+    """(H, W, 3) uint8 R, G, B, as ``cv2.imread(path)[..., ::-1]`` returns
+    it, for binary 8-bit PGM (P5) and PPM (P6) files."""
+    pixels = _read(path)
+    return np.ascontiguousarray(np.broadcast_to(
+        pixels, pixels.shape[:2] + (3,)))
 
 
 def write(path, image: np.ndarray) -> None:

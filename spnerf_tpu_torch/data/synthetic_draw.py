@@ -10,9 +10,9 @@ transforms and random fill are the port's own byte-equal copies
 sample here is the reference's byte for byte.
 
 The background's and the noise primitive's fills draw from OpenCV's
-generator, ``cv_rng`` (default: the process-global one, as cv2's
-``randu`` does), so they depend on how many fills came before them in
-the process.
+generator, ``cv_rng`` (default: the calling thread's, as cv2's ``randu``
+does), so they depend on how many fills came before them in that
+thread.
 """
 
 from __future__ import annotations
@@ -374,7 +374,7 @@ DRAW_FNS = {
 def generate_sample(primitive: str, rng, image_size=(960, 1280), params=None,
                     cv_rng=None):
     """Background + primitive -> (uint8 image, (N, 2) float (y, x) points);
-    ``cv_rng`` (default: the process-global one) feeds the random fills."""
+    ``cv_rng`` (default: the calling thread's) feeds the random fills."""
     params = params or {}
     bg_params = params.get("generate_background", {})
     img = generate_background(image_size, rng, cv_rng=cv_rng, **bg_params)

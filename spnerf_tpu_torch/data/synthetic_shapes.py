@@ -7,7 +7,8 @@ as the reference does, through the port's byte-equal copies of cv2's
 filters and codecs: the sample (``data/synthetic_draw.py``), the 8-bit
 Gaussian blur (``data/cv_filter.py``), the bilinear resize
 (``data/resize.py``) and the PNG writer and reader (``data/png.py``), so
-one process writes the reference's files byte for byte. As in the
+one thread writes the reference's files byte for byte (cv2's generator is
+per thread, as OpenCV keeps it). As in the
 reference, each primitive's generator is seeded with
 ``random_seed + hash(primitive) % 100000``: Python salts ``str`` hashes
 per process, so the generated set repeats across processes only under a

@@ -12,17 +12,20 @@ each redrawn while it equals an earlier one of the same sample.
 A ``np.random.Generator`` may stand in for the generator: its
 ``integers`` draws then take the place of ``uniform``.
 
-``the_rng()`` is the process-global generator ``cv::theRNG()``: a fresh
-OpenCV process starts it at state 0xffffffff (not at ``CvRNG()``'s
-(uint64)-1), and ``set_rng_seed`` copies ``cv2.setRNGSeed``. ``randu``
-fills an 8-bit image as ``cv2.randu`` does, in row-major order by
-``uniform``; the draws run in C++ (``native/cv_rng.cpp``, built at first
-use), since a 960 x 1280 fill is 1.2 M draws.
+``the_rng()`` is the calling thread's generator ``cv::theRNG()``: OpenCV
+keeps one per thread, and each starts at state 0xffffffff (not at
+``CvRNG()``'s (uint64)-1), whatever another thread drew or seeded before.
+``set_rng_seed`` copies ``cv2.setRNGSeed``, which restarts the calling
+thread's generator alone. ``randu`` fills an 8-bit image as ``cv2.randu``
+does, in row-major order by ``uniform``; the draws run in C++
+(``native/cv_rng.cpp``, built at first use), since a 960 x 1280 fill is
+1.2 M draws.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 
@@ -66,26 +69,30 @@ def draw_subset(rng, count: int, size: int) -> np.ndarray:
     return np.array(idx, np.int64)
 
 
-_THE_RNG = CvRNG(_MASK32)
+_THREAD = threading.local()
 
 
 def the_rng() -> CvRNG:
-    """The process-global generator (``cv::theRNG()``)."""
-    return _THE_RNG
+    """The calling thread's generator (``cv::theRNG()``), made at the
+    thread's first use."""
+    rng = getattr(_THREAD, "rng", None)
+    if rng is None:
+        rng = _THREAD.rng = CvRNG(_MASK32)
+    return rng
 
 
 def set_rng_seed(seed: int) -> None:
-    """``cv2.setRNGSeed(seed)``: the global generator restarts at
-    ``seed`` (0 at 2^32 - 1)."""
-    _THE_RNG.state = CvRNG(int(seed)).state
+    """``cv2.setRNGSeed(seed)``: the calling thread's generator restarts
+    at ``seed`` (0 at 2^32 - 1)."""
+    the_rng().state = CvRNG(int(seed)).state
 
 
 def randu(img: np.ndarray, low: int, high: int, rng: CvRNG | None = None):
     """``cv2.randu(img, low, high)`` on a contiguous uint8 array, in place,
-    from ``rng`` (default: the global generator): each element
+    from ``rng`` (default: the calling thread's generator): each element
     ``uniform(low, high)`` in row-major order. OpenCV draws ranges of a
     power-of-two width by a bit mask instead; those raise."""
-    rng = _THE_RNG if rng is None else rng
+    rng = the_rng() if rng is None else rng
     low, high = int(low), int(high)
     d = high - low
     if img.dtype != np.uint8 or not img.flags.c_contiguous:

@@ -58,7 +58,7 @@ def load_gray(path, spec, rotation: int = 0, resize_float: bool = False):
     quarter-turns CCW. Returns (image float32, (sx, sy) original/new
     pixel scale, post-rotation), or (None, None) for a missing file, as
     ``cv2.imread`` does. A format the port does not decode (it reads
-    8-bit PNG, binary PGM / PPM and gray sequential JPEG) raises, whether
+    8-bit PNG, binary PGM / PPM and JPEG) raises, whether
     or not the file exists, so that a pair list is never skipped through
     silently."""
     path = Path(path)

@@ -9,8 +9,9 @@
   is the ``DATA_PATH/NeRF/<scene>/{images,camera_transforms,depth}``
   layout the NeRF dataset reads.
 
-Frames are read as PNG (``data/png.read_rgb``) and resized as
-``cv2.resize`` does (``data/resize.resize_linear``).
+Frames are read as ``cv2.imread`` reads them (``data/imread.read_rgb``:
+PNG, PGM / PPM and JPEG) and resized as ``cv2.resize`` does
+(``data/resize.resize_linear``).
 
     python -m spnerf_tpu_torch.tools.process_scene --data-path scene_dir \\
         [--input-type images|video] [--train-iters 20000] [--device cuda]
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from spnerf_tpu_torch.data.nerf_dataset import camera_intrinsics
-from spnerf_tpu_torch.data.png import read_rgb
+from spnerf_tpu_torch.data.imread import read_rgb
 from spnerf_tpu_torch.data.resize import resize_linear
 from spnerf_tpu_torch.geometry.reprojection import nerfstudio_to_cv
 from spnerf_tpu_torch.models.nerf import NeRFConfig
@@ -94,8 +95,8 @@ def load_transforms_json(path: Path):
 
 
 def load_frames(paths, shape) -> np.ndarray:
-    """(N, H, W, 3) float32 RGB in [0, 1]: each PNG resized to ``shape``
-    (H, W)."""
+    """(N, H, W, 3) float32 RGB in [0, 1]: each image (PNG, PGM / PPM or
+    JPEG) resized to ``shape`` (H, W)."""
     H, W = shape
     return np.stack([(resize_linear(read_rgb(p), (W, H)) / 255.0).astype(
         np.float32) for p in paths])

@@ -43,7 +43,8 @@ def get_loaders(config: dict, task: str, nerf_train: bool = False) -> dict:
     """Loaders of ``config["data"]``: for ``task`` "train" (or
     "training") {"train", "validation"}, the training one shuffled and
     dropping its last partial batch; with ``nerf_train`` the lists of
-    ``get_nerf_loaders``; else {task: loader}."""
+    ``get_nerf_loaders``; else {task: loader}. Each loads its samples on
+    ``data.num_workers`` threads (default 0: the loader's own)."""
     if nerf_train:
         return get_nerf_loaders(config)
     data_cfg = config["data"]
@@ -52,7 +53,8 @@ def get_loaders(config: dict, task: str, nerf_train: bool = False) -> dict:
     def make(split):
         training = split == "training"
         return DataLoader(get_dataset(data_cfg, split), batch_size=batch_size,
-                          shuffle=training, drop_last=training)
+                          shuffle=training, drop_last=training,
+                          num_workers=data_cfg.get("num_workers", 0))
 
     if task in ("train", "training"):
         return {"train": make("training"), "validation": make("validation")}
@@ -63,7 +65,8 @@ def get_nerf_loaders(config: dict) -> dict:
     """{"train": [...], "validation": [...]}: one training and one
     validation loader per scene of ``data.all_data_dirs``, with labels
     from the matching entry of ``data.all_label_dirs``. Training loaders
-    shuffle and drop the last partial batch."""
+    shuffle and drop the last partial batch; every loader takes
+    ``data.num_workers``."""
     data_cfg = dict(config["data"])
     batch_size = data_cfg.get("batch_size", 1)
     all_dirs = data_cfg.get("all_data_dirs") or []
@@ -77,5 +80,6 @@ def get_nerf_loaders(config: dict) -> dict:
             training = split == "training"
             loaders[key].append(DataLoader(
                 get_dataset(scene_cfg, split), batch_size=batch_size,
-                shuffle=training, drop_last=training))
+                shuffle=training, drop_last=training,
+                num_workers=data_cfg.get("num_workers", 0)))
     return loaders

@@ -3,11 +3,18 @@ digests of what cv2 reads from them.
 
     python tests/_jpeg_fixtures.py   # rewrites the files and digests.json
 
-Each colour file carries three 480 x 640 synthetic-shapes samples drawn by
-the port's generator (seed 0) as its B, G, R planes, encoded by
-``cv2.imencode`` (libjpeg-turbo); ``digests.json`` holds the shape
-and sha256 of ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` of each file, so
-that a machine without cv2 can hold a decoder to it.
+Each colour file carries three synthetic-shapes samples drawn by the
+port's generator as its B, G, R planes (480 x 640 for the first seven and
+the progressive 4:2:0 file, 240 x 320 for the others), encoded by
+``cv2.imencode`` (libjpeg-turbo) or by PIL: baseline at 4:2:0, 4:2:2,
+4:4:4, 4:4:0 and 4:1:1, gray, restart intervals, an odd size, EXIF
+orientation 6; progressive colour and gray from cv2 and an optimized
+progressive file with restart intervals from PIL; Adobe CMYK from PIL
+and the same file marked YCCK (Adobe transform 2); a baseline file cut
+at 60% of its bytes. ``digests.json`` holds the shape and sha256 of
+``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` of each file at its top level
+and of ``cv2.imread(path)`` (B, G, R) under ``COLOUR``, so that a
+machine without cv2 can hold a decoder to both.
 """
 
 from __future__ import annotations
@@ -21,7 +28,9 @@ import numpy as np
 
 DIR = Path(__file__).resolve().parent / "data" / "jpeg"
 SIZE = (480, 640)
+SMALL = (240, 320)
 PRIMITIVES = ("draw_checkerboard", "draw_cube", "draw_star")
+COLOUR = "colour"  # the key of the colour digests in digests.json
 
 
 def orientation_app1(orientation: int) -> bytes:
@@ -58,7 +67,10 @@ def colour_image(size=SIZE, seed: int = 0) -> np.ndarray:
 
 def fixtures() -> dict:
     """{file name: bytes} of every fixture."""
+    import io
+
     import cv2
+    from PIL import Image
 
     def enc(img, **kw):
         params = []
@@ -68,18 +80,38 @@ def fixtures() -> dict:
         assert ok
         return buf.tobytes()
 
+    def pil(img, mode, **kw):
+        out = io.BytesIO()
+        Image.fromarray(img, mode).save(out, "JPEG", **kw)
+        return out.getvalue()
+
+    def sampling(name):
+        return getattr(cv2, "IMWRITE_JPEG_SAMPLING_FACTOR_" + name)
+
     bgr = colour_image()
+    small = colour_image(SMALL, seed=3)
+    cmyk = pil(np.concatenate([small, small[::-1, ::-1, :1]], axis=-1),
+               "CMYK", quality=85)
+    adobe = cmyk.index(b"Adobe") + 11  # the transform byte: 0, CMYK
+    baseline = enc(small, quality=90)
     return {
-        "q95_420.jpg": enc(bgr, quality=95, sampling_factor=
-                           cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420),
-        "q80_422.jpg": enc(bgr, quality=80, sampling_factor=
-                           cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422),
-        "q90_444.jpg": enc(bgr, quality=90, sampling_factor=
-                           cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444),
+        "q95_420.jpg": enc(bgr, quality=95, sampling_factor=sampling("420")),
+        "q80_422.jpg": enc(bgr, quality=80, sampling_factor=sampling("422")),
+        "q90_444.jpg": enc(bgr, quality=90, sampling_factor=sampling("444")),
         "gray_q85.jpg": enc(bgr[..., 1], quality=85),
         "q75_420_rst.jpg": enc(bgr, quality=75, rst_interval=3),
         "odd_479x637.jpg": enc(bgr[:479, :637], quality=90),
         "exif6.jpg": with_app1(enc(bgr, quality=85), orientation_app1(6)),
+        "prog_420.jpg": enc(bgr, quality=90, progressive=1),
+        "prog_gray.jpg": enc(small[..., 2], quality=80, progressive=1),
+        "prog_pil_opt_rst.jpg": pil(small[..., ::-1], "RGB", quality=75,
+                                    progressive=True, optimize=True,
+                                    restart_marker_blocks=5),
+        "s440.jpg": enc(small, quality=85, sampling_factor=sampling("440")),
+        "s411.jpg": enc(small, quality=85, sampling_factor=sampling("411")),
+        "cmyk.jpg": cmyk,
+        "ycck.jpg": cmyk[:adobe] + b"\x02" + cmyk[adobe + 1:],
+        "cut60.jpg": baseline[:int(0.6 * len(baseline))],
     }
 
 
@@ -93,11 +125,13 @@ def main() -> None:
     import cv2
 
     DIR.mkdir(parents=True, exist_ok=True)
-    digests = {}
+    digests, colour = {}, {}
     for name, data in fixtures().items():
         (DIR / name).write_bytes(data)
         digests[name] = digest(cv2.imread(str(DIR / name),
                                           cv2.IMREAD_GRAYSCALE))
+        colour[name] = digest(cv2.imread(str(DIR / name)))
+    digests[COLOUR] = colour
     (DIR / "digests.json").write_text(json.dumps(digests, indent=1) + "\n")
 
 

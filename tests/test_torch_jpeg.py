@@ -1,12 +1,17 @@
-"""The port's gray JPEG decoder (``spnerf_tpu_torch/data/jpeg.py`` over
-``spnerf_tpu_torch/native/jpeg_gray.cpp``) against
-``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` (cv2 5.0's libjpeg-turbo),
-byte for byte: the committed fixtures of ``tests/data/jpeg/`` (their
-digests too), files encoded by ``cv2.imencode`` at qualities 5-100,
-sizes that are not multiples of 8 or 16, every chroma sampling cv2
-writes, gray, restart intervals, files written by PIL (a test-only
-dependency: the port never imports it), and EXIF orientations 1-8. Progressive
-and CMYK files raise naming the ROADMAP item."""
+"""The port's JPEG decoder (``spnerf_tpu_torch/data/jpeg.py`` over
+``spnerf_tpu_torch/native/jpeg.cpp``) against ``cv2.imread`` (cv2 5.0's
+libjpeg-turbo), gray and colour, byte for byte: the committed fixtures of
+``tests/data/jpeg/`` (their digests too), files encoded by
+``cv2.imencode`` at qualities 5-100, sizes that are not multiples of 8 or
+16 and widths of 1-3 pixels, every chroma sampling cv2 writes, gray,
+restart intervals, progressive files from cv2 and from PIL (a test-only
+dependency: the port never imports it) with and without ``optimize`` and
+restart intervals, Adobe CMYK and YCCK, EXIF orientations 1-8, and
+sequential files cut inside their scans (read from a file, as
+``cv2.imread`` reads them: ``cv2.imdecode`` refuses them). What libjpeg
+decodes but the port does not (block-smoothed progressive files,
+arithmetic coding, 12-bit samples, RGB-coded colour) raises naming the
+ROADMAP item, as do files cut inside their headers."""
 
 import io
 import json
@@ -16,7 +21,7 @@ import cv2
 import numpy as np
 import pytest
 
-from _jpeg_fixtures import DIR, digest, orientation_app1, with_app1
+from _jpeg_fixtures import COLOUR, DIR, digest, orientation_app1, with_app1
 from spnerf_tpu_torch.data import jpeg
 from spnerf_tpu_torch.utils import native
 
@@ -27,6 +32,8 @@ SAMPLINGS = {
     "440": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440,
     "444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
 }
+READS = ((cv2.IMREAD_GRAYSCALE, jpeg.decode_gray),
+         (cv2.IMREAD_COLOR, jpeg.decode_bgr))
 
 
 def _colour(seed, shape):
@@ -39,29 +46,53 @@ def _colour(seed, shape):
 
 
 def _same(data: bytes):
-    want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_GRAYSCALE)
-    got = jpeg.decode_gray(data)
-    assert got.dtype == np.uint8 and got.shape == want.shape
-    np.testing.assert_array_equal(got, want)
+    """Gray and colour reads of ``data`` equal ``cv2.imdecode``'s."""
+    for flag, read in READS:
+        want = cv2.imdecode(np.frombuffer(data, np.uint8), flag)
+        got = read(data)
+        assert got.dtype == np.uint8 and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+def _pil(img, mode="RGB", **kw) -> bytes:
+    from PIL import Image
+
+    out = io.BytesIO()
+    Image.fromarray(img, mode).save(out, "JPEG", **kw)
+    return out.getvalue()
+
+
+def _encode(img, quality, *extra) -> bytes:
+    ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, quality]
+                           + list(extra))
+    assert ok
+    return buf.tobytes()
 
 
 def test_fixtures_and_digests():
     digests = json.loads((DIR / "digests.json").read_text())
+    colour = digests.pop(COLOUR)
     names = sorted(p.name for p in DIR.glob("*.jpg"))
-    assert names == sorted(digests) and 7 <= len(names) <= 8
+    assert names == sorted(digests) == sorted(colour) and len(names) == 15
     assert sum((DIR / n).stat().st_size for n in names) < 1.5e6
     for name in names:
-        want = cv2.imread(str(DIR / name), cv2.IMREAD_GRAYSCALE)
-        assert digest(want) == digests[name], name
-        got = jpeg.read_gray(DIR / name)
-        np.testing.assert_array_equal(got, want, err_msg=name)
+        for flag, want_digest, read in (
+                (cv2.IMREAD_GRAYSCALE, digests[name], jpeg.read_gray),
+                (cv2.IMREAD_COLOR, colour[name],
+                 lambda p: jpeg.read_rgb(p)[..., ::-1])):
+            want = cv2.imread(str(DIR / name), flag)
+            assert digest(want) == want_digest, name
+            np.testing.assert_array_equal(read(DIR / name), want,
+                                          err_msg=name)
     assert digests["exif6.jpg"]["shape"] == [640, 480]
+    assert colour["exif6.jpg"]["shape"] == [640, 480, 3]
     assert digests["odd_479x637.jpg"]["shape"] == [479, 637]
+    assert colour["prog_420.jpg"]["shape"] == [480, 640, 3]
 
 
 @pytest.mark.parametrize("sampling", sorted(SAMPLINGS))
 @pytest.mark.parametrize("shape", [(48, 64), (61, 83), (17, 9), (1, 1),
-                                   (33, 130)])
+                                   (33, 130), (9, 1), (6, 2), (11, 3)])
 def test_cv2_encoded(sampling, shape):
     img = _colour(shape[0], shape)
     for quality in (5, 30, 75, 95, 100):
@@ -127,29 +158,109 @@ def test_pil_written_files():
         _same(out.getvalue())
 
 
-def test_unsupported_files_raise(tmp_path):
-    from PIL import Image
+@pytest.mark.parametrize("quality", [10, 50, 90, 100])
+def test_progressive_cv2(quality):
+    """cv2's progressive script at every sampling, gray, with optimized
+    tables and with restart intervals."""
+    img = _colour(quality, (45, 70))
+    for sampling in SAMPLINGS.values():
+        _same(_encode(img, quality, cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                      cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling))
+    for extra in ([cv2.IMWRITE_JPEG_OPTIMIZE, 1],
+                  [cv2.IMWRITE_JPEG_RST_INTERVAL, 2]):
+        _same(_encode(img, quality, cv2.IMWRITE_JPEG_PROGRESSIVE, 1, *extra))
+        _same(_encode(img[..., 0], quality, cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                      *extra))
 
+
+@pytest.mark.parametrize("kw", [
+    {"quality": 90},
+    {"quality": 60, "optimize": True},
+    {"quality": 75, "optimize": True, "restart_marker_blocks": 3},
+    {"quality": 40, "subsampling": 0, "restart_marker_rows": 1},
+    {"quality": 95, "subsampling": 1, "restart_marker_blocks": 1}],
+    ids=["plain", "optimize", "optimize-rst", "444-rst-rows", "422-rst1"])
+def test_progressive_pil(kw):
+    img = _colour(7, (50, 75))
+    _same(_pil(img[:, :, ::-1], progressive=True, **kw))
+    _same(_pil(img[..., 0], "L", progressive=True, **kw))
+
+
+@pytest.mark.parametrize("quality", [30, 95])
+@pytest.mark.parametrize("subsampling", [0, 2])
+def test_cmyk_and_ycck(quality, subsampling):
+    """PIL's Adobe CMYK (transform 0), the same file marked YCCK
+    (transform 2), and a progressive CMYK file: cv2's CMYK-to-BGR and
+    CMYK-to-gray formulas after libjpeg's YCCK-to-CMYK."""
+    cmyk = np.concatenate([_colour(quality, (37, 53)),
+                           _colour(subsampling, (37, 53))[..., :1]], -1)
+    data = _pil(cmyk, "CMYK", quality=quality, subsampling=subsampling)
+    adobe = data.index(b"Adobe") + 11
+    assert data[adobe] == 0
+    _same(data)
+    _same(data[:adobe] + b"\x02" + data[adobe + 1:])
+    _same(_pil(cmyk, "CMYK", quality=quality, subsampling=subsampling,
+               progressive=True))
+
+
+@pytest.mark.parametrize("sampling", ["420", "444"])
+@pytest.mark.parametrize("rst", [0, 2])
+def test_cut_inside_the_scan(tmp_path, capfd, sampling, rst):
+    """A sequential file cut at 30-99.9% of its bytes reads as
+    ``cv2.imread`` reads the file (the MCUs past the cut gray), with one
+    warning on stderr; so does a file without its EOI marker."""
+    data = _encode(_colour(1, (64, 96)), 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                   SAMPLINGS[sampling], cv2.IMWRITE_JPEG_RST_INTERVAL, rst)
+    for cut in (0.3, 0.45, 0.6, 0.8, 0.999, (len(data) - 2) / len(data)):
+        path = tmp_path / "cut.jpg"
+        path.write_bytes(data[:int(len(data) * cut)])
+        for flag, read in ((cv2.IMREAD_GRAYSCALE, jpeg.read_gray),
+                           (cv2.IMREAD_COLOR,
+                            lambda p: jpeg.read_rgb(p)[..., ::-1])):
+            want = cv2.imread(str(path), flag)
+            capfd.readouterr()
+            got = read(path)
+            assert capfd.readouterr().err.count("Premature end") == 1
+            assert got.shape == want.shape
+            np.testing.assert_array_equal(got, want, err_msg=str(cut))
+    # the last MCU rows stay gray where the data ran out early
+    assert (jpeg.decode_gray(data[:len(data) // 3])[-8:] == 128).all()
+
+
+def test_unsupported_files_raise(tmp_path):
+    """What still raises: a progressive file cut short (libjpeg would
+    block-smooth it), arithmetic-coded and 12-bit frame headers, an
+    RGB-coded colour file, a file cut inside its headers, and bytes that
+    are not a JPEG file."""
     img = _colour(4, (32, 48))
-    ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    data = _encode(img, 90, cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
     path = tmp_path / "progressive.jpg"
-    path.write_bytes(buf.tobytes())
+    path.write_bytes(data[:len(data) // 2])
     with pytest.raises(ValueError, match=r"progressive.jpg: progressive.*"
-                                         r"Queue 1 item 7"):
+                                         r"smoothing.*Queue 1 item 7"):
         jpeg.read_gray(path)
-    out = io.BytesIO()
-    Image.fromarray(img).convert("CMYK").save(out, "JPEG")
-    with pytest.raises(ValueError, match="4 components"):
-        jpeg.decode_gray(out.getvalue())
+    with pytest.raises(ValueError, match="smoothing"):
+        jpeg.read_rgb(path)
+    baseline = _encode(img, 90)
+    sof = baseline.index(b"\xff\xc0")
+    arithmetic = baseline[:sof + 1] + b"\xc9" + baseline[sof + 2:]
+    with pytest.raises(ValueError, match="arithmetic.*Queue 1 item 7"):
+        jpeg.decode_gray(arithmetic)
+    twelve = baseline[:sof + 4] + b"\x0c" + baseline[sof + 5:]
+    with pytest.raises(ValueError, match="12-bit.*Queue 1 item 7"):
+        jpeg.decode_bgr(twelve)
+    rgb = _pil(img[:, :, ::-1], quality=90, keep_rgb=True)
+    with pytest.raises(ValueError, match="RGB-coded.*Queue 1 item 7"):
+        jpeg.decode_bgr(rgb)
     with pytest.raises(ValueError, match="not a JPEG"):
         jpeg.decode_gray(b"\x89PNG\r\n\x1a\n")
     with pytest.raises(ValueError, match="truncated"):
-        jpeg.decode_gray(buf.tobytes()[:100])
+        jpeg.decode_gray(baseline[:100])
 
 
 def test_builds_its_own_source_into_build():
     jpeg.decode_gray((DIR / "gray_q85.jpg").read_bytes())
-    lib = Path(native.BUILD_DIR) / "libjpeg_gray.so"
+    lib = Path(native.BUILD_DIR) / "libjpeg.so"
     assert lib.is_file()
     assert native.BUILD_DIR == Path(__file__).resolve().parents[1] / \
         "build/spnerf_tpu_torch/native"
