@@ -110,6 +110,19 @@ Phases, each of which raises on failure (nothing is caught):
 11. take two steps of a small SuperPoint on the card and on the CPU
    plain path from the same state, draws and batch: augmented images,
    losses and parameters within the stated tolerances;
+11a. ``[dist]``, data parallelism, by ``spnerf_tpu_torch/tools/
+   smoke_dist.py`` (its docstring has the jobs): two rank processes on
+   this card joined by gloo (NCCL takes one rank per card) export HA
+   labels of 16 images at 240 x 320 with ``export.serving=int8`` sharded
+   by the mesh, export again through ``cli.main`` with ``data.shard:
+   auto``, train one step of superpoint_coco_train.yaml through
+   ``train()`` and take one ``train_step`` (and 3 timed ones); every
+   file byte-equal to this process's export, the step within
+   ``smoke_dist.compare_steps``' bounds of this process's, the ranks'
+   models bit-equal, rank 0 alone writing; one rank in an NCCL group
+   takes the step bit-equal to the step without a group; rows 1-4, 9,
+   10 and 11 launched in the ranks (``dist_launches`` in the kernel
+   rows); ms per sharded HA batch and per DP step;
 11b. NeRF pairs, on two procedural scenes (``box_room``: the inside of a
    box room whose walls carry seeded rectangles, exact along-ray depth
    and gray values per pixel, cameras on an arc; written by
@@ -250,7 +263,7 @@ import torch
 import torch.nn.functional as F
 
 from spnerf_tpu_torch import cli, settings
-from spnerf_tpu_torch.data.loader import DataLoader
+from spnerf_tpu_torch.data.loader import DataLoader, collate
 from spnerf_tpu_torch.data import pnm
 from spnerf_tpu_torch.data.nerf_dataset import NeRFDataset, camera_intrinsics
 from spnerf_tpu_torch.data.png import write_gray, write_rgb
@@ -356,7 +369,7 @@ from spnerf_tpu_torch.tasks.nerf_task import (
     train_nerf_scene,
     write_scene,
 )
-from spnerf_tpu_torch.tools import process_scene, smoke_data
+from spnerf_tpu_torch.tools import process_scene, smoke_data, smoke_dist
 from spnerf_tpu_torch.tools.smoke_data import (
     check_labels,
     cut as _cut,
@@ -1690,6 +1703,22 @@ def phase_train(root: Path):
         f"{loss[0][1]:.4f}, launches {json.dumps(dict(delta), sort_keys=True)}")
     # the 20th step's call, not validation's
     return counts, state, loader, hinge_calls[steps - 1]
+
+
+def phase_data_parallel():
+    """``[dist]``: two ranks on this card through gloo, one through NCCL
+    (``tools/smoke_dist.phase_dist``), on 16 synthetic HA images and a
+    batch of ``train_dataset``; each rank's launch counters at 0 before
+    its work. Returns the ranks' launches on the sharded path."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    images = synthetic_images(smoke_dist.DIST_IMAGES, gen,
+                              (HA_H, HA_W)).cpu().numpy()
+    config = train_config()
+    batch = collate(train_dataset(config["data"]["batch_size"], SEED + 31))
+    with tempfile.TemporaryDirectory() as tmp:
+        return smoke_dist.phase_dist(Path(tmp), ha_model(), images,
+                                     export_config(serving="int8"), config,
+                                     batch, SEED)
 
 
 def phase_train_split(state, loader, reps: int = 5):
@@ -4796,6 +4825,13 @@ def main() -> int:
                                  "training path")
     phase_train_small()
     rows += desc_rows
+    torch.cuda.empty_cache()
+
+    # data parallelism ([dist]): the sharded HA export and the DP step
+    # drive rows 1-4, 9, 10 and 11 in the ranks
+    dist_counts = phase_data_parallel()
+    for row in ha_rows + desc_rows:
+        row["dist_launches"] = dist_counts.get(row["name"], 0)
     torch.cuda.empty_cache()
 
     # NeRF pairs: label export and training on two procedural scenes; the

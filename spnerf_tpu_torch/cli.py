@@ -18,10 +18,15 @@ through the port's own decoder), then ``train`` on
 ``magicpoint_coco_train.yaml`` and ``superpoint_coco_train.yaml`` over
 those labels.
 
-The reference first joins a multi-host JAX cluster where one is
-configured (``parallel.distributed.maybe_initialize_distributed``); the
-port runs on one device and has no counterpart yet (ROADMAP Queue 1
-item 6), so it skips that step (a COCO ``shard: auto`` raises).
+Like the reference, the CLI first joins a process group where one is
+configured (``parallel.distributed.maybe_initialize_distributed``): under
+``torchrun --nproc_per_node=N -m spnerf_tpu_torch.cli ...`` each rank is
+one process on card ``LOCAL_RANK`` (``--device cuda`` means that card),
+joined by NCCL (gloo with ``--device cpu``). ``train`` is then data
+parallel over the ranks; ``export_pseudo_labels`` with ``data.shard:
+auto`` exports each rank's block of the images. The CLI waits for every
+rank at the end of the task and leaves the group it joined. Without
+``torchrun``'s variables nothing of this happens.
 ``--split`` also picks the split of ``export_NeRF_labels`` (the
 reference exports the training split only), so that validation labels
 can be written too.
@@ -31,6 +36,9 @@ from __future__ import annotations
 
 import argparse
 
+import torch
+
+from spnerf_tpu_torch.parallel import distributed
 from spnerf_tpu_torch.utils.config import apply_overrides, load_config
 
 TASKS = (
@@ -86,6 +94,21 @@ def model_for_inference(config: dict, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    started = (not distributed.is_initialized()
+               and distributed.maybe_initialize_distributed(
+                   device=args.device))
+    try:
+        out = run_task(args, distributed.rank_device(args.device))
+        if started:  # the shards of an export end unevenly
+            torch.distributed.barrier()
+        return out
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+
+
+def run_task(args, device):
+    """The task of the parsed ``args`` on ``device``."""
     config = apply_overrides(load_config(args.config_path), args.overrides)
 
     if args.task == "train":
@@ -98,14 +121,14 @@ def main(argv=None):
             nerf_loss=args.nerf_loss,
             train_nerf=args.train_nerf,
             seed=args.seed,
-            device=args.device,
+            device=device,
         )
 
     from spnerf_tpu_torch.data.loader import DataLoader
     from spnerf_tpu_torch.device import resolve_device
     from spnerf_tpu_torch.utils.factories import get_dataset
 
-    device = resolve_device(args.device)
+    device = resolve_device(device)
     batch_size = config["data"].get("batch_size", 1)
 
     if args.task == "export_pseudo_labels":

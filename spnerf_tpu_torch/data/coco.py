@@ -17,10 +17,11 @@ Three modes, as the reference:
   independently augmented copy of the image ("image_warp_src") that the
   device warps into the pair.
 
-``shard`` takes an explicit [k, n]: the k-th of n contiguous blocks,
-``shard_offset`` its first global index (``tasks/export.py`` starts its
-image cursor there). ``shard: auto`` needs a process group, which the
-port does not have yet (ROADMAP Queue 1 item 6), and raises.
+``shard`` splits the images into contiguous blocks for a multi-process
+export: ``auto`` takes this process's block (its rank of the process
+group, ``parallel.distributed``; the whole set without a group), an
+explicit [k, n] the k-th of n. ``shard_offset`` is the block's first
+global index (``tasks/export.py`` starts its image cursor there).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from spnerf_tpu_torch.data.imread import read_gray
 from spnerf_tpu_torch.data.photometric import PhotometricAug
 from spnerf_tpu_torch.data.preprocessing import ratio_preserving_resize
 from spnerf_tpu_torch.data.rng import ThreadLocalRNG, stable_seed
+from spnerf_tpu_torch.parallel.distributed import process_count, process_index
 
 
 MAX_KPTS = 1024
@@ -64,19 +66,16 @@ class COCO:
         truncate = self.config.get("truncate")
         if truncate:
             image_paths = image_paths[: int(truncate * len(image_paths))]
-        # export sharding by an explicit [k, n]: contiguous blocks (not
-        # strides) keep every image's global dataset index, and so its
-        # homographies, those of the unsharded enumeration
+        # export sharding: contiguous blocks (not strides) keep every
+        # image's global dataset index, and so its homographies, those of
+        # the unsharded enumeration
         self.shard_offset = 0
         shard = self.config.get("shard")
         if shard:
             if shard == "auto":
-                raise NotImplementedError(
-                    "COCO: shard: auto needs a process group, which the port "
-                    "does not have yet (ROADMAP Queue 1 item 6, "
-                    "parallel/mesh.py and parallel/distributed.py); give an "
-                    "explicit [k, n]")
-            k, n = int(shard[0]), int(shard[1])
+                k, n = process_index(), process_count()
+            else:
+                k, n = int(shard[0]), int(shard[1])
             if not 0 <= k < n:
                 raise ValueError(f"bad shard {shard}")
             starts = [round(i * len(image_paths) / n) for i in range(n + 1)]

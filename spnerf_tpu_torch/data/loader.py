@@ -10,6 +10,7 @@ does (``data.num_workers``). Iterating returns a generator: its
 
 from __future__ import annotations
 
+import copy
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -51,6 +52,15 @@ class DataLoader:
         self.prefetch = prefetch
         self.infinite = infinite
         self.num_workers = num_workers
+        self.shard_of = (0, 1)
+
+    def shard(self, index: int, count: int) -> "DataLoader":
+        """A copy that loads only the ``index``-th of ``count`` equal,
+        contiguous parts of each batch: a data-parallel rank's rows. The
+        batches' indices stay those of this loader."""
+        out = copy.copy(self)
+        out.shard_of = (index, count)
+        return out
 
     def __len__(self):
         n = len(self.dataset)
@@ -71,6 +81,13 @@ class DataLoader:
                 return
 
     def _load(self, batch_idx) -> dict:
+        index, count = self.shard_of
+        if len(batch_idx) % count:
+            raise ValueError(f"a batch of {len(batch_idx)} does not split "
+                             f"into {count} parts")
+        per = len(batch_idx) // count
+        batch_idx = batch_idx[index * per:(index + 1) * per]
+
         def sample(i):
             return self.dataset[int(i)]
 

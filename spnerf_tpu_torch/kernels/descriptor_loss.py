@@ -59,6 +59,7 @@ import struct
 import torch
 
 from spnerf_tpu_torch.kernels import _build
+from spnerf_tpu_torch.parallel import mesh as dp
 from spnerf_tpu_torch.train.losses import _cell_mask, cell_grid_coords
 
 _MAX_C = 256  # csrc/descriptor_loss.cu kCMax: the tiles' shared memory
@@ -267,7 +268,7 @@ def descriptor_loss_blockwise(desc_raw, warped_desc_raw, warped_cells, config,
     s_pair, s_pos, s_neg = descriptor_hinge_sums(
         A, Bm, warped_cells, cells, mask, float(cfg.lambda_d),
         float(cfg.positive_margin), float(cfg.negative_margin), float(g))
-    normalization = mask.sum() * N
+    normalization = dp.batch_sum(mask.sum()) * N
     loss = cfg.lambda_loss * s_pair.sum() / normalization
     pos = (s_pos.sum() / normalization).detach()
     neg = (s_neg.sum() / normalization).detach()

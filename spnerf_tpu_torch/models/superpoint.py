@@ -20,6 +20,7 @@ from spnerf_tpu_torch.device import resolve_device
 from spnerf_tpu_torch.ops.detector_decode import decode_detector_logits
 from spnerf_tpu_torch.ops.nms import box_nms
 from spnerf_tpu_torch.ops.upsample import upsample_bicubic
+from spnerf_tpu_torch.parallel.mesh import active_mesh, psum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,13 +61,22 @@ class BatchNorm(nn.BatchNorm2d):
     E[x^2] - E[x]^2 clamped at 0, and the running variance takes that
     biased variance (``nn.BatchNorm2d`` would take the unbiased one, n /
     (n - 1) times larger). The running statistics are updated in place, once
-    per training forward. The eval forward is ``nn.BatchNorm2d``'s."""
+    per training forward. The eval forward is ``nn.BatchNorm2d``'s.
+
+    Inside a data-parallel step (``parallel.mesh.data_parallel``) the sums
+    of x and x^2 are taken over the global batch, every rank holding an
+    equal share of it, as flax's under a sharded jit: the running
+    statistics then agree on every rank."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        mesh = active_mesh()
+        count = x.numel() // x.shape[1] * (1 if mesh is None else mesh.size)
+        sums = psum(torch.stack([x.sum(dim=(0, 2, 3)),
+                                 (x * x).sum(dim=(0, 2, 3))]), mesh)
+        mean, mean_sq = sums[0] / count, sums[1] / count
+        var = torch.clamp_min(mean_sq - mean * mean, 0.0)
         with torch.no_grad():
             keep = 1.0 - self.momentum
             self.running_mean.mul_(keep).add_(self.momentum * mean)

@@ -30,6 +30,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from spnerf_tpu_torch.parallel.mesh import Mesh, global_rows
+
 PRIMITIVES = (
     "random_brightness",
     "random_contrast",
@@ -295,10 +297,18 @@ def photometric_from_draws(images: torch.Tensor, draws: dict,
 
 def photometric_augment(gen: torch.Generator, images: torch.Tensor,
                         cfg: PhotometricDeviceConfig,
-                        field_gen: torch.Generator | None = None):
-    """``photometric_from_draws`` on fresh draws."""
+                        field_gen: torch.Generator | None = None,
+                        mesh: Mesh | None = None):
+    """``photometric_from_draws`` on fresh draws; with a ``mesh``
+    (``images`` being this rank's rows of the global batch) the draws are
+    made for the global batch and cut to those rows."""
     if not cfg.primitives:
         return images
     B, H, W, _ = images.shape
-    draws = draw_photometric_randoms(gen, B, H, W, cfg, field_gen)
+    n, rows = global_rows(B, mesh)
+    draws = draw_photometric_randoms(gen, n, H, W, cfg, field_gen)
+    if mesh is not None:
+        draws = {k: ({f: t[rows] for f, t in v.items()}
+                     if isinstance(v, dict) else v)
+                 for k, v in draws.items()}
     return photometric_from_draws(images, draws, cfg)

@@ -14,6 +14,10 @@ overlaps the host's file writes of batch i-1 with the card's work on
 batch i: batch i-1's points are copied into pinned host buffers without
 blocking and an event is recorded right after, and the host waits on
 that event, not on the stream (which by then holds batch i as well).
+
+With a ``mesh`` (``parallel.mesh.make_mesh``) every rank reads the same
+batches and adapts its contiguous rows of each, padded to a multiple of
+the ranks; the files equal the single-process export's byte for byte.
 """
 
 from __future__ import annotations
@@ -38,6 +42,13 @@ from spnerf_tpu_torch.ops.homography_adaptation import (
 )
 from spnerf_tpu_torch.ops.nms import box_nms
 from spnerf_tpu_torch.ops.serving import ServingSuperPoint
+from spnerf_tpu_torch.parallel.mesh import (
+    Mesh,
+    barrier,
+    broadcast,
+    make_mesh,
+    replicate,
+)
 from spnerf_tpu_torch.settings import EXPER_PATH
 
 
@@ -86,7 +97,7 @@ def make_prob_fn(model: SuperPoint, fast: bool = False, serving=None):
 def export_pseudo_labels(config: dict, model: SuperPoint, loader,
                          split: str = "training", enable_ha: bool = True,
                          seed: int = 0, fast: bool = True,
-                         device="cuda") -> Path:
+                         device="cuda", mesh: Mesh | None = None) -> Path:
     """Write one keypoint file per image of ``loader`` (an iterable of
     {"image": (B, H, W, 1) float in [0, 1], "name": [...]} batches).
 
@@ -98,7 +109,16 @@ def export_pseudo_labels(config: dict, model: SuperPoint, loader,
     bf16 heads; topk_cap, default 4096). Image i of the dataset
     draws its views from (seed, i), counted from the loader dataset's
     ``shard_offset`` if it has one: the labels depend on neither batch
-    size, padding nor resumes.
+    size, padding, sharding nor resumes.
+
+    ``mesh`` shards each batch over its ranks, as the reference's mesh
+    does: the batch pads (repeating its last image) to a multiple of the
+    ranks, at least ``batch_size`` rounded up to one, each rank adapts
+    its contiguous rows of it and writes its real ones, and the call
+    returns when every rank has written. Under a process group of more
+    than one rank the int8 serving graph is calibrated on rank 0's first
+    batch, so that ranks that read different shards of the data
+    (``data.shard: auto``) label as one process does.
     """
     device = resolve_device(device)
     exper = config["data"]["experiment_name"]
@@ -115,6 +135,9 @@ def export_pseudo_labels(config: dict, model: SuperPoint, loader,
     k_cap = top_k if top_k > 0 else int(exp_cfg.get("topk_cap", 4096))
 
     model = model.to(device).eval()
+    n_shard = 1 if mesh is None else mesh.size
+    if mesh is not None:
+        replicate(model, mesh)
     serving = None
     serving_mode = exp_cfg.get("serving", False)
     if serving_mode:
@@ -126,10 +149,11 @@ def export_pseudo_labels(config: dict, model: SuperPoint, loader,
         if hasattr(cal_it, "close"):
             cal_it.close()
         calib = torch.from_numpy(np.asarray(first["image"])[:8]).to(device)
+        calib = broadcast(calib, make_mesh() if mesh is None else mesh)
         serving = ServingSuperPoint.build(model.config, model, calib,
                                           mode=mode, device=device)
     prob_fn = make_prob_fn(model, fast=fast, serving=serving)
-    b_fixed = int(config["data"].get("batch_size", 1))
+    b_fixed = -(-int(config["data"].get("batch_size", 1)) // n_shard) * n_shard
 
     def ha_points(image_u8, homs):
         """uint8 batch -> (scores, ys, xs), each (B, k) on the device."""
@@ -179,12 +203,20 @@ def export_pseudo_labels(config: dict, model: SuperPoint, loader,
                                       ha_cfg.num - 1, img.shape[1:3],
                                       ha_cfg.params)
         image_u8 = np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8)
-        pad = max(b_fixed, n_real) - n_real
+        pad = max(b_fixed, -(-n_real // n_shard) * n_shard) - n_real
         if pad:  # padded rows are dropped on flush
             image_u8 = np.concatenate(
                 [image_u8, np.repeat(image_u8[-1:], pad, axis=0)])
             if homs is not None:
                 homs = torch.cat([homs, homs[-1:].expand(pad, -1, -1, -1)])
+        if mesh is not None:  # this rank's rows, renumbered from 0
+            rows = mesh.rows(n_real + pad)
+            image_u8 = image_u8[rows]
+            homs = None if homs is None else homs[rows]
+            todo = [(i - rows.start, n) for i, n in todo
+                    if rows.start <= i < rows.stop]
+            if not todo:
+                continue
         res = ha_points(to_device(image_u8),
                         None if homs is None else to_device(homs))
         done = None
@@ -201,6 +233,8 @@ def export_pseudo_labels(config: dict, model: SuperPoint, loader,
         pending = (todo, res, done)
     if pending is not None:
         flush(pending)
+    if mesh is not None:
+        barrier(mesh)
     return out_dir
 
 

@@ -5,8 +5,13 @@ of host batches {"image": (B, H, W, 1) float in [0, 1], "kpts": (B, N, 2),
 "kpts_mask": (B, N)} (NeRF pairs add the second view, its depth and the
 cameras: ``data.nerf_dataset.NeRFDataset``); the step does augmentation,
 forwards, losses and the update on the device, the loop checkpoints
-(optimizer state included), validates and logs. One device; a seeded
-model where the config names no ``pretrained`` checkpoint.
+(optimizer state included), validates and logs. A seeded model where the
+config names no ``pretrained`` checkpoint.
+
+Under a process group (``parallel.distributed``) training is data
+parallel, as the reference's mesh is: rank 0's model is replicated, each
+rank loads and steps on its contiguous rows of every global batch, and
+only rank 0 writes checkpoints, metrics and traces.
 """
 
 from __future__ import annotations
@@ -20,10 +25,12 @@ import numpy as np
 import torch
 
 from spnerf_tpu_torch import settings
+from spnerf_tpu_torch.data.loader import DataLoader
 from spnerf_tpu_torch.device import resolve_device
 from spnerf_tpu_torch.geometry.homography import HomographyConfig
 from spnerf_tpu_torch.models.superpoint import SuperPointConfig, init_superpoint
 from spnerf_tpu_torch.ops.photometric_device import PhotometricDeviceConfig
+from spnerf_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch
 from spnerf_tpu_torch.tools.import_jax_weights import flax_checkpoint_to_torch
 from spnerf_tpu_torch.train.loop import (
     StepConfig,
@@ -40,7 +47,7 @@ from spnerf_tpu_torch.train.loop import (
 )
 from spnerf_tpu_torch.train.losses import DescriptorLossConfig
 from spnerf_tpu_torch.utils.factories import get_loaders
-from spnerf_tpu_torch.utils.logging import MetricWriter
+from spnerf_tpu_torch.utils.logging import MetricWriter, NullWriter
 from spnerf_tpu_torch.utils.profiling import StepTimer, trace_if
 
 
@@ -126,14 +133,23 @@ def train(config: dict, loader=None, val_loader=None,
     ``profile: {enable, logdir, start, num_steps}`` in the config traces
     steps ``start`` to ``start + num_steps - 1`` with ``torch.profiler``
     into ``logdir`` (default CKPT_PATH/<ckpt_name>/trace), a Chrome
-    trace; outside that window a step does the same work."""
+    trace; outside that window a step does the same work.
+
+    Under a process group the ranks train one model on the global batches
+    of ``loader`` (each batch's size a multiple of the ranks): each rank
+    takes its rows of every batch (a ``DataLoader`` loads only those),
+    the step sums over the ranks (``train.loop.train_step``), validation
+    runs on every rank on the whole of ``val_loader``, and rank 0 alone
+    writes."""
     device = resolve_device(device)
+    mesh = make_mesh()
     if loader is None:
         loaders = get_loaders(config, "train", nerf_train=train_nerf)
         loader, val_loader = loaders["train"], loaders["validation"]
     model = init_superpoint(seed, SuperPointConfig.from_dict(config["model"]),
                             device=device)
     iteration = restore_pretrained(config, model)
+    replicate(model, mesh)
     state = create_train_state(model, config["train"]["learning_rate"])
     state.iteration = iteration
 
@@ -141,7 +157,9 @@ def train(config: dict, loader=None, val_loader=None,
                                  nerf_desc=nerf_loss)
     gens = StepGenerators(seed, device)
     ckpt_name = config["ckpt_name"]
-    writer = MetricWriter(Path(settings.CKPT_PATH, ckpt_name, "logs"))
+    lead = mesh.rank == 0
+    writer = (MetricWriter(Path(settings.CKPT_PATH, ckpt_name, "logs"))
+              if lead else NullWriter())
     num_iters = config["train"]["num_iters"]
     interval = config.get("save_or_validation_interval", 1000)
     log_every = int(config.get("log_every", 50))
@@ -153,12 +171,12 @@ def train(config: dict, loader=None, val_loader=None,
                             str(Path(settings.CKPT_PATH, ckpt_name, "trace")))
 
     if train_nerf:
-        streams = [iter_forever(scene) for scene in loader]
+        streams = [iter_forever(rank_rows(scene, mesh)) for scene in loader]
         scenes = itertools.cycle(streams)
         get_batch = lambda: next(next(scenes))  # noqa: E731
         val_loader = val_loader[0] if val_loader else None
     else:
-        streams = [iter_forever(loader)]
+        streams = [iter_forever(rank_rows(loader, mesh))]
         get_batch = lambda: next(streams[0])  # noqa: E731
     batches = device_prefetch(get_batch, device)
     running = []
@@ -167,12 +185,13 @@ def train(config: dict, loader=None, val_loader=None,
     trace = contextlib.ExitStack()
     try:
         while it < num_iters:
-            if profile.get("enable"):
+            if profile.get("enable") and lead:
                 if it == trace_start:
                     trace.enter_context(trace_if(True, trace_dir))
                 if it == trace_stop:
                     trace.close()
-            metrics = train_step(state, next(batches), step_cfg, gens)
+            metrics = train_step(state, next(batches), step_cfg, gens,
+                                 mesh)
             it = state.iteration
             # metrics are read only now and then: a float() every step
             # would make the host wait for the device every step
@@ -202,7 +221,8 @@ def train(config: dict, loader=None, val_loader=None,
                     writer.scalars({k: float(np.mean(v))
                                     for k, v in vals.items()}, it,
                                    prefix="val/")
-                save_checkpoint(ckpt_name, state, it)
+                if lead:
+                    save_checkpoint(ckpt_name, state, it)
                 writer.flush()
                 timer.restart()
     finally:
@@ -217,6 +237,28 @@ def train(config: dict, loader=None, val_loader=None,
 def iter_forever(loader):
     while True:
         yield from loader
+
+
+class _RankRows:
+    """An iterable of this rank's rows of each batch of ``loader``."""
+
+    def __init__(self, loader, mesh):
+        self.loader, self.mesh = loader, mesh
+
+    def __iter__(self):
+        for batch in self.loader:
+            yield shard_batch(batch, self.mesh)
+
+
+def rank_rows(loader, mesh):
+    """``loader`` as this rank of ``mesh`` takes it: its rows of every
+    batch; a ``DataLoader`` is cut before it loads, so that a rank reads
+    and decodes its own samples only."""
+    if mesh.size == 1:
+        return loader
+    if isinstance(loader, DataLoader):
+        return loader.shard(mesh.rank, mesh.size)
+    return _RankRows(loader, mesh)
 
 
 def device_prefetch(get_batch, device, depth: int = 2):

@@ -24,7 +24,9 @@ a resumed run repeats them. Order within a training step:
 3. the detector losses' tie-break noise from the device generator: the
    raw view's, then the warped view's.
 
-A validation step draws 2 and 3 only.
+A validation step draws 2 and 3 only. In a data-parallel step each draw
+is made for the global batch and cut to the rank's rows
+(``parallel.mesh.global_rows``).
 """
 
 from __future__ import annotations
@@ -49,6 +51,13 @@ from spnerf_tpu_torch.ops.detector_decode import decode_detector_logits
 from spnerf_tpu_torch.ops.photometric_device import (
     PhotometricDeviceConfig,
     photometric_augment,
+)
+from spnerf_tpu_torch.parallel.mesh import (
+    Mesh,
+    data_parallel,
+    global_rows,
+    sum_gradients,
+    sum_metrics,
 )
 from spnerf_tpu_torch.train import flax_msgpack
 from spnerf_tpu_torch.train.losses import (
@@ -210,15 +219,27 @@ class StepConfig:
     det_thresh: float = 0.015
 
 
-def _noise(gens: StepGenerators, image: torch.Tensor, grid_size: int):
+def _float32_convs():
+    """cuDNN's convolutions in float32 (its default takes TF32)."""
+    return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
+
+
+def _noise(gens: StepGenerators, image: torch.Tensor, grid_size: int,
+           mesh: Mesh | None = None):
+    """Tie-break noise for ``image``: with a ``mesh``, drawn for the
+    global batch and cut to this rank's rows."""
     B, H, W, _ = image.shape
-    return detector_noise(gens.device, (B, H // grid_size, W // grid_size,
-                                        grid_size ** 2 + 1))
+    n, rows = global_rows(B, mesh)
+    return detector_noise(gens.device, (n, H // grid_size, W // grid_size,
+                                        grid_size ** 2 + 1))[rows]
 
 
-def _prepare(batch: dict, cfg: StepConfig, gens: StepGenerators) -> dict:
+def _prepare(batch: dict, cfg: StepConfig, gens: StepGenerators,
+             mesh: Mesh | None = None) -> dict:
     """The step's data from a device batch: heatmaps, and the homographic
-    augmentation or warped pair where the batch has keypoints."""
+    augmentation or warped pair where the batch has keypoints (with a
+    ``mesh``, homographies drawn for the global batch, cut to this rank's
+    rows)."""
     if cfg.nerf_desc and "depth" in batch:
         return prepare_nerf_batch(batch)
     if "kpts" not in batch:
@@ -226,7 +247,8 @@ def _prepare(batch: dict, cfg: StepConfig, gens: StepGenerators) -> dict:
     B, H, W, _ = batch["image"].shape
     homs = None
     if cfg.aug is not None:
-        homs = sample_homographies(gens.cpu, B, (H, W), cfg.aug)
+        n, rows = global_rows(B, mesh)
+        homs = sample_homographies(gens.cpu, n, (H, W), cfg.aug)[rows]
     if not cfg.pair:
         return prepare_detector_batch(homs, batch, cfg.erosion)
     if homs is None:
@@ -234,53 +256,73 @@ def _prepare(batch: dict, cfg: StepConfig, gens: StepGenerators) -> dict:
     return prepare_superpoint_batch(homs, batch, cfg.erosion)
 
 
-def _losses(state: TrainState, data: dict, cfg: StepConfig,
-            gens: StepGenerators, train: bool):
+def _step_noise(data: dict, cfg: StepConfig, gens: StepGenerators,
+                mesh: Mesh | None = None):
+    """The detector losses' tie-break noise of a prepared batch: the
+    (raw, warped) pair for a pair step, else one tensor."""
     if cfg.pair:
-        noise = (_noise(gens, data["raw"]["image"], cfg.grid_size),
-                 _noise(gens, data["warp"]["image"], cfg.grid_size))
+        return (_noise(gens, data["raw"]["image"], cfg.grid_size, mesh),
+                _noise(gens, data["warp"]["image"], cfg.grid_size, mesh))
+    return _noise(gens, data["image"], cfg.grid_size, mesh)
+
+
+def _losses(state: TrainState, data: dict, cfg: StepConfig, noise,
+            train: bool):
+    if cfg.pair:
         return superpoint_loss_fn(
             state.model, data, noise, cfg.grid_size, cfg.include_mask,
             cfg.desc_cfg, cfg.nerf_desc, train, cfg.blockwise_desc)
-    noise = _noise(gens, data["image"], cfg.grid_size)
     return magicpoint_loss_fn(state.model, data, noise, cfg.grid_size,
                               cfg.include_mask, train)
 
 
 def train_step(state: TrainState, batch: dict, cfg: StepConfig,
-               gens: StepGenerators) -> dict:
+               gens: StepGenerators, mesh: Mesh | None = None) -> dict:
     """One optimizer step on a device batch {"image", "kpts",
     "kpts_mask"}; updates ``state`` in place and returns the metrics as
     tensors on the device (no host synchronisation). Convolutions run in
-    float32 (cuDNN's TF32 off)."""
+    float32 (cuDNN's TF32 off), the augmentation's too.
+
+    With a ``mesh`` (``parallel.mesh.make_mesh``) the batch is this rank's
+    contiguous rows of the global batch: every draw is made for the global
+    batch and cut to those rows, so that a rank sees exactly the rows a
+    single-process step sees, and ``apply_step`` sums over the ranks."""
     gens.reseed(0, state.iteration)
-    with torch.no_grad():
+    with torch.no_grad(), _float32_convs():
         if cfg.photometric is not None:
             batch = dict(batch)
             base = batch["image"]
-            batch["image"] = photometric_augment(
-                gens.cpu, base, cfg.photometric, gens.device)
+            augment = lambda images: photometric_augment(  # noqa: E731
+                gens.cpu, images, cfg.photometric, gens.device, mesh)
+            batch["image"] = augment(base)
             if cfg.nerf_desc and "depth" in batch:
                 # a NeRF pair is two real views: independent draws on each
-                batch["image_warp"] = photometric_augment(
-                    gens.cpu, batch["image_warp"], cfg.photometric,
-                    gens.device)
+                batch["image_warp"] = augment(batch["image_warp"])
             elif cfg.pair:
                 # the to-be-warped view: independent draws on the same
                 # base image
-                batch["image_warp_src"] = photometric_augment(
-                    gens.cpu, base, cfg.photometric, gens.device)
-        data = _prepare(batch, cfg, gens)
+                batch["image_warp_src"] = augment(base)
+        data = _prepare(batch, cfg, gens, mesh)
+    return apply_step(state, data, _step_noise(data, cfg, gens, mesh), cfg,
+                      mesh)
 
+
+def apply_step(state: TrainState, data: dict, noise, cfg: StepConfig,
+               mesh: Mesh | None = None) -> dict:
+    """The losses of a prepared batch, the backward and Adam; with a
+    ``mesh``, BatchNorm and the losses' normalisers take the global batch,
+    and the gradients (before Adam) and the metrics are summed over the
+    ranks."""
     state.optimizer.zero_grad(set_to_none=True)
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        loss, metrics = _losses(state, data, cfg, gens, train=True)
+    with data_parallel(mesh), _float32_convs():
+        loss, metrics = _losses(state, data, cfg, noise, train=True)
         loss.backward()
+    sum_gradients(state.model.parameters(), mesh)
     state.optimizer.step()
     state.iteration += 1
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["loss"] = loss.detach()
-    return metrics
+    return sum_metrics(metrics, mesh)
 
 
 @torch.no_grad()
@@ -290,9 +332,10 @@ def eval_step(state: TrainState, batch: dict, cfg: StepConfig,
     precision / recall of the thresholded heatmap. ``index`` numbers the
     batch within its validation pass (it seeds the draws)."""
     gens.reseed(1, state.iteration, index)
-    data = _prepare(batch, cfg, gens)
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        loss, metrics = _losses(state, data, cfg, gens, train=False)
+    with _float32_convs():
+        data = _prepare(batch, cfg, gens)
+        noise = _step_noise(data, cfg, gens)
+        loss, metrics = _losses(state, data, cfg, noise, train=False)
         view = data["raw"] if cfg.pair else data
         out = state.model(view["image"])
     prob = decode_detector_logits(out["logits"], cfg.grid_size)

@@ -4,6 +4,11 @@ the dense path is one batched (N, C) x (C, N) matmul; the warped cells
 come from a homography or, for NeRF pairs, a depth reprojection. The
 blockwise ``normalise_descriptors=False`` loss is the CUDA kernel of
 ``kernels/descriptor_loss.py``.
+
+Every loss is a sum over the batch divided by a normaliser (the batch
+size, the sum of the cell mask); inside a data-parallel step the
+normaliser is that of the global batch (``parallel.mesh.batch_sum``), so
+that each rank's loss is its share of the global loss.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 from spnerf_tpu_torch.geometry.homography import warp_points
 from spnerf_tpu_torch.geometry.reprojection import warp_points_nerf
 from spnerf_tpu_torch.ops.space_ops import space_to_depth
+from spnerf_tpu_torch.parallel import mesh as dp
 
 
 def _cell_mask(valid_mask: torch.Tensor, grid_size: int) -> torch.Tensor:
@@ -57,7 +63,7 @@ def detector_loss(noise: torch.Tensor, logits: torch.Tensor,
     picked = torch.take_along_dim(logits, label_idx[..., None], dim=-1)[..., 0]
     ce = logz - picked
     per_image = (ce * mask).sum(dim=(1, 2)) / (mask.sum(dim=(1, 2)) + 1e-10)
-    return per_image.mean()
+    return per_image.sum() / dp.batch_sum(per_image.new_tensor(float(B)))
 
 
 def detector_noise(gen: torch.Generator, logits_shape) -> torch.Tensor:
@@ -135,7 +141,7 @@ def descriptor_loss_from_cells(desc_raw, warped_desc_raw, warped_cells,
     else:
         mask = _cell_mask(valid_mask, g).reshape(B, 1, N)
 
-    normalization = mask.sum() * N
+    normalization = dp.batch_sum(mask.sum()) * N
     loss = cfg.lambda_loss * (mask * pairwise).sum() / normalization
     pos_summary = (mask * cfg.lambda_d * s * positive).sum() / normalization
     neg_summary = (mask * (1.0 - s) * negative).sum() / normalization
@@ -231,7 +237,7 @@ def descriptor_loss_normalised_blockwise(desc_raw, warped_desc_raw,
     for t in tiles:
         sums = sums + checkpoint(pass2, A[:, t], Bm, c, warped_cells[:, t],
                                  use_reentrant=False)
-    normalization = mask_m.sum() * N
+    normalization = dp.batch_sum(mask_m.sum()) * N
     loss = cfg.lambda_loss * sums[0] / normalization
     return (loss, (sums[1] / normalization).detach(),
             (sums[2] / normalization).detach())

@@ -32,3 +32,20 @@ class MetricWriter:
     def close(self):
         self.flush()
         self._jsonl.close()
+
+
+class NullWriter:
+    """A ``MetricWriter`` that writes nothing: a data-parallel rank other
+    than 0."""
+
+    def scalar(self, tag: str, value, step: int):
+        pass
+
+    def scalars(self, metrics: dict, step: int, prefix: str = ""):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass

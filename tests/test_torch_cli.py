@@ -311,13 +311,22 @@ def test_unported_dataset_raises_before_weights(bootstrap, step):
 
 
 def test_coco_shard_auto_raises_naming_the_queue_item(bootstrap):
-    root, _ = bootstrap
-    argv = ["--config-path", str(ROOT / "spnerf_tpu_torch/configs"
-                                 / "magicpoint_coco_export.yaml"),
-            "--task", "export_pseudo_labels", "--device", "cpu",
-            "--set", "data.shard=auto"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tcli.main(argv + _sets(BOOT_NARROW))
+    """``data.shard: auto`` raised until the port had process groups; now
+    it takes this process's block, and without a group (a one-process
+    run) that is every image: the bootstrap's export again, file for
+    file."""
+    root, results = bootstrap
+    task, config, cuts = BOOT_STEPS[1]
+    argv = ["--config-path", str(ROOT / "spnerf_tpu_torch/configs" / config),
+            "--task", task, "--device", "cpu", "--set", "data.shard=auto",
+            "--set", "data.experiment_name=shard_auto"]
+    out_dir = tcli.main(argv + _sets(BOOT_NARROW, cuts))
+    want = sorted(results[1][0].glob("*.npy"))
+    assert len(want) == 4
+    assert [p.name for p in sorted(out_dir.glob("*.npy"))] == \
+        [p.name for p in want]
+    for f in want:
+        assert (out_dir / f.name).read_bytes() == f.read_bytes()
 
 
 def test_parser_takes_the_references_options_and_device():

@@ -4,8 +4,8 @@ committed JPEG fixtures under distinct names, at 120 x 160: export mode,
 labels, ``warped_pair``, ``truncate`` and an explicit shard give equal
 samples; with host photometric augmentation the images lie within
 ``test_torch_photometric_host.CHAIN_TOL`` (on the 0-255 scale) and the
-names, keypoints and masks are equal. ``shard: auto`` raises naming the
-queue item."""
+names, keypoints and masks are equal. ``shard: auto`` without a process
+group is the whole set, as the JAX package's is in one process."""
 
 import shutil
 
@@ -129,8 +129,14 @@ def test_truncate_and_shard(roots):
 
 
 def test_shard_auto_raises(roots):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tcoco.COCO(_config(shard="auto"), "training")
+    """``shard: auto`` raised until the port had process groups; without
+    one it is now the one process's block, every image."""
+    config = _config(shard="auto")
+    got, want = tcoco.COCO(config, "training"), jcoco.COCO(config,
+                                                           "training")
+    assert got.shard_offset == want.shard_offset == 0
+    assert len(got) == len(tcoco.COCO(_config(), "training"))
+    _assert_equal_samples(got, want)
 
 
 def test_factory_builds_coco(roots):

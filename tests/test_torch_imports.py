@@ -19,7 +19,9 @@ for name in ("kernels.desc_sample", "eval.pose", "eval.essential",
              "eval.cv_rng", "ops.quantization", "data.coco", "data.jpeg",
              "data.synthetic_shapes", "data.synthetic_draw",
              "data.photometric", "data.cv_draw", "data.cv_filter",
-             "data.imread", "data.loader", "data.pnm", "tools.smoke_data"):
+             "data.imread", "data.loader", "data.pnm", "tools.smoke_data",
+             "parallel", "parallel.mesh", "parallel.distributed",
+             "tools.smoke_dist"):
     assert "spnerf_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)

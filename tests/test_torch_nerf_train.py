@@ -312,12 +312,14 @@ def test_nerf_train_step_augments_each_view_as_jax(monkeypatch):
         for k in jax.random.split(k_loss)]
     bases = []
 
-    def fed_draws(gen, images, cfg, device_gen):
+    def fed_draws(gen, images, cfg, device_gen, mesh):
+        assert mesh is None
         bases.append(images)
         return tp.photometric_from_draws(images, draws[len(bases) - 1], cfg)
 
     monkeypatch.setattr(tloop, "photometric_augment", fed_draws)
-    monkeypatch.setattr(tloop, "_noise", lambda gens, image, grid: noise.pop(0))
+    monkeypatch.setattr(tloop, "_noise",
+                        lambda gens, image, grid, mesh: noise.pop(0))
 
     jcfg_step = jloop.StepConfig(model=model, grid_size=G, include_mask=True,
                                  desc_cfg=jdesc, nerf_desc=True, pair=True,
