@@ -212,6 +212,16 @@ Phases, each of which raises on failure (nothing is caught):
    indices equal. The kernel rows carry these launches as
    ``coco_export_launches`` (rows 1-4, 9) and ``coco_train_launches``
    (rows 10-11);
+11f. ``[demo]``: the repo's end-to-end experiment, ``demo/run_demo.sh``'s
+   default chain through ``spnerf_tpu_torch.demo.run`` on the card, in a
+   child process (``spnerf_tpu_torch/tools/smoke_demo.py``, whose
+   docstring has the cuts): every leg in order, its seconds and
+   launches; the fabricated files equal to
+   ``spnerf_tpu_torch/demo/digests.json``; the
+   warp (row 9) launched in ``ctl_export``, rows 10-11 in ``nerf_sp`` and
+   ``ctl_sp``; the bf16 NeRF step's and frame's ms, both arms' pose AUC
+   and the HPatches rows printed. The kernel rows carry the launches as
+   ``demo_launches`` ({leg: count});
 12. render the committed tiny NeRF sphere fields
    (``benchmarks/data/sphere_field*.npz``, bf16 weights) as
    ``bench_nerf.py`` does: 131,072 rays of an orbit camera (362 x 362
@@ -369,7 +379,8 @@ from spnerf_tpu_torch.tasks.nerf_task import (
     train_nerf_scene,
     write_scene,
 )
-from spnerf_tpu_torch.tools import process_scene, smoke_data, smoke_dist
+from spnerf_tpu_torch.tools import (process_scene, smoke_data, smoke_demo,
+                                    smoke_dist)
 from spnerf_tpu_torch.tools.smoke_data import (
     check_labels,
     cut as _cut,
@@ -522,9 +533,10 @@ HP_CONFIGS = {
 # cuts: the repository's only checkpoint (a MagicPoint the JAX package
 # trained, under demo/) in place of both configs' own, and synthetic
 # pairs; the dense 480 x 640 x 256 float32 descriptors make each bundle
-# 629 MB that np.savez_compressed writes on one host core
+# 629 MB that np.savez_compressed writes on one host core (~35 s a pair),
+# so one descriptor pair, to leave the script's time to [demo]
 HP_CUTS = {"pretrained": "pretrained/demo_mp_5000.ckpt"}
-HP_PAIRS = {"repeatability": 16, "descriptors": 2}
+HP_PAIRS = {"repeatability": 16, "descriptors": 1}
 HP_HOMOGRAPHY = EXPORT_CONFIG["homography_adaptation"]["params"]
 # card against CPU, float32 with TF32 off: sums in other orders
 HP_SMALL_TOL = 1e-5
@@ -2733,8 +2745,9 @@ def phase_nerf_small():
 # samples, float32; trained on box-room scene 0 ([nerf-export]'s
 # BoxRoomA): its 16 training frames at 480 x 640, gray replicated to RGB,
 # K from fov 44, near and far around the room's analytic depth range.
-# Cut: as many steps as fit NERF_FIELD_SECONDS (a real scene trains 20,000)
-NERF_FIELD_SECONDS = 40.0
+# Cut: as many steps as fit NERF_FIELD_SECONDS (a real scene trains 20,000;
+# 40 s until the script's time went to [demo])
+NERF_FIELD_SECONDS = 25.0
 NERF_FIELD_BATCH = 1024
 NERF_FIELD_LR = 5e-4
 NERF_FIELD_LOG_EVERY = 100
@@ -4903,6 +4916,19 @@ def main() -> int:
         row["coco_export_launches"] = export_counts.get(row["name"], 0)
     for row in desc_rows:
         row["coco_train_launches"] = boot_counts.get(row["name"], 0)
+
+    # the demo's chain through the port, in a child: ctl_export drives row
+    # 9, nerf_sp and ctl_sp rows 10-11, each leg with the counters at 0
+    with tempfile.TemporaryDirectory() as tmp:
+        demo_counts = smoke_demo.phase_demo(Path(tmp))
+    for row in ha_rows + desc_rows:
+        row["demo_launches"] = {leg: c[row["name"]] for leg, c in
+                                demo_counts.items() if c.get(row["name"])}
+    warp_rows = [r for r in ha_rows if r["name"].startswith("warp[")]
+    if not all(r["demo_launches"] for r in desc_rows) or not any(
+            r["demo_launches"] for r in warp_rows):
+        raise AssertionError("rows 9-11 not all launched on the demo's "
+                             "chain")
 
     # the fused tiny-NeRF serving renderer: the 10 renders per variant are
     # the drive of the main path

@@ -15,6 +15,11 @@ on stderr. Arithmetic-coded, 12-bit, lossless and hierarchical files,
 RGB-coded colour, a missing restart marker (libjpeg's resync) and
 progressive files that libjpeg would block-smooth raise, naming ROADMAP
 Queue 1 item 7; so does a file cut inside its headers.
+
+Writing: ``encode_gray`` / ``write_gray`` make the bytes of
+``cv2.imencode('.jpg', img)`` / ``cv2.imwrite`` for an 8-bit gray image
+at cv2's defaults (quality 95, baseline, standard Huffman tables), by the
+port's own encoder (``native/jpeg_enc.cpp``), a copy of libjpeg-turbo's.
 """
 
 from __future__ import annotations
@@ -151,3 +156,32 @@ def read_rgb(path) -> np.ndarray:
     """``cv2.imread(path)[..., ::-1]`` of a JPEG file: (H, W, 3) R, G, B."""
     return np.ascontiguousarray(
         decode_bgr(Path(path).read_bytes(), str(path))[..., ::-1])
+
+
+def encode_gray(image: np.ndarray, quality: int = 95) -> bytes:
+    """The bytes of ``cv2.imencode('.jpg', image, [IMWRITE_JPEG_QUALITY,
+    quality])`` of an (H, W) uint8 image."""
+    image = np.ascontiguousarray(image)
+    if image.ndim != 2 or image.dtype != np.uint8 or image.size == 0:
+        raise ValueError(f"jpeg: encode_gray takes (H, W) uint8, got "
+                         f"{image.shape} {image.dtype}")
+    if max(image.shape) > 65535:
+        raise ValueError(f"jpeg: {image.shape} is past JPEG's 65535 limit")
+    lib = native.load("jpeg_enc")
+    fn = lib.jpeg_encode_gray
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+                   ctypes.c_int32, ctypes.c_void_p, ctypes.c_int64]
+    cap = 2 * image.size + 4096  # past any 8-bit gray file's size
+    out = np.empty(cap, np.uint8)
+    n = fn(image.ctypes.data, image.shape[0], image.shape[1], int(quality),
+           out.ctypes.data, cap)
+    if n < 0:
+        raise RuntimeError("jpeg: encode_gray overflowed its buffer")
+    return out[:n].tobytes()
+
+
+def write_gray(path, image: np.ndarray, quality: int = 95) -> None:
+    """``cv2.imwrite(path, image)`` of an (H, W) uint8 image to a ``.jpg``
+    path: the same bytes."""
+    Path(path).write_bytes(encode_gray(image, quality))

@@ -235,8 +235,18 @@ def train(config: dict, loader=None, val_loader=None,
 
 
 def iter_forever(loader):
+    """``loader``'s batches, pass after pass. A pass that yields nothing
+    raises (a dataset smaller than its batch, with ``drop_last``), where
+    the reference's loop would spin without end."""
     while True:
-        yield from loader
+        empty = True
+        for batch in loader:
+            empty = False
+            yield batch
+        if empty:
+            raise ValueError("the training loader yields no batch (fewer "
+                             "samples than a batch, the partial batch "
+                             "dropped)")
 
 
 class _RankRows:

@@ -16,7 +16,7 @@ JPEG reads it rests on. ``chip_smoke.py`` runs ``phase_bootstrap`` after
   scene read back by ``NeRFDataset``;
 - ``[syn-gen]``: magicpoint_syn.yaml's Synthetic Shapes at its widths
   (960 x 1280, blur 21, resize 120 x 160, nine primitives, its truncate),
-  ``split_sizes`` cut to 24 / 8 / 0: ms per sample by primitive, counts,
+  ``split_sizes`` cut to 12 / 4 / 0: ms per sample by primitive, counts,
   points, and a second pass into a fresh directory byte-identical;
 - ``[syn-train]``: 20 steps of it (batch 32, photometric and homographic
   augmentation on the card), 2 validation batches and a checkpoint, the
@@ -76,9 +76,10 @@ JPEG_REPS = 20
 SEED = 0
 HA_SHAPE = (240, 320)  # magicpoint_coco_export.yaml's resize
 SYN_CONFIG = CONFIGS / "magicpoint_syn.yaml"
-# the only cut of magicpoint_syn.yaml's data: 24 training and 8
-# validation samples per primitive (10,000 / 200 / 500 in the file)
-SYN_CUTS = {"data.generation.split_sizes": {"training": 24, "validation": 8,
+# the only cut of magicpoint_syn.yaml's data: 12 training and 4
+# validation samples per primitive (10,000 / 200 / 500 in the file; 24
+# and 8 until the script's time went to [demo])
+SYN_CUTS = {"data.generation.split_sizes": {"training": 12, "validation": 4,
                                             "test": 0}}
 BOOT_STEPS = 20
 BOOT_TRAIN_CUTS = {"train.num_iters": BOOT_STEPS,

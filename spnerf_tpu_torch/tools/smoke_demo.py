@@ -1,0 +1,227 @@
+"""The ``[demo]`` phase of ``chip_smoke.py``: the repo's end-to-end
+experiment (``demo/run_demo.sh``'s default chain) through
+``spnerf_tpu_torch.demo.run`` on the card, at a cut budget, in a child
+process of its own (``SPNERF_ROOT`` is read at import).
+
+    python -m spnerf_tpu_torch.tools.smoke_demo --root DIR [--out JSON]
+
+runs the child; ``phase_demo(root)`` starts it from ``chip_smoke.py``
+and returns its launches by leg. The chain, in order: data, mp,
+nerf_data, nerf, nerf_export, link, ctl_export, nerf_sp, ctl_sp, pose,
+eval, each leg timed by the host clock around synchronised work with the
+launch counters at 0 before it. The cuts (``CUTS``, ``ENV``): 24 COCO
+stand-ins (and 8 validation), 2 HPatches scenes, 2 NeRF scenes of 16
+fabricated views, 200 NeRF steps a scene and 16 rendered training views,
+MagicPoint resumed from ``demo/pretrained/demo_mp_5000.ckpt`` (the
+JAX package's checkpoint, read by the port's msgpack reader) for 20 steps
+over 6 + 1 Synthetic Shapes samples a primitive, and 20 steps of each
+SuperPoint arm. Widths are the configs': SuperPoint 64-64-64-64-128-128-
+128-128 with 256-wide heads, 240 x 320 images, 100 homographies in
+chunks of 10, the bf16 4 x 128 field.
+
+Checked: every leg ends without error; every file the fixture
+``spnerf_tpu_torch/demo/digests.json`` lists (the JPEG bytes, PNG pixels
+and text that ``demo/*.py`` writes at these counts) has its digest; the
+warp kernel (row 9) launches in ``ctl_export`` and the hinge kernels
+(rows 10-11) in ``nerf_sp`` and ``ctl_sp``. Printed, not gated: each
+leg's seconds and launches, the bf16 NeRF step's and frame's ms, the NeRF
+test PSNR, and the repeatability, HPatches correctness and pose AUC rows
+of both arms.
+"""
+
+from __future__ import annotations
+
+import argparse
+import faulthandler
+import hashlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+FIXTURE = ROOT / "spnerf_tpu_torch" / "demo" / "digests.json"
+DEMO_MP = ROOT / "demo" / "pretrained" / "demo_mp_5000.ckpt"
+STEPS = 20
+# the run's cuts: counts and steps, never widths
+ENV = {"SPNERF_N_COCO": "24", "SPNERF_N_HPATCHES": "2",
+       "SPNERF_N_SCENES": "2", "SPNERF_N_VIEWS": "16",
+       "SPNERF_N_TRAIN_VIEWS": "16", "SPNERF_NERF_ITERS": "200",
+       "SPNERF_MP_TARGET": str(5000 + STEPS), "SPNERF_MP_VALIDATE": "1",
+       "SPNERF_SP_TARGET": str(STEPS)}
+# 6 training samples a primitive: 39 after the config's truncation, one
+# batch of 32 (the loader drops the partial one)
+CUTS = ["mp:data.generation.split_sizes={training: 6, validation: 1, "
+        "test: 0}", "mp:train.val_batches=1", "mp:log_every=5",
+        "nerf_sp:log_every=5", "ctl_sp:log_every=5"]
+# the kernels each leg must launch (rows 9, 10 and 11)
+EXPECT = {"ctl_export": ("warp[",),
+          "nerf_sp": ("desc_loss[fwd]", "desc_loss[dA]", "desc_loss[dB]"),
+          "ctl_sp": ("desc_loss[fwd]", "desc_loss[dA]", "desc_loss[dB]")}
+TIMEOUT = 300.0  # the chain takes about 65 s on an H100
+T0 = time.perf_counter()
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def pixel_digest(shape, pixels: bytes) -> str:
+    return hashlib.sha256(f"{shape[0]}x{shape[1]}:".encode()
+                          + pixels).hexdigest()
+
+
+def digests(data_root: Path, read_png) -> dict:
+    """{path under ``data_root``: sha256} of the files the fixture holds:
+    the bytes of JPEGs, ``H_1_*`` and pose-pair files, the pixels (by
+    ``read_png``) of the fabricated scenes' PNGs."""
+    out = {}
+    for p in sorted(Path(data_root).rglob("*")):
+        rel = p.relative_to(data_root).as_posix()
+        if p.is_symlink() or not p.is_file():
+            continue
+        if p.suffix == ".png" and rel.startswith("NeRF_gt/"):
+            img = read_png(p)
+            out[rel] = pixel_digest(img.shape, img.tobytes())
+        elif p.suffix == ".jpg" or p.name.startswith("H_1_") \
+                or p.name.endswith("pose_pairs.txt"):
+            out[rel] = hashlib.sha256(p.read_bytes()).hexdigest()
+    return out
+
+
+def check_digests(data_root: Path, want: dict, done: set) -> int:
+    """Check the fixture's files that exist now and were not checked;
+    returns how many were."""
+    from spnerf_tpu_torch.data import png
+
+    got = digests(data_root, png.read_gray)
+    fresh = [k for k in want if k in got and k not in done]
+    bad = [k for k in fresh if got[k] != want[k]]
+    if bad:
+        raise AssertionError(f"[demo] {len(bad)} fabricated files differ from "
+                             f"digests.json: {bad[:5]}")
+    done.update(fresh)
+    return len(fresh)
+
+
+def child(out: Path) -> None:
+    import torch
+
+    from spnerf_tpu_torch import settings
+    from spnerf_tpu_torch.demo import run
+    from spnerf_tpu_torch.kernels import _build
+
+    fixture = json.loads(FIXTURE.read_text())
+    counts = {"n_coco": int(ENV["SPNERF_N_COCO"]),
+              "n_hpatches": int(ENV["SPNERF_N_HPATCHES"]),
+              "n_scenes": int(ENV["SPNERF_N_SCENES"]),
+              "n_views": int(ENV["SPNERF_N_VIEWS"]),
+              "n_test_views": run.N_TEST_VIEWS}
+    if fixture["counts"] != counts:
+        raise AssertionError(f"[demo] digests.json is for {fixture['counts']}"
+                             f", this run fabricates {counts}")
+    mp = Path(settings.CKPT_PATH, "demo_mp", "demo_mp_5000.ckpt")
+    mp.parent.mkdir(parents=True, exist_ok=True)
+    shutil.copy(DEMO_MP, mp)
+    demo = run.Demo("cuda", run.parse_cuts(CUTS))
+    checked: set = set()
+    legs = {}
+    for leg in run.CHAIN:
+        log(f"[demo] {leg}: starting at {time.perf_counter() - T0:.1f} s")
+        _build.launch_counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        demo.run(leg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        n = check_digests(settings.DATA_PATH, fixture["files"], checked)
+        legs[leg] = {"seconds": secs, "launches": launches}
+        log(f"[demo] {leg}: {secs:.3f} s; launches "
+            f"{json.dumps(launches, sort_keys=True)}"
+            + (f"; {n} files equal to digests.json" if n else ""))
+        for prefix in EXPECT.get(leg, ()):
+            if not any(k.startswith(prefix) for k in launches):
+                raise AssertionError(f"[demo] {leg} launched no {prefix}")
+        torch.cuda.empty_cache()
+    if checked != set(fixture["files"]):
+        missing = sorted(set(fixture["files"]) - checked)
+        raise AssertionError(f"[demo] {len(missing)} fixture files not "
+                             f"written: {missing[:5]}")
+    summary = run.summary()
+    report = json.loads(Path(settings.DATA_PATH, "NeRF",
+                             "nerf_leg_report.json").read_text())
+    for scene, r in sorted(report.items()):
+        log(f"[demo] bf16 NeRF {scene}: {r['iters']} steps of 4096 rays at "
+            f"{r['step_ms']:.3f} ms a step (init included), {r['frames']} "
+            f"frames of 240x320 at {r['frame_ms']:.3f} ms, final loss "
+            f"{r['final_loss']:.5f}")
+    for row in summary["quality"]:
+        log(f"[demo] quality {json.dumps(row)}")
+    for row in summary["pose"]:
+        log(f"[demo] pose {row['pretrained']}: AUC@5 {row['auc5']:.2f} "
+            f"AUC@10 {row['auc10']:.2f} AUC@20 {row['auc20']:.2f} precision "
+            f"{row['precision']:.2f} matching score "
+            f"{row['matching_score']:.2f} over {row['num_pairs']} pairs")
+    log(f"[demo] NeRF test PSNR {json.dumps(summary['nerf_test_psnr'])}; "
+        f"{summary['sift']}")
+    arms = {r["pretrained"].split("/")[0] for r in summary["pose"]}
+    if arms != set(run.ARMS) or len(summary["quality"]) != 2:
+        raise AssertionError(f"[demo] pose rows of {sorted(arms)}, "
+                             f"{len(summary['quality'])} quality rows")
+    out.write_text(json.dumps({"legs": legs, "summary": summary}))
+
+
+def phase_demo(root: Path) -> dict:
+    """[demo]: the child under ``root``, its output to ``root/demo.log``
+    (its ``[demo]`` lines echoed here, its tail on a failure); returns
+    {leg: launches}."""
+    out, log_path = root / "demo.json", root / "demo.log"
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", __name__, "--root",
+                                 str(root), "--out", str(out)], cwd=ROOT,
+                                env=env, stdout=f, stderr=subprocess.STDOUT)
+        try:
+            rc = proc.wait(timeout=TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = f"killed after {TIMEOUT:.0f} s"
+    text = log_path.read_text(errors="replace")
+    for line in text.splitlines():
+        if line.startswith("[demo]"):
+            log(line)
+    if rc != 0:
+        raise AssertionError(f"[demo] the chain failed ({rc}):\n"
+                             f"{text[-6000:]}")
+    legs = json.loads(out.read_text())["legs"]
+    log(f"[demo] run_demo.sh's chain ({len(legs)} legs) in "
+        f"{time.perf_counter() - t0:.3f} s with the child's start; cuts "
+        f"{json.dumps(ENV, sort_keys=True)} {json.dumps(CUTS)}")
+    return {leg: v["launches"] for leg, v in legs.items()}
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--root", required=True)
+    p.add_argument("--out", required=True)
+    args = p.parse_args(argv)
+    # before the port's settings are imported: they read SPNERF_ROOT
+    os.environ.update(ENV, SPNERF_ROOT=str(Path(args.root) / "runs"))
+    for key in ("SPNERF_DATA_PATH", "SPNERF_CKPT_PATH", "SPNERF_EXPER_PATH"):
+        os.environ.pop(key, None)
+    # a leg that hangs leaves every thread's stack in the log
+    faulthandler.dump_traceback_later(TIMEOUT - 30, exit=True)
+    child(Path(args.out))
+
+
+if __name__ == "__main__":
+    main()

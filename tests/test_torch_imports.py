@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of ``spnerf_tpu_torch``
 and loading ``chip_smoke.py`` (without running it) loads no JAX, no flax,
 no msgpack, cv2, yaml, PIL, imageio or torchvision (the card's machine
-has none of them) and nothing of ``spnerf_tpu``. Runs in a fresh interpreter, since this
-test process has JAX loaded already."""
+has none of them) and nothing of ``spnerf_tpu`` or ``demo``. Runs in a
+fresh interpreter, since this test process has JAX loaded already."""
 
 import subprocess
 import sys
@@ -21,7 +21,10 @@ for name in ("kernels.desc_sample", "eval.pose", "eval.essential",
              "data.photometric", "data.cv_draw", "data.cv_filter",
              "data.imread", "data.loader", "data.pnm", "tools.smoke_data",
              "parallel", "parallel.mesh", "parallel.distributed",
-             "tools.smoke_dist"):
+             "tools.smoke_dist", "data.cv_warp", "demo.run",
+             "demo.standin_data", "demo.nerf_scenes", "demo.nerf_leg",
+             "demo.gt_test_views", "demo.link_corpus", "demo.nerf_test_psnr",
+             "demo.pose_stability", "tools.smoke_demo"):
     assert "spnerf_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
@@ -32,7 +35,7 @@ assert callable(smoke.main)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "cv2",
                                     "yaml", "PIL", "imageio", "torchvision",
-                                    "spnerf_tpu"))
+                                    "spnerf_tpu", "demo"))
 print(len(names), "modules;", "forbidden:", bad)
 sys.exit(1 if bad else 0)
 """
