@@ -219,9 +219,12 @@ Phases, each of which raises on failure (nothing is caught):
    launches; the fabricated files equal to
    ``spnerf_tpu_torch/demo/digests.json``; the
    warp (row 9) launched in ``ctl_export``, rows 10-11 in ``nerf_sp`` and
-   ``ctl_sp``; the bf16 NeRF step's and frame's ms, both arms' pose AUC
-   and the HPatches rows printed. The kernel rows carry the launches as
-   ``demo_launches`` ({leg: count});
+   ``ctl_sp``; the pose leg's SIFT calibration row (``baseline/sift``,
+   OpenCV's SIFT in the port's host C++, ``native/cv_sift.cpp``) beside
+   both arms' rows; the bf16 NeRF step's and frame's ms, the pose AUC of
+   both arms and of SIFT, SIFT's host ms an image and the HPatches rows
+   printed. The kernel rows carry the launches as ``demo_launches``
+   ({leg: count});
 12. render the committed tiny NeRF sphere fields
    (``benchmarks/data/sphere_field*.npz``, bf16 weights) as
    ``bench_nerf.py`` does: 131,072 rays of an orbit camera (362 x 362

@@ -3,7 +3,8 @@
 Reads the demo's pose rows (``EVIDENCE_PATH/pose_auc.jsonl``, one row per
 checkpoint, written by ``run.py pose``; the last row of a checkpoint
 wins), groups them by training arm (the checkpoint name's first part:
-``demo_sp_nerf``, ``demo_sp_ctl``) and returns, per arm, the mean, std,
+``demo_sp_nerf``, ``demo_sp_ctl``, and ``baseline`` for the SIFT
+calibration row) and returns, per arm, the mean, std,
 min and max of pose AUC at 5, 10 and 20 degrees across the checkpoints.
 The reference also rewrites a markdown table; ``run.py``'s summary takes
 its place.

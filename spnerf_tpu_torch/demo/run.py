@@ -31,8 +31,10 @@ task calls (before the resume arguments).
 Evidence goes to ``$SPNERF_ROOT/evidence/``: ``quality.jsonl`` (eval),
 ``pose_auc.jsonl`` and ``nerf_test_psnr.jsonl`` (pose), and
 ``summary.json``, written and printed after every run, in place of the
-reference's markdown tables. The reference's SIFT calibration row is not
-made: it scores OpenCV's SIFT, which the port does not carry.
+reference's markdown tables. The pose leg first makes the SIFT
+calibration row (``baseline/sift``, OpenCV's SIFT through the same pose
+protocol, ``pose_baseline_classical.py``), once per ``pose_auc.jsonl``,
+then the arms' rows.
 
 Departures from the shell script: the NeRF arm's scene list holds only
 the directories under ``DATA_PATH/NeRF`` (the shell's ``ls`` also lists
@@ -55,7 +57,8 @@ import torch
 from spnerf_tpu_torch import cli, settings
 from spnerf_tpu_torch.demo import (gt_test_views, link_corpus, nerf_leg,
                                    nerf_scenes, nerf_test_psnr,
-                                   pose_stability, standin_data)
+                                   pose_baseline_classical, pose_stability,
+                                   standin_data)
 from spnerf_tpu_torch.eval import on_the_fly, pose
 
 CONFIGS = Path(__file__).resolve().parent / "configs"
@@ -66,9 +69,7 @@ CHAIN = ("data", "mp", "nerf_data", "nerf", "nerf_export", "link",
          "ctl_export", "nerf_sp", "ctl_sp", "pose", "eval")
 ARMS = ("demo_sp_nerf", "demo_sp_ctl")
 N_TEST_VIEWS = 12  # the test arc of the nerf and pose legs
-SIFT_NOTE = ("no SIFT row: the reference's calibration row scores "
-             "OpenCV's SIFT (tools/pose_baseline_classical.py), which the "
-             "port does not carry")
+SIFT_TAG = "baseline/sift"
 
 
 def env_int(name: str, default: int) -> int:
@@ -242,9 +243,21 @@ class Demo:
                           str(out), *self.sets("pose"), "--device",
                           self.device])
 
+    def sift_row(self) -> dict | None:
+        """The SIFT calibration row, appended to pose_auc.jsonl unless it
+        holds one already."""
+        out = evidence("pose_auc.jsonl")
+        if out.exists() and SIFT_TAG in out.read_text():
+            return None
+        print(f"== pose AUC: {SIFT_TAG} ==")
+        return pose_baseline_classical.main([
+            "--feature", "sift", "--config-path",
+            str(CONFIGS / "pose_demo.yaml"), "--json-out", str(out),
+            *self.sets("pose")])
+
     def leg_pose(self):
         gt_test_views.main(["--n-test-views", str(N_TEST_VIEWS)])
-        print(SIFT_NOTE)
+        self.sift_row()
         for it in range(2000, 60001, 2000):
             for arm in ARMS:
                 self.pose_row(arm, it)
@@ -265,8 +278,9 @@ def read_jsonl(path: Path) -> list:
 
 def summary() -> dict:
     """The evidence files' newest rows: quality by (mode, checkpoint),
-    pose by checkpoint, each arm's stability, the NeRF test PSNR; written
-    to ``evidence/summary.json``."""
+    pose by checkpoint (the SIFT row among them), each arm's stability
+    (``baseline`` for the SIFT row), the NeRF test PSNR; written to
+    ``evidence/summary.json``."""
     quality = {}
     for r in read_jsonl(evidence("quality.jsonl")):
         quality[f"{r['mode']}:{r.get('pretrained')}"] = r
@@ -278,8 +292,7 @@ def summary() -> dict:
             if r.get("scene") == "ALL"]
     out = {"quality": list(quality.values()), "pose": list(poses.values()),
            "stability": pose_stability.arm_rows(src) if src.exists() else [],
-           "nerf_test_psnr": psnr[-1] if psnr else None,
-           "sift": SIFT_NOTE}
+           "nerf_test_psnr": psnr[-1] if psnr else None}
     path = evidence("summary.json")
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(out, indent=1))

@@ -23,10 +23,12 @@ Checked: every leg ends without error; every file the fixture
 ``spnerf_tpu_torch/demo/digests.json`` lists (the JPEG bytes, PNG pixels
 and text that ``demo/*.py`` writes at these counts) has its digest; the
 warp kernel (row 9) launches in ``ctl_export`` and the hinge kernels
-(rows 10-11) in ``nerf_sp`` and ``ctl_sp``. Printed, not gated: each
-leg's seconds and launches, the bf16 NeRF step's and frame's ms, the NeRF
-test PSNR, and the repeatability, HPatches correctness and pose AUC rows
-of both arms.
+(rows 10-11) in ``nerf_sp`` and ``ctl_sp``; the pose leg writes the SIFT
+calibration row (``baseline/sift``) beside both arms' rows. Printed, not
+gated: each leg's seconds and launches, the bf16 NeRF step's and frame's
+ms, the NeRF test PSNR, the repeatability, HPatches correctness and pose
+AUC rows of both arms and of SIFT, and SIFT's host ms an image over the
+GT test views.
 """
 
 from __future__ import annotations
@@ -107,6 +109,21 @@ def check_digests(data_root: Path, want: dict, done: set) -> int:
     return len(fresh)
 
 
+def sift_ms(data_root: Path) -> list:
+    """Host ms of ``eval.sift.sift(image, 1024)`` (the pose row's call) on
+    each GT test view, timed by the host clock."""
+    from spnerf_tpu_torch.data import png
+    from spnerf_tpu_torch.eval import sift
+
+    times = []
+    for p in sorted(Path(data_root, "NeRF_gt").glob("*/images/test/*.png")):
+        img = png.read_gray(p)
+        t0 = time.perf_counter()
+        sift.sift(img, 1024)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
 def child(out: Path) -> None:
     import torch
 
@@ -166,13 +183,19 @@ def child(out: Path) -> None:
             f"AUC@10 {row['auc10']:.2f} AUC@20 {row['auc20']:.2f} precision "
             f"{row['precision']:.2f} matching score "
             f"{row['matching_score']:.2f} over {row['num_pairs']} pairs")
-    log(f"[demo] NeRF test PSNR {json.dumps(summary['nerf_test_psnr'])}; "
-        f"{summary['sift']}")
+    log(f"[demo] NeRF test PSNR {json.dumps(summary['nerf_test_psnr'])}")
+    times = sift_ms(settings.DATA_PATH)
+    if not times:
+        raise AssertionError("[demo] no GT test view to time SIFT on")
+    log(f"[demo] SIFT on the host (native/cv_sift.cpp): {len(times)} GT "
+        f"test views of 240x320, median {sorted(times)[len(times) // 2]:.3f}"
+        f" ms an image (min {min(times):.3f}, max {max(times):.3f})")
     arms = {r["pretrained"].split("/")[0] for r in summary["pose"]}
-    if arms != set(run.ARMS) or len(summary["quality"]) != 2:
+    if arms != set(run.ARMS) | {"baseline"} or len(summary["quality"]) != 2:
         raise AssertionError(f"[demo] pose rows of {sorted(arms)}, "
                              f"{len(summary['quality'])} quality rows")
-    out.write_text(json.dumps({"legs": legs, "summary": summary}))
+    out.write_text(json.dumps({"legs": legs, "summary": summary,
+                               "sift_ms": times}))
 
 
 def phase_demo(root: Path) -> dict:

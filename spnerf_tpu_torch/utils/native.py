@@ -4,7 +4,11 @@
 into the git-ignored ``build/spnerf_tpu_torch/native/lib<name>.so`` (again
 whenever the source is newer) and returns it loaded by ctypes. A failed
 build raises with the compiler's output: there is no slower fallback to
-hide it.
+hide it. No library contracts a product and a sum into one fused
+multiply-add unless its source calls ``fmaf`` (``-ffp-contract=off``), so
+float sums keep the order the source states, as the copies of cv2's
+arithmetic need; ``-mfma``, where the CPU has FMA, makes such a call one
+instruction.
 """
 
 from __future__ import annotations
@@ -23,6 +27,19 @@ _lock = threading.Lock()
 _libs: dict = {}
 
 
+def float_flags() -> list:
+    """g++ flags of every library: contraction off, FMA where the CPU
+    has it."""
+    flags = ["-ffp-contract=off"]
+    try:
+        cpu = Path("/proc/cpuinfo").read_text()
+    except OSError:
+        cpu = ""
+    if " fma " in cpu.replace("\n", " "):
+        flags.append("-mfma")
+    return flags
+
+
 def build(source: Path, target: Path) -> None:
     """g++ ``source`` into the shared library ``target``."""
     cxx = shutil.which("g++")
@@ -31,8 +48,8 @@ def build(source: Path, target: Path) -> None:
     target.parent.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
     proc = subprocess.run(
-        [cxx, "-O3", "-fPIC", "-std=c++17", "-shared", "-o", str(tmp),
-         str(source)], capture_output=True, text=True)
+        [cxx, "-O3", "-fPIC", "-std=c++17", "-shared", *float_flags(),
+         "-o", str(tmp), str(source)], capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"g++ failed on {source}:\n{proc.stderr}")

@@ -257,7 +257,7 @@ def test_legs_build_the_reference_arguments(ckpt_root, monkeypatch):
 def test_summary_without_evidence(ckpt_root):
     out = run.summary()
     assert out["pose"] == [] and out["quality"] == []
-    assert "SIFT" in out["sift"]
+    assert "sift" not in out
     assert json.loads((ckpt_root / "evidence" / "summary.json").read_text()) \
         == out
 
@@ -276,3 +276,27 @@ def test_empty_training_loader_raises():
     full = iter_forever(DataLoader([{"x": np.zeros(1)}] * 4, batch_size=4,
                                    shuffle=False, drop_last=True))
     assert [len(next(full)["x"]) for _ in range(3)] == [4, 4, 4]
+
+
+def test_pose_leg_makes_the_sift_row_once(port_root, tmp_path, monkeypatch):
+    """The pose leg on the fabricated GT split (two of its pairs, through
+    the leg's ``--set``): the SIFT calibration row is written first and
+    once, a rerun keeps it single, and ``summary.json`` holds it as the
+    ``baseline`` arm. No checkpoint exists, so no arm row is made."""
+    data = port_root / "data"
+    monkeypatch.setattr(settings, "DATA_PATH", data)
+    monkeypatch.setattr(settings, "CKPT_PATH", tmp_path / "ckpts")
+    monkeypatch.setattr(settings, "EVIDENCE_PATH", tmp_path / "evidence")
+    pairs = tmp_path / "two_pairs.txt"
+    pairs.write_text("\n".join((data / "gt_pose_pairs.txt").read_text()
+                               .splitlines()[:2]) + "\n")
+    demo = run.Demo("cpu", run.parse_cuts([f"pose:data.gt_pairs={pairs}"]))
+    for _ in range(2):
+        demo.run("pose")
+    rows = run.read_jsonl(tmp_path / "evidence" / "pose_auc.jsonl")
+    assert [r["pretrained"] for r in rows] == [run.SIFT_TAG]
+    assert rows[0]["num_pairs"] == 2
+    out = run.summary()
+    assert [r["pretrained"] for r in out["pose"]] == [run.SIFT_TAG]
+    assert [r["arm"] for r in out["stability"]] == ["baseline"]
+    assert "sift" not in out and not hasattr(run, "SIFT_NOTE")

@@ -24,7 +24,8 @@ for name in ("kernels.desc_sample", "eval.pose", "eval.essential",
              "tools.smoke_dist", "data.cv_warp", "demo.run",
              "demo.standin_data", "demo.nerf_scenes", "demo.nerf_leg",
              "demo.gt_test_views", "demo.link_corpus", "demo.nerf_test_psnr",
-             "demo.pose_stability", "tools.smoke_demo"):
+             "demo.pose_stability", "tools.smoke_demo", "eval.sift",
+             "demo.pose_baseline_classical"):
     assert "spnerf_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
