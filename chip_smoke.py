@@ -207,7 +207,9 @@ Phases, each of which raises on failure (nothing is caught):
    ``[syn-gen]`` / ``[syn-train]`` magicpoint_syn.yaml's Synthetic Shapes
    and 20 steps on them; ``[coco-export]`` HA labels over COCO-layout
    copies of the fixtures (as written and ``export.serving=int8``);
-   ``[coco-train]`` MagicPoint and SuperPoint (photometric on the card,
+   ``[label-iou]`` the int8 labels' agreement with the bf16 ones and
+   ``[ha-rate]`` both exports' images/s by the labels' mtimes (the demo's
+   tools, host work); ``[coco-train]`` MagicPoint and SuperPoint (photometric on the card,
    and on the host) at ``data.num_workers`` 1 and 4, the training batch
    indices equal. The kernel rows carry these launches as
    ``coco_export_launches`` (rows 1-4, 9) and ``coco_train_launches``
@@ -223,8 +225,14 @@ Phases, each of which raises on failure (nothing is caught):
    OpenCV's SIFT in the port's host C++, ``native/cv_sift.cpp``) beside
    both arms' rows; the bf16 NeRF step's and frame's ms, the pose AUC of
    both arms and of SIFT, SIFT's host ms an image and the HPatches rows
-   printed. The kernel rows carry the launches as ``demo_launches``
-   ({leg: count});
+   printed; then, over the chain's tree, ``[orb]`` the ORB row
+   (``baseline/orb``, OpenCV's ORB in ``native/cv_orb.cpp``) beside SIFT's
+   and ORB's host ms an image, ``[label-fidelity]`` the NeRF-depth labels
+   against ray-traced depth's per scene, ``[live-steps]`` the legs'
+   steps/s from their logs, ``[multiproc-export]`` two gloo ranks on the
+   card against one process over the 24 COCO stand-ins (labels equal, or
+   the phase fails); no kernel lies on these tools' paths. The kernel rows
+   carry the launches as ``demo_launches`` ({leg: count});
 12. render the committed tiny NeRF sphere fields
    (``benchmarks/data/sphere_field*.npz``, bf16 weights) as
    ``bench_nerf.py`` does: 131,072 rays of an orbit camera (362 x 362

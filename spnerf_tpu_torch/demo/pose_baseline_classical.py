@@ -1,12 +1,14 @@
 """Classical-feature baseline row for the GT relative-pose protocol
 (``tools/pose_baseline_classical.py``).
 
-Runs SIFT through the same pose evaluation as the learned
+Runs SIFT or ORB through the same pose evaluation as the learned
 checkpoints (``eval.pose.estimate_pose_errors``: the same pairs,
 mutual-NN matching, RANSAC essential-matrix recovery, AUC and bootstrap),
 so the pose table gets a protocol-difficulty anchor that no training of
-this repo touches. The SIFT is OpenCV 5.0's, detector and descriptor,
-in the port's own C++ on the host (``eval/sift.py``).
+this repo touches. Both are OpenCV 5.0's, detector and descriptor, in
+the port's own C++ on the host (``eval/sift.py``, ``eval/orb.py``); ORB's
+32 descriptor bytes are matched as float32 values 0-255, as the
+reference tool matches them.
 
 Each keypoint marks the pixel ``int(round(pt))`` (Python's round, half
 to even) of the heatmap with ``max(response, 1e-6)``; keypoints outside
@@ -14,7 +16,6 @@ the image are skipped, and of several on one pixel the later one wins
 when its response is at least the one marked. The descriptors are read
 back at the marked pixels. The row is tagged ``baseline/<feature>``,
 printed as the pose table's line and appended to ``--json-out``.
-``--feature orb`` is not ported (ROADMAP Queue 1 item 10).
 
 Usage:
     python -m spnerf_tpu_torch.demo.pose_baseline_classical \\
@@ -32,36 +33,35 @@ from pathlib import Path
 import numpy as np
 
 from spnerf_tpu_torch import settings
-from spnerf_tpu_torch.eval import sift
+from spnerf_tpu_torch.eval import orb, sift
 from spnerf_tpu_torch.eval.pose import estimate_pose_errors
 
-ORB_ITEM = ("--feature orb is not ported: OpenCV's ORB samples its rBRIEF "
-            "pairs from a table in OpenCV's source (ROADMAP Queue 1 item "
-            "10)")
+DETECTORS = {"sift": (sift.sift, sift.DESCRIPTOR_SIZE),
+             "orb": (orb.orb, orb.DESCRIPTOR_SIZE)}
 
 
 def build_infer(feature: str, max_kp: int):
     """``infer(image float32 (H, W))`` -> {"prob": (H, W) float32,
     "desc": callable of (N, 2) [y, x] points}, as the reference tool's."""
-    if feature == "orb":
-        raise SystemExit(ORB_ITEM)
-    if feature != "sift":
+    if feature not in DETECTORS:
         raise SystemExit(f"unknown feature: {feature}")
+    detect, size = DETECTORS[feature]
 
     def infer(image: np.ndarray):
         img_u8 = np.clip(image, 0, 255).astype(np.uint8)
-        found = sift.sift(img_u8, max_kp)
+        found = detect(img_u8, max_kp)
+        desc = found.desc.astype(np.float32)
         prob = np.zeros(image.shape, np.float32)
         by_pixel = {}
         for (x, y), response, d in zip(found.pt.tolist(),
-                                       found.response.tolist(), found.desc):
+                                       found.response.tolist(), desc):
             r = int(round(y)), int(round(x))
             if not (0 <= r[0] < prob.shape[0] and 0 <= r[1] < prob.shape[1]):
                 continue
             if response >= prob[r]:
                 prob[r] = max(response, 1e-6)
                 by_pixel[r] = d
-        dim = sift.DESCRIPTOR_SIZE if by_pixel else 1
+        dim = size if by_pixel else 1
 
         def desc_at(pts):
             return np.stack([by_pixel[(int(y), int(x))] for y, x in pts]) \

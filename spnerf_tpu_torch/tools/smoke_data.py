@@ -27,6 +27,10 @@ JPEG reads it rests on. ``chip_smoke.py`` runs ``phase_bootstrap`` after
   fixture, the training split again with ``export.serving=int8``: labels
   checked, the warp twice a chunk and the int8 kernels once a forward
   per batch, images/s;
+- ``[label-iou]`` and ``[ha-rate]``: ``demo.label_iou`` of the int8
+  training labels against the bf16 ones (exact IoU and within 2 px, the
+  agreement the reference's round 3 measured), and ``demo.ha_rate`` of
+  both exports (images/s after the first fifth, by the files' mtimes);
 - ``[coco-train]``: magicpoint_coco_train.yaml for 20 steps at
   ``data.num_workers`` 1 and 4 (no kernel of ours), then
   superpoint_coco_train.yaml (240 x 320, batch 2) over those labels with
@@ -59,6 +63,7 @@ from spnerf_tpu_torch.data import coco, imread, jpeg, photometric
 from spnerf_tpu_torch.data import synthetic_shapes
 from spnerf_tpu_torch.data.loader import DataLoader
 from spnerf_tpu_torch.data.nerf_dataset import NeRFDataset
+from spnerf_tpu_torch.demo import ha_rate, label_iou
 from spnerf_tpu_torch.eval import cv_rng
 from spnerf_tpu_torch.kernels import _build
 from spnerf_tpu_torch.tasks import export
@@ -451,6 +456,7 @@ def phase_coco_export(pretrained: str) -> dict:
     coco_layout(Path(settings.DATA_PATH))
     base = load_config(COCO_EXPORT)
     all_counts = collections.Counter()
+    training_dirs = {}
     for split, serving in (("validation", False), ("training", False),
                            ("training", True)):
         cuts = {"pretrained": pretrained}
@@ -479,6 +485,7 @@ def phase_coco_export(pretrained: str) -> dict:
                                  f"{ha_expected(config, n)}")
         if split == "training":
             all_counts.update(counts)
+            training_dirs["int8" if serving else "bf16"] = Path(out_dir)
         log(f"[coco-export] cli.main --task export_pseudo_labels --split "
             f"{split} ({COCO_EXPORT.name}, cuts {json.dumps(cuts)}): {n} "
             f"JPEGs of the layout at {HA_SHAPE[0]}x{HA_SHAPE[1]}, batch "
@@ -489,7 +496,25 @@ def phase_coco_export(pretrained: str) -> dict:
             f"keypoints per image min {min(n_pts)} median "
             f"{statistics.median(n_pts)} max {max(n_pts)}; launches "
             f"{json.dumps(counts, sort_keys=True)}")
+    phase_label_tools(training_dirs)
     return dict(all_counts)
+
+
+def phase_label_tools(dirs: dict) -> None:
+    """[label-iou] int8 against bf16, [ha-rate] of both, by the demo's
+    tools (host work over the written labels)."""
+    t0 = time.perf_counter()
+    iou, within2, n = label_iou.agreement(dirs["bf16"], dirs["int8"])
+    log(f"[label-iou] int8 labels against bf16 ({n} images of the training "
+        f"split): exact IoU {iou:.4f}, within 2 px {within2:.4f}; "
+        f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    for route, out_dir in dirs.items():
+        r = ha_rate.rate(out_dir)
+        log(f"[ha-rate] {route}: {r['value']:.2f} images/s over the last "
+            f"{r['n_measured']} of {r['n_total']} label files' mtimes "
+            f"({r['span_s']:.3f} s)")
+    log(f"[ha-rate] {time.perf_counter() - t0:.3f} s")
 
 
 def host_photometric_ms(config: Path) -> float:

@@ -29,6 +29,17 @@ gated: each leg's seconds and launches, the bf16 NeRF step's and frame's
 ms, the NeRF test PSNR, the repeatability, HPatches correctness and pose
 AUC rows of both arms and of SIFT, and SIFT's host ms an image over the
 GT test views.
+
+After the chain, the demo's measurement tools over its tree, each phase
+with its seconds: ``[orb]`` the ORB row (``--feature orb``, OpenCV's ORB
+in ``native/cv_orb.cpp`` on the host) over the pose leg's GT pairs and
+ORB's host ms an image; ``[label-fidelity]`` ``demo.label_fidelity``
+over both scenes (the ray-traced side exported on the card, the NeRF side
+the chain's labels); ``[live-steps]`` ``demo.live_steps`` over the legs'
+logs; ``[multiproc-export]`` ``demo.multiproc_export`` over the 24 COCO
+stand-ins, two gloo ranks on the card against one process, which fails
+the phase unless the labels are equal. None of these runs a kernel of
+ours (``[multiproc-export]``'s ranks count their own, unread).
 """
 
 from __future__ import annotations
@@ -63,7 +74,9 @@ CUTS = ["mp:data.generation.split_sizes={training: 6, validation: 1, "
 EXPECT = {"ctl_export": ("warp[",),
           "nerf_sp": ("desc_loss[fwd]", "desc_loss[dA]", "desc_loss[dB]"),
           "ctl_sp": ("desc_loss[fwd]", "desc_loss[dA]", "desc_loss[dB]")}
-TIMEOUT = 300.0  # the chain takes about 65 s on an H100
+TIMEOUT = 300.0  # the chain takes about 65 s on an H100, the tools ~60 s
+ECHO = ("[demo]", "[orb]", "[label-fidelity]", "[live-steps]",
+        "[multiproc-export]")
 T0 = time.perf_counter()
 
 
@@ -94,6 +107,23 @@ def digests(data_root: Path, read_png) -> dict:
     return out
 
 
+def orb_digest(pt, size, angle, response, octave, desc) -> str:
+    """sha256 of one image's ORB keypoints and descriptors in cv2's order
+    (float32 pt, size, angle, response, int32 level, uint8 descriptors)."""
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a, dtype in ((pt, np.float32), (size, np.float32),
+                     (angle, np.float32), (response, np.float32),
+                     (octave, np.int32), (desc, np.uint8)):
+        h.update(np.ascontiguousarray(a, dtype).tobytes())
+    return h.hexdigest()
+
+
+def gt_test_views(data_root: Path) -> list:
+    return sorted(Path(data_root, "NeRF_gt").glob("*/images/test/*.png"))
+
+
 def check_digests(data_root: Path, want: dict, done: set) -> int:
     """Check the fixture's files that exist now and were not checked;
     returns how many were."""
@@ -116,12 +146,116 @@ def sift_ms(data_root: Path) -> list:
     from spnerf_tpu_torch.eval import sift
 
     times = []
-    for p in sorted(Path(data_root, "NeRF_gt").glob("*/images/test/*.png")):
+    for p in gt_test_views(data_root):
         img = png.read_gray(p)
         t0 = time.perf_counter()
         sift.sift(img, 1024)
         times.append(1e3 * (time.perf_counter() - t0))
     return times
+
+
+def orb_ms(data_root: Path, want: dict) -> list:
+    """Host ms of ``eval.orb.orb(image, 1024)`` (the ORB row's call) on
+    each GT test view, timed by the host clock; each view's keypoints and
+    descriptors must have the digest of cv2's (``want``, from
+    digests.json)."""
+    from spnerf_tpu_torch.data import png
+    from spnerf_tpu_torch.eval import orb
+
+    times, bad = [], []
+    for p in gt_test_views(data_root):
+        img = png.read_gray(p)
+        t0 = time.perf_counter()
+        o = orb.orb(img, 1024)
+        times.append(1e3 * (time.perf_counter() - t0))
+        rel = p.relative_to(data_root).as_posix()
+        if orb_digest(o.pt, o.size, o.angle, o.response, o.octave,
+                      o.desc) != want.get(rel):
+            bad.append(rel)
+    if bad or len(times) != len(want):
+        raise AssertionError(f"[orb] {len(bad)} of {len(times)} views differ "
+                             f"from cv2's ORB in digests.json ({len(want)} "
+                             f"views): {bad[:4]}")
+    return times
+
+
+def spread(times: list) -> str:
+    return (f"median {sorted(times)[len(times) // 2]:.3f} ms an image (min "
+            f"{min(times):.3f}, max {max(times):.3f})")
+
+
+def pose_line(row: dict) -> str:
+    return (f"AUC@5 {row['auc5']:.2f} AUC@10 {row['auc10']:.2f} AUC@20 "
+            f"{row['auc20']:.2f} precision {row['precision']:.2f} matching "
+            f"score {row['matching_score']:.2f} over {row['num_pairs']} pairs")
+
+
+def tools_after_chain(demo, summary: dict) -> dict:
+    """[orb], [label-fidelity], [live-steps], [multiproc-export]."""
+    from spnerf_tpu_torch import settings
+    from spnerf_tpu_torch.demo import (label_fidelity, live_steps,
+                                       multiproc_export,
+                                       pose_baseline_classical, run)
+
+    out = {}
+    t0 = time.perf_counter()
+    row = pose_baseline_classical.main([
+        "--feature", "orb", "--config-path",
+        str(run.CONFIGS / "pose_demo.yaml"), "--json-out",
+        str(run.evidence("pose_auc.jsonl")), *demo.sets("pose")])
+    times = orb_ms(settings.DATA_PATH,
+                   json.loads(FIXTURE.read_text())["orb"])
+    sift = next(r for r in summary["pose"] if r["pretrained"] == run.SIFT_TAG)
+    log(f"[orb] baseline/orb (OpenCV's ORB, native/cv_orb.cpp): "
+        f"{pose_line(row)}; baseline/sift {pose_line(sift)}")
+    log(f"[orb] ORB on the host: {len(times)} GT test views of 240x320, "
+        f"each equal to cv2's (digests.json), {spread(times)}; the phase "
+        f"{time.perf_counter() - t0:.3f} s")
+    out["orb"] = {"row": row, "ms": times}
+
+    t0 = time.perf_counter()
+    rows, seconds = label_fidelity.fidelity(
+        int(ENV["SPNERF_N_SCENES"]), run.mp_seed(), "cuda")
+    if len(rows) != int(ENV["SPNERF_N_SCENES"]) + 1:
+        raise AssertionError(f"[label-fidelity] rows {rows}")
+    for r in rows[:-1]:
+        ref_s, test_s = seconds[r["scene"]]
+        log(f"[label-fidelity] {r['scene']}: exact IoU {r['exact_iou']} "
+            f"within 2 px {r['within_2px']} (ray-traced depth's labels "
+            f"exported in {ref_s:.3f} s; the NeRF depth's "
+            + (f"in {test_s:.3f} s)" if test_s else "from the nerf_export "
+               "leg)"))
+    log(f"[label-fidelity] mean exact IoU {rows[-1]['mean_exact_iou']} "
+        f"within 2 px {rows[-1]['mean_within_2px']} over "
+        f"{rows[-1]['n_scenes']} scenes, {rows[0]['pretrained']}; the phase "
+        f"{time.perf_counter() - t0:.3f} s")
+    out["label_fidelity"] = rows
+
+    t0 = time.perf_counter()
+    by_leg = live_steps.samples_by_leg()
+    rows, short = live_steps.rows(by_leg), live_steps.short_legs(by_leg)
+    for r in rows:
+        log(f"[live-steps] {r['leg']}: median {r['median']} steps/s (p10 "
+            f"{r['p10']}, p90 {r['p90']}) over {r['n_samples']} windows")
+    for leg, n in sorted(short.items()):
+        log(f"[live-steps] {leg}: {n} perf/steps_per_sec windows, fewer than "
+            f"the 3 the tool needs: no row")
+    log(f"[live-steps] the phase {time.perf_counter() - t0:.3f} s")
+    out["live_steps"] = {"rows": rows, "short": short}
+
+    t0 = time.perf_counter()
+    rows = multiproc_export.main(["--truncate", "1.0", "--ha-num", "8",
+                                  "--device", "cuda", "--timeout", "120"])
+    for r in rows[:2]:
+        log(f"[multiproc-export] {r['mode']}: {r['images']} images, "
+            f"{r['ha_num']} homographies, {r['seconds']} s ({r['img_per_sec']}"
+            f" images/s, process starts included)")
+    log(f"[multiproc-export] merged_equals_single "
+        f"{rows[2]['merged_equals_single']} ({rows[2]['n_byte_equal']} of "
+        f"{rows[2]['n_images']} label files equal); the phase "
+        f"{time.perf_counter() - t0:.3f} s")
+    out["multiproc_export"] = rows
+    return out
 
 
 def child(out: Path) -> None:
@@ -188,14 +322,14 @@ def child(out: Path) -> None:
     if not times:
         raise AssertionError("[demo] no GT test view to time SIFT on")
     log(f"[demo] SIFT on the host (native/cv_sift.cpp): {len(times)} GT "
-        f"test views of 240x320, median {sorted(times)[len(times) // 2]:.3f}"
-        f" ms an image (min {min(times):.3f}, max {max(times):.3f})")
+        f"test views of 240x320, {spread(times)}")
     arms = {r["pretrained"].split("/")[0] for r in summary["pose"]}
     if arms != set(run.ARMS) | {"baseline"} or len(summary["quality"]) != 2:
         raise AssertionError(f"[demo] pose rows of {sorted(arms)}, "
                              f"{len(summary['quality'])} quality rows")
+    tools = tools_after_chain(demo, summary)
     out.write_text(json.dumps({"legs": legs, "summary": summary,
-                               "sift_ms": times}))
+                               "sift_ms": times, "tools": tools}))
 
 
 def phase_demo(root: Path) -> dict:
@@ -220,7 +354,7 @@ def phase_demo(root: Path) -> dict:
             rc = f"killed after {TIMEOUT:.0f} s"
     text = log_path.read_text(errors="replace")
     for line in text.splitlines():
-        if line.startswith("[demo]"):
+        if line.startswith(ECHO):
             log(line)
     if rc != 0:
         raise AssertionError(f"[demo] the chain failed ({rc}):\n"

@@ -15,7 +15,8 @@ over test poses from ``arc_poses`` (no NeRF is trained);
 small ``build_scene`` / ``render_scene`` view. ``--digests`` writes
 ``spnerf_tpu_torch/demo/digests.json``: sha256 of each JPEG's bytes, of
 each PNG's pixels (``pixel_digest``) and of each text file, at the counts
-``chip_smoke.py``'s ``[demo]`` phase fabricates.
+``chip_smoke.py``'s ``[demo]`` phase fabricates, and under ``"orb"`` of
+cv2's ORB (1,024 features) of each GT test view (``orb_digest``).
 """
 
 from __future__ import annotations
@@ -91,13 +92,25 @@ def main() -> None:
     if write:
         import cv2
 
-        from spnerf_tpu_torch.tools.smoke_demo import digests
+        from spnerf_tpu_torch.tools.smoke_demo import (digests,
+                                                       gt_test_views,
+                                                       orb_digest)
 
-        files = digests(root / "data",
+        data = root / "data"
+        files = digests(data,
                         lambda p: cv2.imread(str(p), cv2.IMREAD_GRAYSCALE))
-        FIXTURE.write_text(json.dumps({"counts": COUNTS, "files": files},
-                                      indent=1, sort_keys=True) + "\n")
-        print(f"{len(files)} digests -> {FIXTURE}")
+        orb = {}
+        for p in gt_test_views(data):
+            kps, desc = cv2.ORB_create(1024).detectAndCompute(
+                cv2.imread(str(p), cv2.IMREAD_GRAYSCALE), None)
+            orb[p.relative_to(data).as_posix()] = orb_digest(
+                [k.pt for k in kps], [k.size for k in kps],
+                [k.angle for k in kps], [k.response for k in kps],
+                [k.octave for k in kps], desc)
+        FIXTURE.write_text(json.dumps({"counts": COUNTS, "files": files,
+                                       "orb": orb}, indent=1,
+                                      sort_keys=True) + "\n")
+        print(f"{len(files)} digests, {len(orb)} ORB digests -> {FIXTURE}")
 
 
 if __name__ == "__main__":

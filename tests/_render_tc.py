@@ -11,6 +11,8 @@ the plain version's ``torch.matmul`` on the card with it).
 each sum against its bound, and FMAs in k order for the undecided ones.
 """
 
+import contextlib
+
 import torch
 
 TC_K = 16  # the k-step of wgmma m64nNk16 with bf16 operands
@@ -30,6 +32,20 @@ def _to_float32_rz(x: torch.Tensor) -> torch.Tensor:
     return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
 
 
+@contextlib.contextmanager
+def one_thread():
+    """torch on one thread for the block: the models' operands are small
+    (M <= 64 rows a call in the render tests), and on a host that runs
+    several test processes at once their thread pools cost several times
+    the arithmetic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def tc_step(a: torch.Tensor, b: torch.Tensor,
             c: torch.Tensor | None) -> torch.Tensor:
     """One k-step of the tensor cores: a (M, 16) and b (16, N) hold bf16
@@ -38,6 +54,12 @@ def tc_step(a: torch.Tensor, b: torch.Tensor,
     floor(log2 |b_k|) over the nonzero products and floor(log2 |c|), each
     product and c are cut toward zero to a multiple of 2^(e - 25), summed
     exactly, and the sum rounded toward zero to float32."""
+    with one_thread():
+        return _tc_step(a, b, c)
+
+
+def _tc_step(a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor | None) -> torch.Tensor:
     a, b = a.double(), b.double()
     top = (_exponents(a)[:, :, None] + _exponents(b)[None]).amax(1)
     cd = None if c is None else c.double()
@@ -67,8 +89,9 @@ def fma_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     is exact in float32, so a product and a rounded add are one FMA)."""
     x, w = x.float(), w.float()
     acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32)
-    for k in range(x.shape[1]):
-        acc = acc + x[:, k:k + 1] * w[k:k + 1]
+    with one_thread():
+        for k in range(x.shape[1]):
+            acc = acc + x[:, k:k + 1] * w[k:k + 1]
     return acc
 
 

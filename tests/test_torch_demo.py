@@ -118,6 +118,15 @@ def test_fabricated_files_match_digests(side, ref_root, port_root):
     assert got == want
 
 
+def test_orb_of_gt_test_views_matches_fixture(port_root):
+    """The port's ORB on its GT test views carries the digests of cv2's
+    ORB on the reference's (``digests.json["orb"]``), as ``[orb]`` checks
+    on the card."""
+    want = fixture()["orb"]
+    assert len(want) == ref.COUNTS["n_scenes"] * ref.COUNTS["n_test_views"]
+    assert len(smoke_demo.orb_ms(port_root / "data", want)) == len(want)
+
+
 def test_fabricated_trees_equal(ref_root, port_root):
     """Every file either side wrote (depth and poses too): JPEG, text and
     .npy bytes equal, PNG pixels equal."""

@@ -25,7 +25,9 @@ for name in ("kernels.desc_sample", "eval.pose", "eval.essential",
              "demo.standin_data", "demo.nerf_scenes", "demo.nerf_leg",
              "demo.gt_test_views", "demo.link_corpus", "demo.nerf_test_psnr",
              "demo.pose_stability", "tools.smoke_demo", "eval.sift",
-             "demo.pose_baseline_classical"):
+             "demo.pose_baseline_classical", "eval.orb", "tools.orb_pattern",
+             "demo.label_iou", "demo.label_fidelity", "demo.ha_rate",
+             "demo.live_steps", "demo.multiproc_export"):
     assert "spnerf_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
