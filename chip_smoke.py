@@ -256,7 +256,17 @@ Phases, each of which raises on failure (nothing is caught):
    bit-equal; times around the call and on the device, the bound, and the
    three products alone through ``torch.matmul`` in bf16 as a yardstick;
 15. render a few hundred rays on the card and by the plain path on the
-   CPU, same weights and flags, at every width and operand type.
+   CPU, same weights and flags, at every width and operand type;
+16. ``[probes]`` (``spnerf_tpu_torch/tools/smoke_probes.py``; run after
+   the serving phases, its rows last in the kernels line): the H100
+   probes P1-P4 of the TPU files under ``benchmarks/`` at those files'
+   shapes (the 9-tap conv probe in both tap orders, int8 and bf16, C 64 to
+   256; the dependent chain of 32 products, int8 and bf16; the three
+   gathers at the file's sizes and at a 2^18 x 128 table), the launch
+   counters at 0 before; then each kernel instance against its plain
+   version (int8 and the gathers bit-equal, bf16 within the bounds that
+   module states), a second launch bit-equal, with ms, device ms, the
+   plain version's and the library call's ms and the bound.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -391,7 +401,7 @@ from spnerf_tpu_torch.tasks.nerf_task import (
     write_scene,
 )
 from spnerf_tpu_torch.tools import (process_scene, smoke_data, smoke_demo,
-                                    smoke_dist)
+                                    smoke_dist, smoke_probes)
 from spnerf_tpu_torch.tools.smoke_data import (
     check_labels,
     cut as _cut,
@@ -4793,6 +4803,12 @@ def main() -> int:
     del infer, requests
     torch.cuda.empty_cache()
 
+    # the H100 probes P1-P4, after the serving phases and while
+    # torch.profiler still reports device time (late in the script it sees
+    # none and device ms fall back to events); the probe modules' kernel
+    # measurements are the drive, with the counters at 0 before it
+    probe_rows = smoke_probes.phase_probes(peaks)
+
     # HPatches bundles through the parity path, from the JAX checkpoint
     with tempfile.TemporaryDirectory() as tmp:
         hp_models = phase_hpatches(Path(tmp))
@@ -4954,7 +4970,7 @@ def main() -> int:
             raise AssertionError(f"{row['name']} never launched on the "
                                  "render path")
     phase_render_small(fields)
-    rows += render_rows
+    rows += render_rows + probe_rows
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

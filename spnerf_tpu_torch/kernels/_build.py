@@ -28,7 +28,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spnerf_tpu_torch"
 SOURCES = ("conv12_fused", "double_conv3x3", "head", "conv3x3",
-           "dot_bias_act", "warp", "descriptor_loss", "render", "desc_sample")
+           "dot_bias_act", "warp", "descriptor_loss", "render", "desc_sample",
+           "probe_conv", "probe_chain", "probe_gather")
 
 # launches per kernel, counted by the wrappers where they launch
 launch_counts: collections.Counter = collections.Counter()

@@ -179,6 +179,67 @@ __device__ __forceinline__ void wgmma_m64n72(float (&d)[36], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// D (64 x N float32, the wgmma accumulator layout) = A (64 x 16 bf16) *
+// B (16 x N bf16), both from shared memory through descriptors (K-major,
+// no swizzle), + D unless scale_d is 0; N 64 or 128
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_bf16_ss: N 64 or 128");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+}
+
+// Issue the CIN / 16 k-steps of one product of a 64-row M-tile and N
+// output channels (64 or 128) into acc (added unless scale_first is 0),
+// no commit: A at a_addr in planes of 16-byte channel chunks PLANE bytes
+// apart (k-step k reads planes 2 k and 2 k + 1), its core matrices along
+// M SBO bytes apart; B a CIN x N slab of pack_slabs' layout at b_addr
+// (leading byte offset 128, stride byte offset 16 CIN). The bf16
+// counterpart of conv_tc_s8.cuh's s8_tap_issue.
+template <int CIN, int PLANE, int SBO, int N>
+__device__ __forceinline__ void bf16_tap_issue(uint32_t a_addr, uint32_t b_addr,
+                                               float (&acc)[N / 2], int scale_first) {
+  #pragma unroll
+  for (int k = 0; k < CIN / 16; ++k)
+    wgmma_bf16_ss<N>(acc, smem_desc(a_addr + 2 * k * PLANE, PLANE, SBO),
+                     smem_desc(b_addr + k * 256, 128, CIN * 16), k == 0 ? scale_first : 1);
+}
+
 // Copy a th x tw pixel window (top-left at image (y0, x0)) of one NHWC
 // image with PB bytes per pixel into the swizzled shared tile s, zero
 // outside the image, by cp.async; returns once the copies have landed

@@ -2169,3 +2169,113 @@ def test_conv_int32_on_card_at_block_shapes(card):
         k = torch.from_numpy(rng.integers(-127, 128, kernel).astype(np.int8))
         assert torch.equal(conv_int32(x.cuda(), k.cuda()).cpu(),
                            conv_int32(x, k))
+
+
+PROBE_CONV_CASES = [(dt, order, C) for dt in ("int8", "bf16")
+                    for order in ("acc9", "concat") for C in (64, 128, 256)
+                    if not (dt == "bf16" and order == "concat" and C == 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,order,C", PROBE_CONV_CASES)
+def test_probe_conv_on_card(card, dtype, order, C):
+    """The conv probe (P1, P2) against its plain version at a ragged W
+    (70: two M-tiles a row, the second of 6 pixels) and 2 x 3 rows:
+    int8 equal (the wrap modulo 256 included), bf16 within 1 ulp at the
+    2^-8 floor (``tools/smoke_probes.py``); a second launch equal."""
+    from spnerf_tpu_torch.kernels import _build
+    from spnerf_tpu_torch.kernels.probe_conv import (
+        launch_key,
+        probe_conv,
+        probe_conv_plain,
+    )
+    from spnerf_tpu_torch.probes.micro_conv2 import conv_operands
+    from spnerf_tpu_torch.tools.smoke_probes import bf16_ulps
+
+    x, w = conv_operands(C, dtype, Hb=3, W=70, n=2, device="cuda", seed=C)
+    if order == "concat":
+        w = w.reshape(9 * C, C)
+    before = _build.launch_counts[launch_key(x, order)]
+    got = probe_conv(x, w, order)
+    assert _build.launch_counts[launch_key(x, order)] == before + 1
+    assert torch.equal(probe_conv(x, w, order).view(torch.uint8),
+                       got.view(torch.uint8))
+    want = probe_conv_plain(x, w, order)
+    if dtype == "int8":
+        assert torch.equal(got, want)
+    else:
+        assert bf16_ulps(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_probe_chain_on_card(card, dtype):
+    """The chain probe (P3) at R 200 (a partial last block): all ones at
+    depth 32 equal to the plain version bit for bit (bf16: inf from layer
+    19), seeded inputs at depth 1 (bf16 within 1 ulp) and 5 (bf16 within
+    5 x 2^-9 in norm); int8 equal throughout; a second launch equal."""
+    from spnerf_tpu_torch.kernels.probe_chain import probe_chain, probe_chain_plain
+    from spnerf_tpu_torch.tools.smoke_probes import (
+        CHAIN_ULP,
+        bf16_ulps,
+        chain_operands,
+        chain_rel_error,
+    )
+
+    dt = {"bf16": torch.bfloat16, "int8": torch.int8}[dtype]
+    ones = torch.ones((200, 128), dtype=dt, device="cuda")
+    w1 = torch.ones((128, 128), dtype=dt, device="cuda")
+    got = probe_chain(ones, w1, 32)
+    assert torch.equal(got.view(torch.uint8),
+                       probe_chain_plain(ones, w1, 32).view(torch.uint8))
+    assert torch.equal(probe_chain(ones, w1, 32).view(torch.uint8),
+                       got.view(torch.uint8))
+    x, w = chain_operands(dtype, R=200, seed=11)
+    for depth in (1, 5):
+        got, want = probe_chain(x, w, depth), probe_chain_plain(x, w, depth)
+        if dtype == "int8":
+            assert torch.equal(got, want)
+        elif depth == 1:
+            assert bf16_ulps(got, want) <= 1.0
+        else:
+            assert chain_rel_error(got, want) <= depth * CHAIN_ULP
+
+
+@pytest.mark.cuda
+def test_probe_gathers_on_card(card):
+    """The three gathers (P4) at odd sizes, indices outside the axis
+    among them (NaN), equal to the plain versions bit for bit; a second
+    launch equal."""
+    from spnerf_tpu_torch.kernels import probe_gather as g
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    table = torch.randn((37, 12), generator=gen, device="cuda")
+    cases = [
+        (g.gather_rows, g.gather_rows_plain, table,
+         torch.randint(-2, 40, (53,), generator=gen, device="cuda", dtype=torch.int32)),
+        (g.gather_columns, g.gather_columns_plain, table,
+         torch.randint(-2, 40, (29, 12), generator=gen, device="cuda", dtype=torch.int32)),
+        (g.gather_in_rows, g.gather_in_rows_plain, table,
+         torch.randint(-2, 14, (37, 7), generator=gen, device="cuda", dtype=torch.int32))]
+    for kernel, plain, src, idx in cases:
+        got = kernel(src, idx)
+        assert torch.equal(got.view(torch.int32), plain(src, idx).view(torch.int32))
+        assert torch.equal(kernel(src, idx).view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_refuse_on_card(card):
+    """A CUDA tensor the kernels do not take raises; it never falls back."""
+    from spnerf_tpu_torch.kernels.probe_conv import probe_conv
+    from spnerf_tpu_torch.kernels.probe_gather import gather_rows
+
+    x = torch.zeros((1, 1, 10, 256), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):
+        probe_conv(x, torch.zeros((9, 256, 256), dtype=torch.bfloat16,
+                                  device="cuda"), "concat")
+    with pytest.raises(ValueError):
+        probe_conv(x[..., :96], torch.zeros((9, 96, 96), dtype=torch.bfloat16,
+                                            device="cuda"))
+    with pytest.raises(ValueError):
+        gather_rows(torch.zeros((4, 6), device="cuda"),
+                    torch.zeros(3, dtype=torch.int32, device="cuda"))

@@ -27,7 +27,10 @@ for name in ("kernels.desc_sample", "eval.pose", "eval.essential",
              "demo.pose_stability", "tools.smoke_demo", "eval.sift",
              "demo.pose_baseline_classical", "eval.orb", "tools.orb_pattern",
              "demo.label_iou", "demo.label_fidelity", "demo.ha_rate",
-             "demo.live_steps", "demo.multiproc_export"):
+             "demo.live_steps", "demo.multiproc_export", "probes.micro_conv2",
+             "probes.micro_conv3", "probes.mxu_probe", "probes.gather_probe",
+             "kernels.probe_conv", "kernels.probe_chain", "kernels.probe_gather",
+             "tools.smoke_probes"):
     assert "spnerf_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
