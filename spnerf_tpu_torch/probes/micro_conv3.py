@@ -5,9 +5,11 @@ port of ``benchmarks/micro_conv3.py``.
 
 ``bench_conv`` times ``kernels/probe_conv.py``, which replaces the file's
 Pallas kernels (``bench_pallas_conv``, :30): acc9 (nine accumulated tap
-products over shifted views, ``kernel_acc`` :43) against concat (one
-product of the (M, 9 C) patches built in shared memory, ``kernel_concat``
-:52), over row bands of 8, 16 and 32. ``bench_conv1`` times the C_in = 1
+products over shifted views of a resident input tile, ``kernel_acc``
+:43) against concat (one product of the (M, 9 C) patches, each K chunk
+of them a copy of the input at its tap's offset streamed into shared
+memory, ``kernel_concat`` :52), over row bands of 8, 16 and 32; both
+orders run every C and type. ``bench_conv1`` times the C_in = 1
 first conv of SuperPoint (batch 64, 480 x 640, 64 channels, bf16) four
 ways, as the file did through XLA: ``F.conv2d`` channels-last
 (``xla_nhwc`` there) and NCHW (``xla_nchw``), and nine fused

@@ -31,7 +31,7 @@ descriptor sampler (row 8) at a request's sampling operands, batch 64, a
 candidates or 1,000 spread evenly, bf16 and float32, and a 480 x 960
 frame's bf16 map at batch 8 (``--match desc_sample``);
 ``--match conv12,warp`` keeps the cases whose label holds one of the
-substrings)
+substrings; ``--match probe_conv`` times the conv probe apart, below)
 it prints, in ms per call:
 
 * ``wrapper``: CUDA events around one call of the wrapper, median of 20
@@ -47,6 +47,23 @@ prepared once (``prepare_conv12``, ``prepare_double_conv``,
 ``prepare_render_int8``) where the wrappers offer them. Inputs are
 seeded; weights random.
 ``--out`` writes the results as JSON. Without a card it exits non-zero.
+
+``--match probe_conv [--parent DIR ...]`` times ``kernels/probe_conv.py``
+at P1's and P2's shapes (every instance at the first probe shape that
+runs it, 480 bands; acc9 also at P2's concat shapes; the three
+instances the probes never run at P1's) and, with ``--parent``, the same
+function from other trees of the repository (each ``DIR`` e.g. ``git
+archive`` of an earlier commit, or a copy with a design variant,
+unpacked under ``build/``; rows name it by the directory's name),
+imported as a module of its own and built into ``DIR/build``, on the
+same operands, in turns (the parents, change, change, the parents in
+reverse; device ms by the profiler), each one's output held against the
+change's (int8 bit-equal, bf16 within 1 ulp). The change's output is
+also held against the plain version; a tree whose wrapper refuses an
+instance (``ValueError``) is left out of its row. Each row carries the bound, the share of it, the
+grid, the weight bytes the schedule asks of L2 (``weight_l2_bytes_model``:
+counted from the schedule, not measured), and the host time of a call
+(the tensor map's encoding included).
 
 ``--routes`` times the serving routes end to end instead, through the
 public entry points only (``build_inference``, ``ServingSuperPoint``),
@@ -745,6 +762,116 @@ def _desc_sample_cases():
                {"bytes": moved, "bound_ms": moved / HBM_RATE * 1e3})
 
 
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}  # an H100 SXM's dense tensor-core rates
+# acc9 at P2's concat shapes where P1's differ (the tap-order ratio at
+# equal shapes), and the instances the probe files never run, at P1's
+PROBE_CONV_EXTRA = [("bf16", "acc9", 128, 16, 640), ("int8", "acc9", 256, 16, 320),
+                    ("int8", "concat", 64, 8, 640), ("bf16", "concat", 64, 8, 640),
+                    ("bf16", "concat", 256, 8, 320)]
+
+
+def _load_parent_probe_conv(root: Path):
+    """``kernels/probe_conv.py`` of the tree at ``root`` as a module of its
+    own, over that tree's ``_build`` (its library built under
+    ``root/build``)."""
+    import importlib.util
+
+    from spnerf_tpu_torch import kernels as pkg
+
+    def load(name, path):
+        spec = importlib.util.spec_from_file_location(name, path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+
+    kernels = root / "spnerf_tpu_torch" / "kernels"
+    build = load("parent_probe_build", kernels / "_build.py")
+    own = pkg._build
+    pkg._build = build  # the parent's `from spnerf_tpu_torch.kernels import _build`
+    try:
+        return load("parent_probe_conv", kernels / "probe_conv.py")
+    finally:
+        pkg._build = own
+
+
+def _host_us(fn, reps: int = 50) -> float:
+    """Host microseconds a call (enqueue only), median of ``reps``."""
+    import time
+
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def probe_conv_ab(parents: list) -> list:
+    """The conv probe at P1's and P2's shapes, and the parent trees' on
+    the same operands (module docstring)."""
+    import threading
+
+    from spnerf_tpu_torch.kernels import _build
+    from spnerf_tpu_torch.kernels import probe_conv as P
+    from spnerf_tpu_torch.probes.micro_conv2 import conv_operands
+    from spnerf_tpu_torch.tools.smoke_probes import check, conv_cases
+
+    trees = {Path(p).name: _load_parent_probe_conv(Path(p)) for p in parents}
+    builds = [threading.Thread(target=b.build_all, args=(["probe_conv"],))
+              for b in [_build] + [m._build for m in trees.values()]]
+    for b in builds:
+        b.start()
+    for b in builds:
+        b.join()
+    rows = []
+    for dtype, order, C, Hb, W in conv_cases() + PROBE_CONV_EXTRA:
+        n = 480
+        x, w9 = conv_operands(C, dtype, Hb, W, n)
+        w = w9.reshape(9 * C, C) if order == "concat" else w9
+        label = f"{P.launch_key(x, order)} {n}x{Hb}x{W + 2}"
+        new_fn = lambda x=x, w=w, order=order: P.probe_conv(x, w, order)  # noqa: E731
+        got = new_fn()
+        es = x.element_size()
+        cfg = P.kernel_config(es, C, order == "concat")
+        grid = P.launch_grid(x, order)
+        ops = 2 * n * Hb * W * 9 * C * C
+        moved = (x.numel() + w.numel() + got.numel()) * es
+        bound = max(ops / PEAK_OPS[dtype], moved / HBM_RATE) * 1e3
+        check(f"plain {label}", got, P.probe_conv_plain(x, w, order))
+        others = []
+        for name, mod in trees.items():
+            old_fn = lambda x=x, w=w, order=order, m=mod: m.probe_conv(x, w, order)  # noqa: E731
+            try:
+                old_got = old_fn()
+            except ValueError:  # no such instance in that tree
+                continue
+            check(f"{name} {label}", old_got, got)
+            others.append((name, old_fn))
+        turns = others + [("change", new_fn), ("change", new_fn)] + others[::-1]
+        row = {"case": label, "dtype": dtype, "order": order, "C": C,
+               "shape": [n, Hb, W + 2, C], "bound_ms": bound,
+               "bound_by": "operations" if ops / PEAK_OPS[dtype] >= moved / HBM_RATE
+               else "bytes", "grid": grid, "weight_l2_bytes_model":
+               P.weight_l2_bytes_model(n * Hb * -(-W // 64), cfg, grid),
+               "resident_weights": cfg["res"], "cluster": cfg["cl"]}
+        for kind, fn in turns:
+            kernels = device_kernels(fn)
+            dev = sum(ms for k, (ms, _) in kernels.items() if "probe_conv_kernel" in k)
+            row.setdefault(f"{kind}_device_ms", []).append(dev if kernels else None)
+            row.setdefault(f"{kind}_wrapper_ms", []).append(_events_ms(fn, REPS, per_call=True))
+            row.setdefault(f"{kind}_host_us", []).append(_host_us(fn))
+        best = min(v for v in row["change_device_ms"] if v is not None) \
+            if any(v is not None for v in row["change_device_ms"]) else None
+        row["share_of_bound"] = bound / best if best else None
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del x, w, w9, got
+        torch.cuda.empty_cache()
+    return rows
+
+
 ROUTES = [  # label, mode, fused, batch
     ("slice", "int8", True, 64), ("slice-bf16", "bf16", True, 64),
     ("slice-mixed", "mixed", True, 64), ("slice-unfused", "int8", False, 8),
@@ -813,6 +940,10 @@ def main(argv=None) -> int:
     parser.add_argument("--match", default="",
                         help="comma-separated substrings: time only the "
                              "cases whose label holds one of them")
+    parser.add_argument("--parent", action="append", default=[],
+                        help="with --match probe_conv: the root of another "
+                        "tree of the repository to time beside this one "
+                        "(may be given more than once)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
@@ -827,12 +958,20 @@ def main(argv=None) -> int:
             with open(args.out, "w") as f:
                 json.dump({"card": card, "routes": results}, f, indent=1)
         return 0
+    match = [m for m in args.match.split(",") if m]
+    if "probe_conv" in match:
+        results = probe_conv_ab(args.parent)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"card": card, "probe_conv": results}, f, indent=1)
+        match.remove("probe_conv")
+        if not match:
+            return 0
     from spnerf_tpu_torch.kernels import _build
 
     _build.build_all(["conv12_fused", "double_conv3x3", "head", "dot_bias_act",
                       "warp", "render", "conv3x3", "descriptor_loss",
                       "desc_sample"])
-    match = [m for m in args.match.split(",") if m]
     results = []
     for label, raw, prepared, symbol, *extra in _cases():
         if match and not any(m in label for m in match):

@@ -10,11 +10,25 @@ them; then the counters are read. The library yardsticks of those
 modules (matmul rates, conv1's forms, the deep scan) are no kernel of
 ours and are not driven here.
 
-Then one row for each kernel instance at the first drive shape that
-launched it: the kernel against its plain version on the card, a second
-launch bit-equal to the first, ms (CUDA events around one call, median
-of ``REPS``), device ms (``torch.profiler``, the kernel's symbol), the
-plain version's ms, the library call's, and the bound. The comparisons:
+Then every conv instance (both types and tap orders, C 64, 128, 256;
+the drive runs nine of the twelve) holds its compiled buffers equal to
+``probe_conv.kernel_config``'s mirror, and runs at the ``CHECK_SHAPES``
+(W 70, a second M-tile of 6 pixels; 3 rows, fewer items than SMs; W
+16, a row narrower than the input tile; 300 rows of W 320, more items
+than clusters, so that every block walks several) against its plain
+version, a second launch bit-equal. Then one row for each kernel instance at the first drive
+shape that launched it: the kernel against its plain version on the
+card, a second launch bit-equal to the first, ms (CUDA events around one
+call, median of ``REPS``), device ms (``torch.profiler``, the kernel's
+symbol), the plain version's ms, the library call's, and the bound. A
+conv row also carries its persistent grid and a second yardstick that
+does the same work (``library_same_work_ms``): cuDNN's bf16 3x3
+``F.conv2d`` with padding (1, 0) over x as (n, C, Hb, W + 2)
+channels-last, the same M, N and K but another function (it mixes
+rows; on bf16 copies for the int8 rows), beside the (1, 3) one, which
+does a third of the products. The log line beside it gives the weight
+bytes the schedule asks of L2 (``probe_conv.weight_l2_bytes_model``, a
+count from the schedule, not a measurement). The comparisons:
 - int8 conv, int8 chain and the gathers: bit-equal (int32 sums are
   exact in any order; a gather copies values).
 - bf16 conv: every value within 1 bf16 ulp at the larger of the two
@@ -48,9 +62,15 @@ from spnerf_tpu_torch.kernels.probe_chain import (
     probe_chain_plain,
 )
 from spnerf_tpu_torch.kernels.probe_conv import (
+    CHANNELS,
+    ORDERS,
+    compiled_config,
+    kernel_config,
+    launch_grid,
     launch_key,
     probe_conv,
     probe_conv_plain,
+    weight_l2_bytes_model,
 )
 from spnerf_tpu_torch.kernels import probe_chain as chain_mod
 from spnerf_tpu_torch.kernels import probe_gather
@@ -58,6 +78,8 @@ from spnerf_tpu_torch.probes import gather_probe, micro_conv2, micro_conv3, mxu_
 from spnerf_tpu_torch.tools.kernel_times import _events_ms, device_ms
 
 ITERS = 3  # timed calls of each probe in the drive
+# (n, Hb, W) of the conv checks
+CHECK_SHAPES = ((1, 3, 70), (2, 3, 70), (1, 2, 16), (1, 300, 320))
 REPS = 20  # calls of each timing of a row
 SOURCES = {"conv": "spnerf_tpu_torch/kernels/csrc/probe_conv.cu",
            "chain": "spnerf_tpu_torch/kernels/csrc/probe_chain.cu",
@@ -177,6 +199,41 @@ def conv_cases():
     return cases
 
 
+def conv_checks() -> int:
+    """Every conv instance: its compiled configuration against the
+    mirror, then at the ``CHECK_SHAPES`` against its plain version, a
+    second launch bit-equal; returns the checks made."""
+    done = 0
+    for dtype in ("int8", "bf16"):
+        for order in ORDERS:
+            for C in CHANNELS:
+                t = torch.int8 if dtype == "int8" else torch.bfloat16
+                got_cfg = compiled_config(t, C, order)
+                want_cfg = kernel_config(t.itemsize, C, order == "concat")
+                if got_cfg != want_cfg:
+                    raise AssertionError(f"[probes] probe_conv {dtype} {order} C {C}: "
+                                         f"compiled {got_cfg} != mirror {want_cfg}")
+                for n, Hb, W in CHECK_SHAPES:
+                    x, w = micro_conv2.conv_operands(C, dtype, Hb, W, n, seed=C + W)
+                    name = f"{launch_key(x, order)} {n}x{Hb}x{W + 2}"
+                    got = probe_conv(x, w, order)
+                    check_equal_bits(f"{name} second launch", probe_conv(x, w, order), got)
+                    check(name, got, probe_conv_plain(x, w, order))
+                    done += 1
+    return done
+
+
+def same_work_conv(x, w9):
+    """cuDNN's bf16 3x3 conv, padding (1, 0), over x (n, Hb, W + 2, C) as
+    (n, C, Hb, W + 2) channels-last: the probe's M, N and K, not its
+    function (rows mix); int8 operands as bf16 copies."""
+    C = x.shape[-1]
+    xc = x.permute(0, 3, 1, 2).to(torch.bfloat16)  # channels-last, no copy for bf16
+    wk = w9.reshape(3, 3, C, C).permute(3, 2, 0, 1).to(torch.bfloat16)
+    wk = wk.contiguous(memory_format=torch.channels_last)
+    return lambda: F.conv2d(xc, wk, padding=(1, 0))
+
+
 def _times(fn, plain, lib, symbol):
     ms = _events_ms(fn, REPS, per_call=True)
     dev_ms, how = device_ms(fn, symbol, reps=10)
@@ -232,15 +289,25 @@ def conv_row(dtype, order, C, Hb, W, counts, peaks, n=480):
         lib, lib_name = (lambda: F.conv2d(xc, wk)), "F.conv2d (1, 3)"
     times = _times(lambda: probe_conv(x, w, order),
                    lambda: probe_conv_plain(x, w, order), lib, "probe_conv_kernel")
+    same = same_work_conv(x, w9)
+    same_ms = _events_ms(same, REPS, per_call=True)
+    same_dev_ms = device_ms(same, reps=10)[0]
     rate = peaks[0] if dtype == "int8" else peaks[3]
     moved = (x.numel() + w.numel() + got.numel()) * x.element_size()
     row = _row(key, "P1" if order == "acc9" else "P2", SOURCES["conv"],
                REPLACES[order], counts.get(key, 0), err, times,
                (2 * n * Hb * W * 9 * C * C / rate * 1e3, moved / peaks[1] * 1e3))
-    row["shape"] = [n, Hb, W + 2, C]
-    row["patch_ms"] = patch_ms
+    cfg = kernel_config(x.element_size(), C, order == "concat")
+    grid = launch_grid(x, order)
+    row.update({"shape": [n, Hb, W + 2, C], "patch_ms": patch_ms,
+                "library_name": lib_name, "library_same_work_ms": same_ms,
+                "library_same_work_device_ms": same_dev_ms, "grid": grid})
+    l2_model = weight_l2_bytes_model(n * Hb * -(-W // 64), cfg, grid)
     _log_row(row, f"x {tuple(x.shape)} {dtype} {order}", lib_name,
-             "" if patch_ms is None else f" (patches {patch_ms:.4f} ms)")
+             ("" if patch_ms is None else f" (patches {patch_ms:.4f} ms)")
+             + f"; same work: F.conv2d 3x3 bf16 {same_ms:.4f} ms (device "
+             f"{same_dev_ms:.4f}); grid {grid}, weights asked of L2 by the schedule "
+             f"(modelled) {l2_model / 1e9:.3f} GB")
     return row
 
 
@@ -321,6 +388,9 @@ def phase_probes(peaks) -> list:
     log(f"[probes] drive: launches {dict(sorted(counts.items()))}")
     if max(errors) != 0:
         raise AssertionError(f"[probes] a gather differs from numpy: {errors}")
+    log(f"[probes] conv: the 12 instances' compiled configurations equal the "
+        f"mirror; {conv_checks()} checks against the plain version, each with a "
+        "second launch bit-equal")
     rows = []
     for case in conv_cases():
         rows.append(conv_row(*case, counts, peaks))

@@ -17,7 +17,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spnerf_tpu_torch.kernels.probe_conv import pack_probe_weights
+from spnerf_tpu_torch.kernels.probe_conv import (
+    MPB,
+    kernel_config,
+    pack_probe_weights,
+    schedule,
+)
 
 
 def desc_read(smem, start, lbo, sbo, rows, kbytes):
@@ -47,88 +52,192 @@ def _fragment_rows():
     return tid // 32, lane, lane // 4, lane % 4
 
 
-def probe_conv_model(x, w, order):
+def tma_box(xb, R, Wp, PIX, c1, c2, r, box_p, box_c):
+    """The kernel's tensor-map copy: x as bytes (16 of a chunk, Wp pixels,
+    PIX / 16 chunks, R rows), the box (16, box_p, box_c, 1) at (0, c1, c2,
+    r), as it lands in shared memory: chunk-major, then pixel, then the
+    16 bytes; zeros outside the tensor."""
+    c = c2 + np.arange(box_c)[:, None, None]
+    p = c1 + np.arange(box_p)[None, :, None]
+    b = np.arange(16)[None, None, :]
+    ok = (p < Wp) & (c < PIX // 16) & (r < R)
+    src = np.where(ok, r * Wp * PIX + p * PIX + c * 16 + b, 0)
+    return np.where(ok, xb[src], 0).astype(np.uint8).reshape(-1)
+
+
+def swizzle(addr, sw):
+    """TMA's and wgmma's 128B / 64B swizzle of shared address addr: bits
+    4-6 (4-5) XOR bits 7-9 (7-8)."""
+    return addr ^ (((addr >> 7) & (7 if sw == 128 else 3)) << 4)
+
+
+def tma_box_swizzled(smem, dst, xb, R, Wp, PIX, c0, c1, r, sw):
+    """The kernel's concat copy: x as bytes (PIX of a pixel, Wp pixels, R
+    rows), the box (sw, 64, 1) at (c0, c1, r) into smem at dst, row p
+    (pixel c1 + p) at dst + p sw, swizzled; zeros outside."""
+    p = np.arange(64)[:, None]
+    b = np.arange(sw)[None, :]
+    ok = (c1 + p < Wp) & (c0 + b < PIX) & (r < R)
+    src = np.where(ok, r * Wp * PIX + (c1 + p) * PIX + c0 + b, 0)
+    smem[swizzle(dst + p * sw + b, sw)] = np.where(ok, xb[src], 0)
+
+
+def desc_read_swizzled(smem, start, sw, rows, kbytes):
+    """(rows, kbytes) bytes of a K-major operand with the 128B / 64B
+    swizzle (stride byte offset 8 sw): row r, byte b at swizzle(start +
+    r sw + b)."""
+    r = np.arange(rows)[:, None]
+    b = np.arange(kbytes)[None, :]
+    return smem[swizzle(start + r * sw + b, sw)]
+
+
+def quad_words(v, t):
+    """store_tile's quad_transpose over the 128 lanes: v (128, 4) words,
+    t the lane % 4 of each; the shuffles and selects as the kernel does
+    them."""
+    o = v.copy()
+    lanes = np.arange(128)
+    for x in range(1, 4):
+        send = v[lanes, t ^ x]
+        got = send[lanes ^ x]
+        o[lanes, t ^ x] = got
+    return o
+
+
+def byte_perm(x, y, sel):
+    """__byte_perm: byte n of the result is byte (sel >> 4 n) & 7 of y:x."""
+    both = [(x >> (8 * i)) & 255 for i in range(4)] + [(y >> (8 * i)) & 255 for i in range(4)]
+    return sum(both[(sel >> (4 * n)) & 7] << (8 * n) for n in range(4))
+
+
+def probe_conv_model(x, w, order, blocks=None):
     """``probe_conv`` as the kernel addresses it: x (n, Hb, W + 2, C) int8
-    or bf16 on the CPU, w (9, C, C) -> (n, Hb, W, C)."""
+    or bf16 on the CPU, w (9, C, C) -> (n, Hb, W, C). Every block of the
+    persistent grid (``blocks``, default a few clusters) walks its items
+    as ``probe_conv.schedule`` states; the producer's copies land in the
+    block's shared memory (resident weights, acc9's input stages in
+    planes, the ring's slots with concat's swizzled A slices and the
+    weight parts of every block of the cluster) at the kernel's offsets, each consumer
+    warpgroup reads its two M-tiles' operands through the descriptors,
+    and the epilogue writes 16-byte groups as ``store_tile`` builds
+    them."""
     s8 = x.dtype == torch.int8
     ES = 1 if s8 else 2
     n, Hb, Wp, C = x.shape
     W, R = Wp - 2, n * Hb
-    CH, KC = C * ES // 16, min(C * ES, 128) // ES
-    KCH = C // KC
-    NQ, KP, BN = 9 * KCH, KC * ES // 16, min(C, 128)
-    CHUNK = KC * ES * BN
     concat = order == "concat"
-    MT, MPB = (1, 1) if concat else (2, 4)
-    PLANE = 16 * 64 if concat else 16 * 66
-    a_bytes = 9 * CH * PLANE if concat else MPB * CH * PLANE
+    cfg = kernel_config(ES, C, concat)
+    KC, KCH, NQ, KP, BN, NB = (cfg[k] for k in ("kc", "kch", "nq", "kp", "bn", "nb"))
+    CHUNK, CL, AST, S = cfg["chunk"], cfg["cl"], cfg["ast"], cfg["s"]
+    PLANE = 16 * 66
     PIX = C * ES
-    xb = x.contiguous().view(torch.uint8).reshape(R, Wp * PIX).numpy()
+    xb = x.contiguous().view(torch.uint8).reshape(-1).numpy()
     wb = pack_probe_weights(w.reshape(9, C, C), C).view(torch.uint8).reshape(-1).numpy()
     tpr = -(-W // 64)
     n_mt = R * tpr
-    out = np.zeros((R, W, C), np.int64 if s8 else np.float64)
+    out = np.zeros(R * W * PIX, np.uint8)
+    written = np.zeros(R * W * PIX, np.int64)
     warp, lane, g, t = _fragment_rows()
-    for bx in range(-(-n_mt // MPB)):
-        for by in range(C // BN):
-            smem = np.zeros(a_bytes, np.uint8)
-            mt0 = bx * MPB
-            for i in range(MPB):
-                mt = mt0 + i
-                if mt >= n_mt:
-                    break
-                r, j0 = mt // tpr, (mt % tpr) * 64
-                if concat:
-                    e = np.arange(9 * CH * 64)
-                    c, m, tap = e % CH, (e // CH) % 64, e // (CH * 64)
-                    px = j0 + m + tap % 3
-                    dst = (tap * CH + c) * PLANE + 16 * m
-                else:  # load_planes_async: v = i % V, p = i / V
-                    e = np.arange(66 * CH)
-                    c, p = e % CH, e // CH
-                    px = j0 + p
-                    dst = i * CH * PLANE + c * PLANE + 16 * p
-                ok = px < W + 2
-                src = px * PIX + 16 * c
-                for k in range(16):
-                    smem[dst[ok] + k] = xb[r, src[ok] + k]
-            for wg in range(MPB // MT):
-                for i in range(MT):
-                    mt = mt0 + wg * MT + i
-                    if mt >= n_mt:
-                        continue
-                    acc = np.zeros((64, BN), out.dtype)
-                    for q in range(NQ):
-                        tap, kc = q // KCH, q % KCH
-                        chunk = wb[(by * NQ + q) * CHUNK:(by * NQ + q + 1) * CHUNK]
-                        if concat:
-                            a = (tap * CH + kc * KP) * PLANE
-                        else:
-                            a = ((wg * MT + i) * CH + kc * KP) * PLANE + 16 * (tap % 3)
-                        # s8_tap_issue<KC, PLANE, 128, BN> (k-steps of 32 K) /
-                        # bf16_tap_issue<KC, PLANE, 128, BN> (of 16 K): A at
-                        # a + 2 k PLANE, B at 256 k, SBO KC * 8 or KC * 16
+    if blocks is None:
+        blocks = 3 * CL
+    for block, _ in schedule(n_mt, cfg, blocks):
+        rank, smem = block % CL, np.zeros(cfg["smem"], np.uint8)
+        if cfg["res"]:
+            smem[:cfg["w_bytes"]] = wb[:cfg["w_bytes"]]
+        na = nc = 0
+        n_items = -(-n_mt // (CL * MPB))
+        for it in range(block // CL, n_items, blocks // CL):
+            mt0 = (it * CL + rank) * MPB
+            live = max(0, min(MPB, n_mt - mt0))
+            if not concat:  # the producer: this item's tiles into stage na % AST
+                stage = cfg["off_a"] + (na % AST) * cfg["a_stage"]
+                for i in range(live):
+                    mt = mt0 + i
+                    box = tma_box(xb, R, Wp, PIX, (mt % tpr) * 64, 0, mt // tpr, 66,
+                                  cfg["ch"])
+                    at = stage + i * cfg["a_tile"]
+                    smem[at:at + box.size] = box
+            for nb in range(NB):
+                acc = np.zeros((MPB, 64, BN), np.int64 if s8 else np.float64)
+                for q in range(NQ):
+                    tap, kc = q // KCH, q % KCH
+                    slot = cfg["off_ring"] + (nc % S) * cfg["slot"] if cfg["ring"] else 0
+                    if concat:
+                        for i in range(live):
+                            mt = mt0 + i
+                            tma_box_swizzled(smem, slot + i * cfg["slice"], xb, R, Wp, PIX,
+                                             kc * cfg["sw"], (mt % tpr) * 64 + tap % 3,
+                                             mt // tpr, cfg["sw"])
+                    if not cfg["res"]:  # every block's part of the chunk
+                        part = CHUNK // CL
+                        for p in range(CL):
+                            src = (nb * NQ + q) * CHUNK + p * part
+                            dst = slot + cfg["slot_a"] + p * part
+                            smem[dst:dst + part] = wb[src:src + part]
+                    b = q * CHUNK if cfg["res"] else slot + cfg["slot_a"]
+                    for i in range(live):  # M-tile wg * MT + ii of the block
+                        # k-steps of 32 bytes of K; B at b + 256 k, SBO KC * 8 ES.
+                        # acc9: s8_tap_issue / bf16_tap_issue<KC, PLANE, 128, BN>,
+                        # A at a + 2 k PLANE; concat: swizzled_issue, A at a + 32 k
                         for k in range(KC * ES // 32):
-                            A = desc_read(smem, a + 2 * k * PLANE, PLANE, 128, 64, 32)
-                            B = desc_read(chunk, 256 * k, 128, KC * 8 * ES, BN, 32)
-                            acc += values(A, s8) @ values(B, s8).T
-                    # epilogue: register 4 j + 2 h + e of thread (warp, g, t)
-                    r, j0 = mt // tpr, (mt % tpr) * 64
-                    for h in range(2):
-                        row = 16 * warp + g + 8 * h
-                        px = j0 + row
-                        for j in range(BN // 8):
-                            for e in range(2):
-                                ch = 8 * j + 2 * t + e
-                                v = acc[row, ch]
-                                keep = px < W
-                                out[r, px[keep], by * BN + ch[keep]] = v[keep]
-    out = np.maximum(out, 0)
-    if s8:
-        y = torch.from_numpy(((out & 255) ^ 128) - 128).to(torch.int8)
-    else:
-        y = _bf16(out)
+                            if concat:
+                                A = desc_read_swizzled(smem, slot + i * cfg["slice"] + 32 * k,
+                                                       cfg["sw"], 64, 32)
+                            else:
+                                a = stage + i * cfg["a_tile"] + kc * KP * PLANE + 16 * (tap % 3)
+                                A = desc_read(smem, a + 2 * k * PLANE, PLANE, 128, 64, 32)
+                            B = desc_read(smem, b + 256 * k, 128, KC * 8 * ES, BN, 32)
+                            acc[i] += values(A, s8) @ values(B, s8).T
+                    nc += 1
+                for i in range(live):
+                    _store_tile(acc[i], out, written, mt0 + i, nb, tpr, W, C, BN, s8,
+                                warp, g, t)
+            na += 1
+    assert (written == 1).all(), "every output byte written once"
+    y = torch.from_numpy(out.reshape(R, W, PIX))
+    y = y.view(torch.int8) if s8 else y.view(torch.bfloat16)
     return y.reshape(n, Hb, W, C)
+
+
+def _store_tile(acc, out, written, mt, nb, tpr, W, C, BN, s8, warp, g, t):
+    """store_tile: per row half h, the words of each lane (ReLU, the cast
+    or bf16 rounding), the quad transpose, and lane t's 16-byte groups
+    4 m + t of its pixel's N-block."""
+    ES = 1 if s8 else 2
+    NW = BN // 16 if s8 else BN // 8
+    r, j0 = mt // tpr, (mt % tpr) * 64
+    for h in range(2):
+        row = 16 * warp + g + 8 * h
+        px = j0 + row
+        val = acc[row]  # (128, BN): the lane's row of the accumulator
+
+        def a(j, e):  # register 4 j + 2 h + e: channel 8 j + 2 t + e
+            return val[np.arange(128), 8 * j + 2 * t + e]
+
+        for m in range(NW // 4):
+            v = np.zeros((128, 4), np.int64)
+            for i in range(4):
+                k = 4 * m + i
+                if s8:
+                    parts = [a(2 * k, 0), a(2 * k, 1), a(2 * k + 1, 0), a(2 * k + 1, 1)]
+                    v[:, i] = sum((np.maximum(p, 0) & 255) << (8 * n) for n, p in enumerate(parts))
+                else:
+                    lo, hi = (torch.from_numpy(np.maximum(a(k, e), 0).astype(np.float32))
+                              .to(torch.bfloat16).view(torch.int16).numpy()
+                              .astype(np.int64) & 0xFFFF for e in (0, 1))
+                    v[:, i] = lo | (hi << 16)
+            v = quad_words(v, t)
+            if s8:
+                words = [byte_perm(v[:, 0], v[:, 1], 0x5410), byte_perm(v[:, 2], v[:, 3], 0x5410),
+                         byte_perm(v[:, 0], v[:, 1], 0x7632), byte_perm(v[:, 2], v[:, 3], 0x7632)]
+            else:
+                words = [v[:, i] for i in range(4)]
+            for lane_id in np.nonzero(px < W)[0]:
+                at = ((r * W + px[lane_id]) * C + nb * BN) * ES + (4 * m + t[lane_id]) * 16
+                for wi, word in enumerate(words):
+                    for byte in range(4):
+                        out[at + 4 * wi + byte] = (int(word[lane_id]) >> (8 * byte)) & 255
+                written[at:at + 16] += 1
 
 
 def s8_unit(k):

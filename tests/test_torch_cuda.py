@@ -2172,8 +2172,7 @@ def test_conv_int32_on_card_at_block_shapes(card):
 
 
 PROBE_CONV_CASES = [(dt, order, C) for dt in ("int8", "bf16")
-                    for order in ("acc9", "concat") for C in (64, 128, 256)
-                    if not (dt == "bf16" and order == "concat" and C == 256)]
+                    for order in ("acc9", "concat") for C in (64, 128, 256)]
 
 
 @pytest.mark.cuda
@@ -2205,6 +2204,48 @@ def test_probe_conv_on_card(card, dtype, order, C):
         assert torch.equal(got, want)
     else:
         assert bf16_ulps(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,order,C", [("int8", "acc9", 128), ("bf16", "acc9", 256),
+                                           ("int8", "concat", 256), ("bf16", "concat", 64),
+                                           ("bf16", "concat", 256)])
+def test_probe_conv_grids_on_card(card, dtype, order, C):
+    """The persistent schedule at the grids the launch picks for small and
+    narrow work against the plain version, a second launch bit-equal: 3
+    rows of W 70 (6 M-tiles: fewer items than SMs, an idle cluster rank),
+    40 rows of W 200 (160 M-tiles), 2 rows of W 16 (a row narrower than
+    the input tile: the tensor map's box past the row) and 300 rows of W
+    320 (1,500 M-tiles: more items than clusters, each block walking
+    several)."""
+    from spnerf_tpu_torch.kernels.probe_conv import launch_grid, probe_conv, probe_conv_plain
+    from spnerf_tpu_torch.probes.micro_conv2 import conv_operands
+    from spnerf_tpu_torch.tools.smoke_probes import bf16_ulps
+
+    for Hb, W in ((3, 70), (40, 200), (2, 16), (300, 320)):
+        x, w = conv_operands(C, dtype, Hb=Hb, W=W, n=1, device="cuda", seed=C + 1)
+        assert launch_grid(x, order) >= 1
+        got = probe_conv(x, w, order)
+        assert torch.equal(probe_conv(x, w, order).view(torch.uint8), got.view(torch.uint8))
+        want = probe_conv_plain(x, w, order)
+        if dtype == "int8":
+            assert torch.equal(got, want), (Hb, W)
+        else:
+            assert bf16_ulps(got, want) <= 1.0, (Hb, W)
+
+
+@pytest.mark.cuda
+def test_probe_conv_config_on_card(card):
+    """The buffers, cluster and ring each of the 12 instances was compiled
+    with equal ``probe_conv.kernel_config``'s mirror, which the CPU model
+    of the kernel and the schedule's tests read."""
+    from spnerf_tpu_torch.kernels.probe_conv import compiled_config, kernel_config
+
+    for dtype in (torch.int8, torch.bfloat16):
+        for order in ("acc9", "concat"):
+            for C in (64, 128, 256):
+                want = kernel_config(2 if dtype == torch.bfloat16 else 1, C, order == "concat")
+                assert compiled_config(dtype, C, order) == want, (dtype, order, C)
 
 
 @pytest.mark.cuda
@@ -2270,9 +2311,8 @@ def test_probe_wrappers_refuse_on_card(card):
     from spnerf_tpu_torch.kernels.probe_gather import gather_rows
 
     x = torch.zeros((1, 1, 10, 256), dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError):
-        probe_conv(x, torch.zeros((9, 256, 256), dtype=torch.bfloat16,
-                                  device="cuda"), "concat")
+    with pytest.raises(ValueError):  # no float32 instance
+        probe_conv(x.float(), torch.zeros((9, 256, 256), device="cuda"), "concat")
     with pytest.raises(ValueError):
         probe_conv(x[..., :96], torch.zeros((9, 96, 96), dtype=torch.bfloat16,
                                             device="cuda"))

@@ -16,6 +16,7 @@ seeded inputs within depth x 2^-9 in norm
 (``tools/smoke_probes.py`` states both bounds).
 """
 
+import collections
 import importlib.util
 from pathlib import Path
 
@@ -29,9 +30,11 @@ from jax.experimental.pallas import tpu as pltpu
 from _probe_tc import probe_chain_model, probe_conv_model
 from spnerf_tpu_torch.kernels.probe_chain import probe_chain, probe_chain_plain
 from spnerf_tpu_torch.kernels.probe_conv import (
+    kernel_config,
     pack_probe_weights,
     probe_conv,
     probe_conv_plain,
+    schedule,
 )
 from spnerf_tpu_torch.kernels.probe_gather import (
     gather_columns_plain,
@@ -108,14 +111,47 @@ def test_conv_probe_matches_tpu_kernel(monkeypatch, file, order, dtype):
 
 @pytest.mark.parametrize("dtype,order,C", [
     (dt, order, C) for dt in ("int8", "bf16") for order in ("acc9", "concat")
-    for C in (64, 128, 256) if not (dt == "bf16" and order == "concat" and C == 256)])
+    for C in (64, 128, 256)])
 def test_conv_kernel_addressing(dtype, order, C):
-    """``csrc/probe_conv.cu``'s planes, patch, weight chunks and fragment
-    epilogue (modelled) against the plain version: 3 rows of W 70 (two
-    M-tiles a row, the second ragged; a block with dead M-tiles)."""
+    """``csrc/probe_conv.cu``'s tensor-map boxes, input stages, ring slots
+    (concat's A slices, the weight parts of a cluster's blocks), resident
+    weights, descriptors and 16-byte epilogue (modelled) against the
+    plain version: 3 rows of W 70 (two M-tiles a row, the second ragged;
+    an item with dead M-tiles), the grid of three clusters walking
+    several items each."""
     x, w = micro_conv2.conv_operands(C, dtype, Hb=3, W=70, n=1, device="cpu",
                                      seed=C)
     _assert_close(probe_conv_model(x, w, order), probe_conv_plain(x, w, order))
+
+
+@pytest.mark.parametrize("order", ["acc9", "concat"])
+def test_conv_kernel_schedule(order):
+    """The persistent walk (``probe_conv.schedule``) computes every
+    (M-tile, N-block) pair exactly once, at every instance's cluster
+    size and N-blocks, for grids of one cluster, a few, the SMs of an
+    H100 (132) and more blocks than items; R below the SM count, the
+    ragged W 70 and the probe files' rows. Every instance's buffers fit
+    a block's shared memory."""
+    for es, C in ((1, 64), (1, 128), (1, 256), (2, 64), (2, 128), (2, 256)):
+        cfg = kernel_config(es, C, order == "concat")
+        assert cfg["smem"] <= 232448 and (cfg["ast"] >= 1 or order == "concat")
+        for R, W in ((3, 70), (1, 640), (50, 200), (3840, 640)):
+            n_mt = R * -(-W // 64)
+            for blocks in (cfg["cl"], 3 * cfg["cl"], 132, 4 * n_mt * cfg["cl"]):
+                seen = collections.Counter()
+                for _, visits in schedule(n_mt, cfg, blocks):
+                    seen.update(visits)
+                want = {(mt, nb) for mt in range(n_mt) for nb in range(cfg["nb"])}
+                assert set(seen) == want and max(seen.values()) == 1, (es, C, R, W, blocks)
+
+
+def test_conv_kernel_model_grids():
+    """The modelled kernel at grids of one cluster and of more blocks than
+    items gives the plain version's output (int8, bit for bit)."""
+    x, w = micro_conv2.conv_operands(256, "int8", Hb=2, W=70, n=1, device="cpu", seed=9)
+    want = probe_conv_plain(x, w, "acc9")
+    for blocks in (2, 40):
+        assert torch.equal(probe_conv_model(x, w, "acc9", blocks=blocks), want)
 
 
 def test_pack_probe_weights_layout():
