@@ -265,8 +265,11 @@ Phases, each of which raises on failure (nothing is caught):
    gathers at the file's sizes and at a 2^18 x 128 table), the launch
    counters at 0 before; then each kernel instance against its plain
    version (int8 and the gathers bit-equal, bf16 within the bounds that
-   module states), a second launch bit-equal, with ms, device ms, the
-   plain version's and the library call's ms and the bound.
+   module states), a second launch bit-equal, at the module's check
+   shapes (the conv's ragged and many-item shapes; the chain at 64, 200
+   and 8,256 rows, depths 1-3 and 32; the column gather at ragged widths
+   and N != T), then one row per instance with ms, device ms, the plain
+   version's and the library call's ms and the bound.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script

@@ -63,7 +63,16 @@ also held against the plain version; a tree whose wrapper refuses an
 instance (``ValueError``) is left out of its row. Each row carries the bound, the share of it, the
 grid, the weight bytes the schedule asks of L2 (``weight_l2_bytes_model``:
 counted from the schedule, not measured), and the host time of a call
-(the tensor map's encoding included).
+(the tensor map's encoding included). ``--match probe_chain`` and
+``--match probe_gather`` (comma-joined with the others in one call) do
+the same for the chain probe (P3: bf16 and int8 at the probe's all-ones
+R 8,192, depth 32 and depth 1, bit-equal to the plain version) and the
+three gathers (P4: rows, columns, in-rows at the TPU file's sizes and
+past the L2, the column form also with 2^18 x 128 indices into tables of
+2^12 and 2^17 rows; bit-equal), each row with its bound and share; a column
+row also carries the HBM bytes each traversal's schedule asks for, flat
+and slab by slab (``probe_gather.column_hbm_bytes_model``: counted under
+its stated rule, not measured).
 
 ``--routes`` times the serving routes end to end instead, through the
 public entry points only (``build_inference``, ``ServingSuperPoint``),
@@ -770,10 +779,10 @@ PROBE_CONV_EXTRA = [("bf16", "acc9", 128, 16, 640), ("int8", "acc9", 256, 16, 32
                     ("bf16", "concat", 256, 8, 320)]
 
 
-def _load_parent_probe_conv(root: Path):
-    """``kernels/probe_conv.py`` of the tree at ``root`` as a module of its
-    own, over that tree's ``_build`` (its library built under
-    ``root/build``)."""
+def _load_parent(root: Path, names: list) -> dict:
+    """``kernels/<name>.py`` of the tree at ``root`` for each name, as
+    modules of their own over one copy of that tree's ``_build`` (its
+    libraries built under ``root/build``); {name: module}."""
     import importlib.util
 
     from spnerf_tpu_torch import kernels as pkg
@@ -789,7 +798,7 @@ def _load_parent_probe_conv(root: Path):
     own = pkg._build
     pkg._build = build  # the parent's `from spnerf_tpu_torch.kernels import _build`
     try:
-        return load("parent_probe_conv", kernels / "probe_conv.py")
+        return {name: load(f"parent_{name}", kernels / f"{name}.py") for name in names}
     finally:
         pkg._build = own
 
@@ -808,23 +817,64 @@ def _host_us(fn, reps: int = 50) -> float:
     return statistics.median(times)
 
 
-def probe_conv_ab(parents: list) -> list:
-    """The conv probe at P1's and P2's shapes, and the parent trees' on
-    the same operands (module docstring)."""
+def _parent_trees(parents: list, name: str) -> dict:
+    """{tree's directory name: its module ``name``}, every tree's library
+    and this tree's built at once."""
     import threading
 
     from spnerf_tpu_torch.kernels import _build
-    from spnerf_tpu_torch.kernels import probe_conv as P
-    from spnerf_tpu_torch.probes.micro_conv2 import conv_operands
-    from spnerf_tpu_torch.tools.smoke_probes import check, conv_cases
 
-    trees = {Path(p).name: _load_parent_probe_conv(Path(p)) for p in parents}
-    builds = [threading.Thread(target=b.build_all, args=(["probe_conv"],))
+    trees = {Path(p).name: _load_parent(Path(p), [name])[name] for p in parents}
+    builds = [threading.Thread(target=b.build_all, args=([name],))
               for b in [_build] + [m._build for m in trees.values()]]
     for b in builds:
         b.start()
     for b in builds:
         b.join()
+    return trees
+
+
+def _ab_turns(row: dict, new_fn, others: list, symbol: str) -> dict:
+    """Time the parents, change, change, the parents in reverse on the
+    same operands: device ms of the kernels whose symbol holds
+    ``symbol`` (profiler), ms around a call (events), host us a call; the
+    share of ``row["bound_ms"]`` at the change's best device time."""
+    turns = others + [("change", new_fn), ("change", new_fn)] + others[::-1]
+    for kind, fn in turns:
+        kernels = device_kernels(fn)
+        dev = sum(ms for k, (ms, _) in kernels.items() if symbol in k)
+        row.setdefault(f"{kind}_device_ms", []).append(dev if kernels else None)
+        row.setdefault(f"{kind}_wrapper_ms", []).append(_events_ms(fn, REPS, per_call=True))
+        row.setdefault(f"{kind}_host_us", []).append(_host_us(fn))
+    seen = [v for v in row["change_device_ms"] if v is not None]
+    row["share_of_bound"] = row["bound_ms"] / min(seen) if seen and min(seen) else None
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def _others(trees: dict, label: str, call, got, check) -> list:
+    """[(tree, fn)] of the trees whose wrapper takes the case, each one's
+    output held against the change's by ``check``."""
+    others = []
+    for name, mod in trees.items():
+        fn = lambda m=mod: call(m)  # noqa: E731
+        try:
+            old = fn()
+        except ValueError:  # no such instance in that tree
+            continue
+        check(f"{name} {label}", old, got)
+        others.append((name, fn))
+    return others
+
+
+def probe_conv_ab(parents: list) -> list:
+    """The conv probe at P1's and P2's shapes, and the parent trees' on
+    the same operands (module docstring)."""
+    from spnerf_tpu_torch.kernels import probe_conv as P
+    from spnerf_tpu_torch.probes.micro_conv2 import conv_operands
+    from spnerf_tpu_torch.tools.smoke_probes import check, conv_cases
+
+    trees = _parent_trees(parents, "probe_conv")
     rows = []
     for dtype, order, C, Hb, W in conv_cases() + PROBE_CONV_EXTRA:
         n = 480
@@ -840,36 +890,106 @@ def probe_conv_ab(parents: list) -> list:
         moved = (x.numel() + w.numel() + got.numel()) * es
         bound = max(ops / PEAK_OPS[dtype], moved / HBM_RATE) * 1e3
         check(f"plain {label}", got, P.probe_conv_plain(x, w, order))
-        others = []
-        for name, mod in trees.items():
-            old_fn = lambda x=x, w=w, order=order, m=mod: m.probe_conv(x, w, order)  # noqa: E731
-            try:
-                old_got = old_fn()
-            except ValueError:  # no such instance in that tree
-                continue
-            check(f"{name} {label}", old_got, got)
-            others.append((name, old_fn))
-        turns = others + [("change", new_fn), ("change", new_fn)] + others[::-1]
+        others = _others(trees, label, lambda m, x=x, w=w, order=order: m.probe_conv(x, w, order),
+                         got, check)
         row = {"case": label, "dtype": dtype, "order": order, "C": C,
                "shape": [n, Hb, W + 2, C], "bound_ms": bound,
                "bound_by": "operations" if ops / PEAK_OPS[dtype] >= moved / HBM_RATE
                else "bytes", "grid": grid, "weight_l2_bytes_model":
                P.weight_l2_bytes_model(n * Hb * -(-W // 64), cfg, grid),
                "resident_weights": cfg["res"], "cluster": cfg["cl"]}
-        for kind, fn in turns:
-            kernels = device_kernels(fn)
-            dev = sum(ms for k, (ms, _) in kernels.items() if "probe_conv_kernel" in k)
-            row.setdefault(f"{kind}_device_ms", []).append(dev if kernels else None)
-            row.setdefault(f"{kind}_wrapper_ms", []).append(_events_ms(fn, REPS, per_call=True))
-            row.setdefault(f"{kind}_host_us", []).append(_host_us(fn))
-        best = min(v for v in row["change_device_ms"] if v is not None) \
-            if any(v is not None for v in row["change_device_ms"]) else None
-        row["share_of_bound"] = bound / best if best else None
-        rows.append(row)
-        print(json.dumps(row), flush=True)
+        rows.append(_ab_turns(row, new_fn, others, "probe_conv_kernel"))
         del x, w, w9, got
         torch.cuda.empty_cache()
     return rows
+
+
+def probe_chain_ab(parents: list) -> list:
+    """The chain probe (P3) at ``mxu_probe.chain``'s operands (all ones,
+    R 8,192) at depth 32 and at depth 1 (the fixed cost: w staged, x
+    read, the last layer written), bf16 and int8, beside the parent
+    trees'; every output bit-equal to the change's and to the plain
+    version's."""
+    from spnerf_tpu_torch.kernels import probe_chain as P
+    from spnerf_tpu_torch.probes.mxu_probe import DTYPES
+    from spnerf_tpu_torch.tools.smoke_probes import CHAIN_ROWS, check_equal_bits
+
+    trees = _parent_trees(parents, "probe_chain")
+    rows = []
+    for dtype in ("bf16", "int8"):
+        for depth in (32, 1):
+            x = torch.ones((CHAIN_ROWS, P.K), dtype=DTYPES[dtype], device="cuda")
+            w = torch.ones((P.K, P.K), dtype=DTYPES[dtype], device="cuda")
+            label = f"{P.launch_key(x)} R {CHAIN_ROWS} depth {depth}"
+            new_fn = lambda x=x, w=w, depth=depth: P.probe_chain(x, w, depth)  # noqa: E731
+            got = new_fn()
+            check_equal_bits(f"plain {label}", got, P.probe_chain_plain(x, w, depth))
+            others = _others(trees, label, lambda m, x=x, w=w, depth=depth:
+                             m.probe_chain(x, w, depth), got, check_equal_bits)
+            ops = 2 * CHAIN_ROWS * P.K * P.K * depth
+            moved = (2 * x.numel() + w.numel()) * x.element_size()
+            t_ops, t_bytes = ops / PEAK_OPS[dtype] * 1e3, moved / HBM_RATE * 1e3
+            row = {"case": label, "dtype": dtype, "rows": CHAIN_ROWS, "depth": depth,
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            rows.append(_ab_turns(row, new_fn, others, "probe_chain_kernel"))
+    return rows
+
+
+# tables of 2^12 rows (2 MB: all of it in L2) and 2^17 (64 MB) for the
+# column gather's 2^18 x 128 indices, beside the probe's 2^18 rows
+COLUMN_TABLES = (1 << 12, 1 << 17)
+
+
+def column_operands(T: int, N: int = 1 << 18, F: int = 128):
+    """``gather_probe.operands``' column table (T, F) with (N, F) indices
+    from ``np.random.default_rng(0)``."""
+    table = (torch.arange(T * F, device="cuda") % 997).float().reshape(T, F)
+    idx = np.random.default_rng(0).integers(0, T, (N, F)).astype(np.int32)
+    return table, torch.from_numpy(idx).cuda()
+
+
+def probe_gather_ab(parents: list) -> list:
+    """The three gathers (P4) at ``gather_probe``'s operands, the TPU
+    file's sizes and past the L2, and the column form at the
+    ``COLUMN_TABLES``, beside the parent trees'; every output bit-equal
+    to the change's and to the plain version's. The column rows also
+    carry the HBM bytes each traversal's schedule asks for
+    (``column_hbm_bytes_model``: counted, not measured)."""
+    from spnerf_tpu_torch.kernels import probe_gather as P
+    from spnerf_tpu_torch.probes import gather_probe
+    from spnerf_tpu_torch.tools.smoke_probes import PLAIN_GATHERS, check_equal_bits
+
+    trees = _parent_trees(parents, "probe_gather")
+    calls = {"rows": "gather_rows", "columns": "gather_columns", "in-rows": "gather_in_rows"}
+    cases = [(name, form, where, lambda f=form, sh=shape: gather_probe.operands(f, "cuda", **sh))
+             for name, form, size in gather_probe.PROBES
+             for where, shape in (("file", size), ("past L2", gather_probe.PAST_L2[form]))]
+    cases += [("take_along_axis sublane", "columns", f"table {T}", lambda T=T: column_operands(T))
+              for T in COLUMN_TABLES]
+    rows = []
+    for name, form, where, make in cases:
+        src, idx = make()
+        label = f"{P.launch_key(form)} {where} {tuple(src.shape)} x {tuple(idx.shape)}"
+        new_fn = lambda f=getattr(P, calls[form]), s=src, i=idx: f(s, i)  # noqa: E731
+        got = new_fn()
+        check_equal_bits(f"plain {label}", got, PLAIN_GATHERS[form](src, idx))
+        others = _others(trees, label, lambda m, c=calls[form], s=src, i=idx:
+                         getattr(m, c)(s, i), got, check_equal_bits)
+        moved = gather_probe.moved_bytes(form, src, idx)
+        row = {"case": label, "form": form, "probe": name, "moved_bytes": moved,
+               "bound_ms": moved / HBM_RATE * 1e3, "bound_by": "bytes"}
+        if form == "columns":
+            row["hbm_bytes_model"] = {order: P.column_hbm_bytes_model(idx, src.shape[0], order)
+                                      for order in ("flat", "slabs")}
+        rows.append(_ab_turns(row, new_fn, others, "gather_"))
+        del src, idx, got, new_fn, others
+        torch.cuda.empty_cache()
+    return rows
+
+
+PROBE_ABS = {"probe_conv": probe_conv_ab, "probe_chain": probe_chain_ab,
+             "probe_gather": probe_gather_ab}
 
 
 ROUTES = [  # label, mode, fused, batch
@@ -941,7 +1061,8 @@ def main(argv=None) -> int:
                         help="comma-separated substrings: time only the "
                              "cases whose label holds one of them")
     parser.add_argument("--parent", action="append", default=[],
-                        help="with --match probe_conv: the root of another "
+                        help="with --match probe_conv, probe_chain or "
+                        "probe_gather: the root of another "
                         "tree of the repository to time beside this one "
                         "(may be given more than once)")
     args = parser.parse_args(argv)
@@ -959,12 +1080,12 @@ def main(argv=None) -> int:
                 json.dump({"card": card, "routes": results}, f, indent=1)
         return 0
     match = [m for m in args.match.split(",") if m]
-    if "probe_conv" in match:
-        results = probe_conv_ab(args.parent)
+    probes = {m: PROBE_ABS[m](args.parent) for m in match if m in PROBE_ABS}
+    if probes:
         if args.out:
             with open(args.out, "w") as f:
-                json.dump({"card": card, "probe_conv": results}, f, indent=1)
-        match.remove("probe_conv")
+                json.dump({"card": card, **probes}, f, indent=1)
+        match = [m for m in match if m not in PROBE_ABS]
         if not match:
             return 0
     from spnerf_tpu_torch.kernels import _build

@@ -16,9 +16,17 @@ the drive runs nine of the twelve) holds its compiled buffers equal to
 (W 70, a second M-tile of 6 pixels; 3 rows, fewer items than SMs; W
 16, a row narrower than the input tile; 300 rows of W 320, more items
 than clusters, so that every block walks several) against its plain
-version, a second launch bit-equal. Then one row for each kernel instance at the first drive
-shape that launched it: the kernel against its plain version on the
-card, a second launch bit-equal to the first, ms (CUDA events around one
+version, a second launch bit-equal. The chain (both types) runs at the
+``CHAIN_CHECKS`` (R 64, one block; 200, a partial last block; 8,256, one
+block past the probe's 128; depths 1, 2, 3 and 32: both register-set
+parities of the pipelined kernel, the last layer after a first or a
+second) on seeded inputs, and the column gather at the
+``GATHER_CHECKS`` (F 100, a ragged last slab; 7, one partial slab; N !=
+T; ragged and whole last chunks of rows; indices outside the table),
+each against its plain version with a second launch bit-equal. Then one
+row for each kernel instance at the first drive shape that launched it:
+the kernel against its plain version on the card, a second launch
+bit-equal to the first, ms (CUDA events around one
 call, median of ``REPS``), device ms (``torch.profiler``, the kernel's
 symbol), the plain version's ms, the library call's, and the bound. A
 conv row also carries its persistent grid and a second yardstick that
@@ -80,6 +88,9 @@ from spnerf_tpu_torch.tools.kernel_times import _events_ms, device_ms
 ITERS = 3  # timed calls of each probe in the drive
 # (n, Hb, W) of the conv checks
 CHECK_SHAPES = ((1, 3, 70), (2, 3, 70), (1, 2, 16), (1, 300, 320))
+# (rows, depths) of the chain checks; (T, F, N) of the column gather's
+CHAIN_CHECKS = ((64, 200, 8256), (1, 2, 3, 32))
+GATHER_CHECKS = ((1000, 100, 389), (77, 7, 300), (5000, 128, 256), (300, 128, 4097))
 REPS = 20  # calls of each timing of a row
 SOURCES = {"conv": "spnerf_tpu_torch/kernels/csrc/probe_conv.cu",
            "chain": "spnerf_tpu_torch/kernels/csrc/probe_chain.cu",
@@ -220,6 +231,45 @@ def conv_checks() -> int:
                     check_equal_bits(f"{name} second launch", probe_conv(x, w, order), got)
                     check(name, got, probe_conv_plain(x, w, order))
                     done += 1
+    return done
+
+
+def column_operands(T, F, N, seed, device="cuda"):
+    """A seeded (T, F) float32 table and (N, F) int32 indices in [-3, T +
+    3): some outside the table on both sides."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    table = torch.randn((T, F), generator=gen, device=device)
+    idx = torch.randint(-3, T + 3, (N, F), generator=gen, device=device, dtype=torch.int32)
+    return table, idx
+
+
+def chain_gather_checks() -> int:
+    """The chain at the ``CHAIN_CHECKS`` and the column gather at the
+    ``GATHER_CHECKS``, each against its plain version (module docstring's
+    comparisons) with a second launch bit-equal; returns the checks
+    made."""
+    done = 0
+    rows, depths = CHAIN_CHECKS
+    for dtype in ("bf16", "int8"):
+        for R in rows:
+            x, w = chain_operands(dtype, R=R, seed=11 + R)
+            for depth in depths:
+                name = f"{chain_mod.launch_key(x)} R {R} depth {depth}"
+                got, want = probe_chain(x, w, depth), probe_chain_plain(x, w, depth)
+                check_equal_bits(f"{name} second launch", probe_chain(x, w, depth), got)
+                if dtype == "int8" or depth == 1:
+                    check(name, got, want)
+                elif not chain_rel_error(got, want) <= depth * CHAIN_ULP:
+                    raise AssertionError(f"{name}: relative error "
+                                         f"{chain_rel_error(got, want)}")
+                done += 1
+    for T, F, N in GATHER_CHECKS:
+        table, idx = column_operands(T, F, N, seed=T + F + N)
+        name = f"{probe_gather.launch_key('columns')} T {T} F {F} N {N}"
+        got = probe_gather.gather_columns(table, idx)
+        check_equal_bits(f"{name} second launch", probe_gather.gather_columns(table, idx), got)
+        check_equal_bits(name, got, probe_gather.gather_columns_plain(table, idx))
+        done += 1
     return done
 
 
@@ -391,6 +441,8 @@ def phase_probes(peaks) -> list:
     log(f"[probes] conv: the 12 instances' compiled configurations equal the "
         f"mirror; {conv_checks()} checks against the plain version, each with a "
         "second launch bit-equal")
+    log(f"[probes] chain and column gather: {chain_gather_checks()} checks against "
+        "the plain versions, each with a second launch bit-equal")
     rows = []
     for case in conv_cases():
         rows.append(conv_row(*case, counts, peaks))

@@ -246,105 +246,196 @@ def s8_unit(k):
             + 2 * ((k % 16) // 4) + k % 2)
 
 
+def chain_ops(depth, nk):
+    """``csrc/probe_chain.cu``'s sequence of one block for ``depth`` layers
+    of ``nk`` k-steps (bf16 8, int8 4): ``("issue", half, k-steps,
+    parity)`` (a product into accumulator half ``half``; k-step ks reads
+    register set ``("lo", parity)`` for ks < nk / 2, ``"hi"`` else; ks 0
+    overwrites the accumulators), ``("commit",)``, ``("wait", n)``
+    (wgmma.wait_group n), ``("epilogue", half, parity)`` (half 0 writes
+    ``("lo", parity)``, half 1 ``"hi"``) and ``("store", half)``:
+    ``bf16_layer`` / ``s8_layer`` for layers 1, 2, ... (parity l % 2),
+    then the last layer's stores."""
+    ops = []
+    for layer in range(1, depth + 1):
+        p = layer % 2
+        ops += [("issue", 0, range(nk), 1 - p), ("commit",), ("issue", 1, range(nk), 1 - p),
+                ("commit",), ("wait", 1)]
+        if layer == depth:
+            return ops + [("store", 0), ("wait", 0), ("store", 1)]
+        ops += [("epilogue", 0, p), ("wait", 0), ("epilogue", 1, p)]
+    return ops
+
+
+def _chain_regs(ks, p, m):
+    return ("lo", p) if ks < m else ("hi",)
+
+
+def chain_hazards(ops, nk):
+    """Run ``ops`` symbolically: every product of layer l must read x_(l-1)
+    (as the registers hold it when its group completes: wgmma reads its A
+    registers until then) into an accumulator half that holds layer l's
+    sums; an epilogue or store reads a half only with no group pending on
+    it and all nk k-steps of one layer summed; an epilogue writes
+    registers no pending group reads. Returns the layers stored; raises
+    AssertionError on a hazard."""
+    m = nk // 2
+    held = {("lo", 0): 0, ("lo", 1): None, ("hi",): 0}  # the x_l each set holds
+    acc = [None, None]  # (layer, k-steps summed) of each half
+    issued, pending, group, stored = [0, 0], [], [], []
+    for op in ops:
+        if op[0] == "issue":
+            _, half, steps, p = op
+            steps = list(steps)
+            if steps[0] == 0:
+                issued[half] += 1
+            group += [(half, ks, p, issued[half]) for ks in steps]
+        elif op[0] == "commit":
+            pending.append(group)
+            group = []
+        elif op[0] == "wait":
+            while len(pending) > op[1]:
+                for half, ks, p, layer in pending.pop(0):
+                    assert held[_chain_regs(ks, p, m)] == layer - 1, (op, half, ks, layer)
+                    if ks == 0:
+                        acc[half] = (layer, set())
+                    assert acc[half][0] == layer and ks not in acc[half][1]
+                    acc[half][1].add(ks)
+        else:
+            half = op[1]
+            busy = [g for grp in pending + [group] for g in grp]
+            assert all(g[0] != half for g in busy), op
+            assert acc[half] is not None and acc[half][1] == set(range(nk)), op
+            if op[0] == "store":
+                stored.append(acc[half][0])
+                continue
+            dst = ("lo", op[2]) if half == 0 else ("hi",)
+            assert all(_chain_regs(ks, p, m) != dst for _, ks, p, _ in busy), op
+            held[dst] = acc[half][0]
+    assert not pending and not group
+    return stored
+
+
 def probe_chain_model(x, w, depth):
-    """``probe_chain`` as the kernel addresses it, on the CPU."""
+    """``probe_chain`` as the kernel addresses it, on the CPU: the staged B
+    halves, the register fragments and the epilogues from the kernel's
+    expressions, run in ``chain_ops``' order; each product reads its A
+    registers when its group completes (the latest the card may), so an
+    epilogue that overwrote them early would show in the result."""
     s8 = x.dtype == torch.int8
     K = 128
     R = x.shape[0]
-    xn = x.contiguous().view(torch.uint8).numpy().reshape(R, K * (1 if s8 else 2))
+    ES = 1 if s8 else 2
+    nk = 4 if s8 else 8
+    m, kw = nk // 2, 32 if s8 else 16  # k-steps a register set, K columns a k-step
+    xn = x.contiguous().view(torch.uint8).numpy().reshape(R, K * ES)
     wn = w.contiguous().view(torch.uint8).numpy().reshape(K, -1)
-    # the staged B operand, bytes
-    sw = np.zeros(K * K * (1 if s8 else 2), np.uint8)
-    k, nn = np.divmod(np.arange(K * K), K)
+    # the staged B operand, bytes, as stage_w writes it: thread n's 16-byte
+    # row c at ((n / 8) chunks + c) 128 + (n % 8) 16, byte b of it from
+    # row s8_unit(16 c + b) of w (int8) or half-word b / 2 of row 8 c + b / 2
+    chunks = K * K * ES // 16 // 128
+    sw = np.zeros(K * K * ES, np.uint8)
+    nn, c, b = np.meshgrid(np.arange(K), np.arange(chunks), np.arange(16), indexing="ij")
+    at = ((nn // 8) * chunks + c) * 128 + (nn % 8) * 16 + b
     if s8:
-        sw[((nn // 8) * (K // 16) + k // 16) * 128 + (nn % 8) * 16 + k % 16] = \
-            wn[s8_unit(k), nn]
+        sw[at] = wn[s8_unit(16 * c + b), nn]
     else:
-        el = ((nn // 8) * (K // 8) + k // 8) * 64 + (nn % 8) * 8 + k % 8
-        sw[2 * el], sw[2 * el + 1] = wn[k, 2 * nn], wn[k, 2 * nn + 1]
+        sw[at] = wn[8 * c + b // 2, 2 * nn + b % 2]
+    # B of (half, k-step): m64n64, half c at 8 core-matrix rows of N on
+    sbo = 1024 if s8 else 2048
+    B = {(c, ks): values(desc_read(sw, c * 8 * sbo + ks * 256, 128, sbo, 64, 32), s8)
+         for c in range(2) for ks in range(nk)}
     warp, lane, g, t = _fragment_rows()
-    out = np.zeros((R, K * (1 if s8 else 2)), np.uint8)
+    if s8:
+        q = lambda v: (np.clip(v >> 7, -127, 127) & 255).astype(np.uint32)  # noqa: E731
+    else:
+        q = lambda v: (torch.from_numpy(np.maximum(v, 0).astype(np.float32))  # noqa: E731
+                       .to(torch.bfloat16).view(torch.int16).numpy()
+                       .astype(np.uint32) & 0xFFFF)
+    out = np.zeros((R, K * ES), np.uint8)
     for blk in range(-(-R // 64)):
         rows = [blk * 64 + 16 * warp + g + 8 * h for h in range(2)]
         inside = [r < R for r in rows]
-        # registers: a[thread][step][reg] as 32-bit words
-        steps = 4 if s8 else 8
-        a = np.zeros((128, steps, 4), np.uint32)
+        # register sets: word [thread, k-step of the set, register 2 e + h]
+        regs = {("lo", 0): np.zeros((128, m, 4), np.uint32),
+                ("lo", 1): np.zeros((128, m, 4), np.uint32),
+                ("hi",): np.zeros((128, m, 4), np.uint32)}
         for h in range(2):
             rr = np.where(inside[h], rows[h], 0)
-            for s in range(steps):
+            for ks in range(nk):
                 for e in range(2):
                     if s8:
-                        col = 32 * s + 16 * e + 2 * t
-                        lo = xn[rr, col].astype(np.uint32) | (xn[rr, col + 1].astype(np.uint32) << 8)
-                        hi = xn[rr, col + 8].astype(np.uint32) | (xn[rr, col + 9].astype(np.uint32) << 8)
-                        word = lo | (hi << 16)
+                        col = 32 * ks + 16 * e + 2 * t
+                        word = sum(xn[rr, col + b].astype(np.uint32) << (8 * i)
+                                   for i, b in enumerate((0, 1, 8, 9)))
                     else:
-                        col = 2 * (16 * s + 8 * e + 2 * t)
+                        col = 2 * (16 * ks + 8 * e + 2 * t)
                         word = sum(xn[rr, col + b].astype(np.uint32) << (8 * b) for b in range(4))
-                    a[:, s, 2 * e + h] = np.where(inside[h], word, 0)
-        for layer in range(depth):
-            # A from the fragments: register 2 e + h of lane (g, t) holds row
-            # 16 warp + g + 8 h, columns 16 e + 4 t + {0..3} (int8) or
-            # 8 e + 2 t + {0, 1} (bf16) of the k-step
-            A = np.zeros((64, K), np.int64 if s8 else np.float64)
-            for s in range(steps):
-                for e in range(2):
-                    for h in range(2):
-                        word = a[:, s, 2 * e + h]
-                        row = 16 * warp + g + 8 * h
-                        if s8:
-                            for i in range(4):
-                                byte = ((word >> (8 * i)) & 255).astype(np.uint8)
-                                A[row, 32 * s + 16 * e + 4 * t + i] = byte.view(np.int8)
-                        else:
-                            for i in range(2):
-                                half = ((word >> (16 * i)) & 0xFFFF).astype(np.uint32) << 16
-                                A[row, 16 * s + 8 * e + 2 * t + i] = half.view(np.float32)
-            D = np.zeros((64, K), A.dtype)
-            if s8:  # 4 x wgmma m64n128k32, B at s * 256, SBO 1024
-                for s in range(4):
-                    B = desc_read(sw, 256 * s, 128, 1024, K, 32)
-                    D += A[:, 32 * s:32 * s + 32] @ values(B, True).T
-            else:  # two halves of N, 8 x m64n64k16 each, B at half * 16384 + ks * 256
-                for half in range(2):
-                    for ks in range(8):
-                        B = desc_read(sw, half * 8 * 2048 + ks * 256, 128, 2048, 64, 32)
-                        D[:, 64 * half:64 * half + 64] += \
-                            A[:, 16 * ks:16 * ks + 16] @ values(B, False).T
-                D = D.astype(np.float32).astype(np.float64)
-            # accumulators: d[4 j + 2 h + i] (int8, N 128) or d[half][4 jj + 2 h + i]
-            # (bf16) is row 16 warp + g + 8 h, column 8 j + 2 t + i
-            def acc(j, h, i):
-                return D[16 * warp + g + 8 * h, 8 * j + 2 * t + i]
+                    regs[_chain_regs(ks, 0, m)][:, ks % m, 2 * e + h] = np.where(inside[h], word, 0)
 
-            if s8:
-                q = lambda v: (np.clip(v >> 7, -127, 127) & 255).astype(np.uint32)  # noqa: E731
-            else:
-                q = lambda v: (torch.from_numpy(np.maximum(v, 0).astype(np.float32))  # noqa: E731
-                               .to(torch.bfloat16).view(torch.int16).numpy()
-                               .astype(np.uint32) & 0xFFFF)
-            if layer + 1 == depth:
+        def a_matrix(ks, p):
+            """A of k-step ks from the registers: register 2 e + h of lane
+            (g, t) holds row 16 warp + g + 8 h, columns 16 e + 4 t + {0..3}
+            (int8) or 8 e + 2 t + {0, 1} (bf16) of the k-step"""
+            A = np.zeros((64, kw), np.int64 if s8 else np.float64)
+            for e in range(2):
                 for h in range(2):
-                    for j in range(16):
+                    word = regs[_chain_regs(ks, p, m)][:, ks % m, 2 * e + h]
+                    row = 16 * warp + g + 8 * h
+                    if s8:
+                        for i in range(4):
+                            byte = ((word >> (8 * i)) & 255).astype(np.uint8)
+                            A[row, 16 * e + 4 * t + i] = byte.view(np.int8)
+                    else:
                         for i in range(2):
-                            col = (8 * j + 2 * t + i) * (1 if s8 else 2)
-                            v = q(acc(j, h, i))
-                            keep = inside[h]
+                            half = ((word >> (16 * i)) & 0xFFFF).astype(np.uint32) << 16
+                            A[row, 8 * e + 2 * t + i] = half.view(np.float32)
+            return A
+
+        D = [np.zeros((64, 64), np.int64 if s8 else np.float64) for _ in range(2)]
+        pending, group = [], []
+
+        def acc(c, j, h, i):  # d[c][4 j + 2 h + i]: row 16 warp + g + 8 h, column 8 j + 2 t + i
+            v = D[c][16 * warp + g + 8 * h, 8 * j + 2 * t + i]
+            return v if s8 else v.astype(np.float32).astype(np.float64)
+
+        for op in chain_ops(depth, nk):
+            if op[0] == "issue":
+                group += [(op[1], ks, op[3]) for ks in op[2]]
+            elif op[0] == "commit":
+                pending.append(group)
+                group = []
+            elif op[0] == "wait":
+                while len(pending) > op[1]:
+                    for c, ks, p in pending.pop(0):
+                        if ks == 0:
+                            D[c][:] = 0
+                        D[c] += a_matrix(ks, p) @ B[(c, ks)].T
+            elif op[0] == "epilogue":
+                c, p = op[1], op[2]
+                dst = regs[("lo", p) if c == 0 else ("hi",)]
+                for qq in range(m):  # s8_epilogue / bf16_epilogue of half c
+                    for e in range(2):
+                        for h in range(2):
+                            if s8:
+                                j = 4 * qq + 2 * e
+                                parts = (acc(c, j, h, 0), acc(c, j, h, 1),
+                                         acc(c, j + 1, h, 0), acc(c, j + 1, h, 1))
+                                word = sum(q(v) << (8 * i) for i, v in enumerate(parts))
+                            else:
+                                j = 2 * qq + e
+                                word = q(acc(c, j, h, 0)) | q(acc(c, j, h, 1)) << 16
+                            dst[:, qq, 2 * e + h] = word
+            else:  # the last layer's store of half c
+                c = op[1]
+                for h in range(2):
+                    keep = inside[h]
+                    for j in range(8):
+                        for i in range(2):
+                            col = (64 * c + 8 * j + 2 * t + i) * ES
+                            v = q(acc(c, j, h, i))
                             out[rows[h][keep], col[keep]] = v[keep] & 255
                             if not s8:
                                 out[rows[h][keep], col[keep] + 1] = (v[keep] >> 8) & 255
-                break
-            for s in range(steps):
-                for e in range(2):
-                    for h in range(2):
-                        if s8:  # lo = 4 (4 s + 2 e) + 2 h, hi = lo + 4
-                            j = 4 * s + 2 * e
-                            a[:, s, 2 * e + h] = (q(acc(j, h, 0)) | q(acc(j, h, 1)) << 8
-                                                  | q(acc(j + 1, h, 0)) << 16
-                                                  | q(acc(j + 1, h, 1)) << 24)
-                        else:  # j = 2 ks + e
-                            j = 2 * s + e
-                            a[:, s, 2 * e + h] = q(acc(j, h, 0)) | q(acc(j, h, 1)) << 16
     y = torch.from_numpy(out)
     return y.view(torch.int8) if s8 else y.view(torch.bfloat16).reshape(R, K)

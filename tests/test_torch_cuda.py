@@ -2251,12 +2251,16 @@ def test_probe_conv_config_on_card(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bf16", "int8"])
 def test_probe_chain_on_card(card, dtype):
-    """The chain probe (P3) at R 200 (a partial last block): all ones at
-    depth 32 equal to the plain version bit for bit (bf16: inf from layer
-    19), seeded inputs at depth 1 (bf16 within 1 ulp) and 5 (bf16 within
-    5 x 2^-9 in norm); int8 equal throughout; a second launch equal."""
+    """The chain probe (P3): all ones at depth 32 and R 200 (a partial last
+    block) equal to the plain version bit for bit (bf16: inf from layer
+    19); seeded inputs at R 64 (one block), 200 and 8,256 (129 blocks, one
+    past the probe's 128), depths 1, 2, 3 (both register-set parities, the last layer
+    after a first or a second) and 32: int8 equal throughout, bf16 within
+    1 ulp at depth 1 and depth x 2^-9 in norm deeper; a second launch
+    equal."""
     from spnerf_tpu_torch.kernels.probe_chain import probe_chain, probe_chain_plain
     from spnerf_tpu_torch.tools.smoke_probes import (
+        CHAIN_CHECKS,
         CHAIN_ULP,
         bf16_ulps,
         chain_operands,
@@ -2271,33 +2275,42 @@ def test_probe_chain_on_card(card, dtype):
                        probe_chain_plain(ones, w1, 32).view(torch.uint8))
     assert torch.equal(probe_chain(ones, w1, 32).view(torch.uint8),
                        got.view(torch.uint8))
-    x, w = chain_operands(dtype, R=200, seed=11)
-    for depth in (1, 5):
-        got, want = probe_chain(x, w, depth), probe_chain_plain(x, w, depth)
-        if dtype == "int8":
-            assert torch.equal(got, want)
-        elif depth == 1:
-            assert bf16_ulps(got, want) <= 1.0
-        else:
-            assert chain_rel_error(got, want) <= depth * CHAIN_ULP
+    rows, depths = CHAIN_CHECKS
+    for R in rows:
+        x, w = chain_operands(dtype, R=R, seed=11 + R)
+        for depth in depths:
+            got, want = probe_chain(x, w, depth), probe_chain_plain(x, w, depth)
+            assert torch.equal(probe_chain(x, w, depth).view(torch.uint8),
+                               got.view(torch.uint8)), (R, depth)
+            if dtype == "int8":
+                assert torch.equal(got, want), (R, depth)
+            elif depth == 1:
+                assert bf16_ulps(got, want) <= 1.0, R
+            else:
+                assert chain_rel_error(got, want) <= depth * CHAIN_ULP, (R, depth)
 
 
 @pytest.mark.cuda
 def test_probe_gathers_on_card(card):
     """The three gathers (P4) at odd sizes, indices outside the axis
-    among them (NaN), equal to the plain versions bit for bit; a second
-    launch equal."""
+    among them (NaN), equal to the plain versions bit for bit; the column
+    form also at F 100 (a ragged last slab) and 7 (one partial slab), N
+    != T, ragged last chunks of rows; a second launch equal."""
     from spnerf_tpu_torch.kernels import probe_gather as g
+    from spnerf_tpu_torch.tools.smoke_probes import GATHER_CHECKS, column_operands
 
     gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int32)
+
     table = torch.randn((37, 12), generator=gen, device="cuda")
-    cases = [
-        (g.gather_rows, g.gather_rows_plain, table,
-         torch.randint(-2, 40, (53,), generator=gen, device="cuda", dtype=torch.int32)),
-        (g.gather_columns, g.gather_columns_plain, table,
-         torch.randint(-2, 40, (29, 12), generator=gen, device="cuda", dtype=torch.int32)),
-        (g.gather_in_rows, g.gather_in_rows_plain, table,
-         torch.randint(-2, 14, (37, 7), generator=gen, device="cuda", dtype=torch.int32))]
+    cases = [(g.gather_rows, g.gather_rows_plain, table, ints(-2, 40, (53,))),
+             (g.gather_columns, g.gather_columns_plain, table, ints(-2, 40, (29, 12))),
+             (g.gather_in_rows, g.gather_in_rows_plain, table, ints(-2, 14, (37, 7)))]
+    for T, F, N in GATHER_CHECKS:
+        cases.append((g.gather_columns, g.gather_columns_plain,
+                      *column_operands(T, F, N, seed=T + F + N)))
     for kernel, plain, src, idx in cases:
         got = kernel(src, idx)
         assert torch.equal(got.view(torch.int32), plain(src, idx).view(torch.int32))

@@ -27,7 +27,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from _probe_tc import probe_chain_model, probe_conv_model
+from _probe_tc import chain_hazards, chain_ops, probe_chain_model, probe_conv_model
 from spnerf_tpu_torch.kernels.probe_chain import probe_chain, probe_chain_plain
 from spnerf_tpu_torch.kernels.probe_conv import (
     kernel_config,
@@ -37,6 +37,10 @@ from spnerf_tpu_torch.kernels.probe_conv import (
     schedule,
 )
 from spnerf_tpu_torch.kernels.probe_gather import (
+    COL_ROWS,
+    SLAB,
+    column_hbm_bytes_model,
+    column_walk,
     gather_columns_plain,
     gather_in_rows_plain,
     gather_rows_plain,
@@ -224,9 +228,12 @@ def test_chain_probe_matches_tpu_kernel(dtype):
 
 @pytest.mark.parametrize("dtype", ["bf16", "int8"])
 def test_chain_kernel_addressing(dtype):
-    """``csrc/probe_chain.cu``'s staged B (int8 rows permuted), register
-    fragments and epilogues (modelled) against the plain version: R 100
-    (a second, partial block), depth 1 and 3."""
+    """``csrc/probe_chain.cu``'s staged B halves (int8 rows permuted),
+    register fragments (x's columns 0-63 in two sets by the layer's
+    parity) and epilogues, run in the kernel's pipelined issue order with
+    each product reading its registers when its group completes
+    (modelled), against the plain version: R 100 (a second, partial
+    block), depth 1 and 3."""
     x, w = chain_operands(dtype, R=100, device="cpu", seed=9)
     for depth in (1, 3):
         got, want = probe_chain_model(x, w, depth), probe_chain_plain(x, w, depth)
@@ -236,6 +243,30 @@ def test_chain_kernel_addressing(dtype):
             assert bf16_ulps(got, want) <= 1.0
         else:
             assert chain_rel_error(got, want) <= depth * CHAIN_ULP
+
+
+@pytest.mark.parametrize("nk", [8, 4])
+def test_chain_kernel_pipeline(nk):
+    """The kernel's issue order (bf16 8 k-steps a layer, int8 4) keeps
+    every hazard apart at depths 1-9: each product reads the previous
+    layer's x, each epilogue and store a whole layer's sums with no group
+    pending on them, and no epilogue writes registers a pending group
+    reads; the order without the second register set, or with half 1's
+    epilogue before the wait for half 1, raises."""
+    for depth in range(1, 10):
+        ops = chain_ops(depth, nk)
+        assert chain_hazards(ops, nk) == [depth, depth]
+        issues = [op for op in ops if op[0] == "issue"]
+        assert sum(len(op[2]) for op in issues) == 2 * nk * depth
+    one_set = [op[:2] + (0,) if op[0] == "epilogue" else
+               op[:3] + (0,) if op[0] == "issue" else op for op in chain_ops(4, nk)]
+    with pytest.raises(AssertionError):
+        chain_hazards(one_set, nk)
+    ops = chain_ops(4, nk)
+    at = ops.index(("epilogue", 1, 1))
+    early = ops[:at - 1] + [ops[at], ops[at - 1]] + ops[at + 1:]
+    with pytest.raises(AssertionError):
+        chain_hazards(early, nk)
 
 
 # ---- P4: the gathers ----
@@ -304,3 +335,50 @@ def test_conv1_forms_agree():
     for mode in ("conv2d_nhwc", "conv2d_nchw"):
         assert bf16_ulps(micro_conv3.conv1(x, k, mode).contiguous(), ref) <= 1.0
     assert torch.equal(micro_conv3.conv1(x, k, "fma_packed").reshape(ref.shape), ref)
+
+
+@pytest.mark.parametrize("N,T,F", [(300, 77, 128), (3 * COL_ROWS + 5, 40, 100),
+                                   (COL_ROWS - 1, 1000, 7), (2 * COL_ROWS, 9, 16)])
+def test_gather_column_walk(N, T, F):
+    """The column kernel's slab-major index map (``column_walk``, the
+    kernel's expressions) at N != T, F 128, 100 (a ragged last slab) and
+    7 (one partial slab), ragged and whole last chunks of rows: every
+    (i, j) of the output visited exactly once, block by block all rows
+    of a slab before the next slab; a gather through the map reading
+    ``idx[i, j]`` once each, indices outside the table among them, equals
+    the plain version bit for bit."""
+    b, i, j = column_walk(N, F)
+    seen = np.zeros((N, F), np.int64)
+    np.add.at(seen, (i, j), 1)
+    assert (seen == 1).all()
+    assert (np.diff(b) >= 0).all() and (np.diff(j // SLAB) >= 0).all()
+    rng = np.random.default_rng(N + F)
+    table = torch.from_numpy(rng.standard_normal((T, F)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(-3, T + 3, (N, F)).astype(np.int32))
+    r = idx.numpy()[i, j]
+    out = np.full((N, F), np.inf, np.float32)
+    ok = (r >= 0) & (r < T)
+    out[i, j] = np.where(ok, table.numpy()[np.clip(r, 0, T - 1), j], np.nan)
+    assert torch.equal(torch.from_numpy(out).view(torch.int32),
+                       gather_columns_plain(table, idx).view(torch.int32))
+
+
+def test_gather_column_hbm_model():
+    """The HBM bytes counted from the schedules by the model's rule: a
+    table whose live lines fit an L2 partition costs each distinct
+    sector once in either order; past it (2^18 rows of 128 columns) the
+    flat order's live table (all 128 MB) misses on most further touches
+    and the slab walk's (one 128-byte line a row, 32 MB) on a quarter of
+    them."""
+    N, F = 1 << 10, 128
+    rng = np.random.default_rng(0)
+    for T, hit_flat, hit_slabs in ((1 << 12, 1.0, 1.0), (1 << 18, 25e6 / (1 << 27),
+                                                         25e6 / (1 << 25))):
+        idx = torch.from_numpy(rng.integers(0, T, (N, F)).astype(np.int32))
+        distinct = len({(int(r), c // 8) for r, c in
+                        zip(idx.reshape(-1).tolist(), list(range(F)) * N)})
+        for order, hit in (("flat", hit_flat), ("slabs", hit_slabs)):
+            want = 8 * N * F + 32 * (distinct + round((N * F - distinct) * (1 - hit)))
+            assert column_hbm_bytes_model(idx, T, order) == want, (T, order)
+    outside = torch.full((4, F), -1, dtype=torch.int32)
+    assert column_hbm_bytes_model(outside, 512) == 8 * 4 * F
