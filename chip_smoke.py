@@ -4764,6 +4764,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if os.environ.get("PYTHONHASHSEED") != str(SEED):
+        # Synthetic Shapes seeds each primitive's generator with
+        # hash(primitive), which Python salts per process: rerun under a
+        # fixed hash seed, so that [syn-gen]'s data, and its checks of
+        # their points, are the same in every run.
+        os.environ["PYTHONHASHSEED"] = str(SEED)
+        os.execv(sys.executable, [sys.executable, *sys.argv])
     phase_build()
     card = phase_card()
     peaks = card_peaks(torch.cuda.get_device_name(0))

@@ -4,8 +4,9 @@
 The host reads, resizes and (where ``on_device`` is false)
 photometric-augments; keypoint heatmaps, valid masks and the warped pair
 are built on the device in the training step. Images are read as
-``cv2.imread(..., IMREAD_GRAYSCALE)`` reads them (``data/imread.py``:
-JPEG by the port's own decoder, PNG, PGM / PPM), then
+``cv2.imread(..., IMREAD_GRAYSCALE)`` reads them (``data/imread.py``,
+the decoder by the file's signature: JPEG by the port's own decoder, PNG,
+PBM / PGM / PPM), then
 ``ratio_preserving_resize``.
 
 Three modes, as the reference:

@@ -3,8 +3,8 @@
 Yields image pairs + the GT homography adapted to the ratio-preserving
 resize, as float32 numpy, from DATA_PATH/<name>/<sequence>/{1..6}.ppm
 and H_1_{2..6}. ``alteration``: 'i' (illumination), 'v' (viewpoint) or
-'all'. Images are read by ``data/imread.py`` (``.ppm`` and ``.jpg``
-among them), as ``cv2.imread(..., IMREAD_GRAYSCALE)`` reads them.
+'all'. Images are read by ``data/imread.py`` (the decoder by the file's
+signature), as ``cv2.imread(..., IMREAD_GRAYSCALE)`` reads them.
 """
 
 from __future__ import annotations

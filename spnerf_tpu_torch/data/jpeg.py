@@ -2,19 +2,25 @@
 colour (``IMREAD_COLOR``), byte for byte, without cv2.
 
 The decoder is the port's own C++ (``native/jpeg.cpp``, built by g++ at
-first use), a copy of what libjpeg-turbo does when cv2 asks it for
+first use), a copy of what libjpeg-turbo 3.1 does when cv2 asks it for
 ``JCS_GRAYSCALE``, BGR or ``JCS_CMYK``: baseline, extended-sequential and
-progressive Huffman files of 8-bit samples, gray, YCbCr, CMYK and YCCK
-(Adobe marker), any integral chroma sampling, restart markers; libjpeg's
-integer inverse DCT, its "fancy" chroma upsampling and its fixed-point
-colour conversion, then OpenCV's own CMYK formulas. The EXIF orientation
-of the first APP1 segment is applied as OpenCV's ``ExifTransform`` does.
-A file cut inside its scans decodes as libjpeg pads it (the MCUs past
-the cut left gray, or at their earlier scans' values), with one warning
-on stderr. Arithmetic-coded, 12-bit, lossless and hierarchical files,
-RGB-coded colour, a missing restart marker (libjpeg's resync) and
-progressive files that libjpeg would block-smooth raise, naming ROADMAP
-Queue 1 item 7; so does a file cut inside its headers.
+progressive files of 8-bit samples, Huffman- or arithmetic-coded (with
+DAC conditioning), gray, YCbCr, RGB-coded (Adobe transform 0, or ids 'R'
+'G' 'B'), CMYK and YCCK, any integral chroma sampling, restart markers;
+lossless files (any integral sampling, upsampled by replication) where
+libjpeg-turbo needs no colour conversion; libjpeg's integer inverse DCT, its "fancy"
+chroma upsampling and its fixed-point colour conversion, then OpenCV's
+own CMYK formulas. The EXIF orientation of the first APP1 segment is
+applied as OpenCV's ``ExifTransform`` does. Damaged files read as
+libjpeg reads them: cut inside their scans (padded as libjpeg pads
+them), block-smoothed where progressive coefficients were not all sent,
+restart markers resynced, stray bytes skipped, with libjpeg's first
+warning on stderr. What cv2 returns None for (12- and 16-bit samples,
+hierarchical and lossless arithmetic frames, 2 components, a lossless
+read that needs a colour conversion, fractional sampling where a
+component must be upsampled, a file cut inside its header, and every
+error libjpeg stops at: bad tables, headers and lengths) raises
+``signature.Unreadable``.
 
 Writing: ``encode_gray`` / ``write_gray`` make the bytes of
 ``cv2.imencode('.jpg', img)`` / ``cv2.imwrite`` for an 8-bit gray image
@@ -31,11 +37,11 @@ from pathlib import Path
 
 import numpy as np
 
+from spnerf_tpu_torch.data.signature import Unreadable
 from spnerf_tpu_torch.utils import native
 
-SUFFIXES = (".jpg", ".jpeg")
-UNSUPPORTED = ("ROADMAP Queue 1 item 7: arithmetic, 12-bit, lossless, "
-               "RGB-coded, block-smoothed and resynced JPEG")
+# the C decoder's prefix of the kinds of file cv2 refuses too
+_REFUSED = "cv2 refuses: "
 
 
 def _lib():
@@ -47,7 +53,7 @@ def _lib():
     lib.jpeg_decode.restype = ctypes.c_int
     lib.jpeg_decode.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32,
-        ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int]
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
     return lib
 
 
@@ -110,16 +116,20 @@ def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
 
 def _fail(name: str, err) -> None:
     msg = err.value.decode()
-    if "not decoded" in msg or "resyncs" in msg:  # a kind of file
-        msg += f" ({UNSUPPORTED})"
-    raise ValueError(f"jpeg: {name}: {msg}")
+    if msg.startswith(_REFUSED):
+        raise Unreadable(f"jpeg: {name}: {msg[len(_REFUSED):]}: cv2.imread "
+                         "does not read it either")
+    # the decoder stops where libjpeg stops with an error
+    raise Unreadable(f"jpeg: {name}: {msg}; cv2.imread returns None for "
+                     "it too")
 
 
 def decode(data: bytes, channels: int, name: str = "<bytes>") -> np.ndarray:
     """A JPEG file's bytes as cv2 decodes them, EXIF orientation applied:
     (H, W) uint8 for ``channels`` 1 (``IMREAD_GRAYSCALE``), (H, W, 3) B, G,
-    R for 3 (``IMREAD_COLOR``). A file cut inside its scans decodes with
-    one warning on stderr, as libjpeg's "Premature end of JPEG file"."""
+    R for 3 (``IMREAD_COLOR``). A file libjpeg warns of (cut inside its
+    scans, stray bytes, a restart marker out of place) decodes with
+    libjpeg's first warning on stderr, as libjpeg shows only that one."""
     lib = _lib()
     err = ctypes.create_string_buffer(256)
     h, w = ctypes.c_int32(), ctypes.c_int32()
@@ -128,12 +138,12 @@ def decode(data: bytes, channels: int, name: str = "<bytes>") -> np.ndarray:
         _fail(name, err)
     out = np.empty((h.value, w.value) + ((3,) if channels == 3 else ()),
                    np.uint8)
-    cut = ctypes.c_int32()
-    if lib.jpeg_decode(data, len(data), out.ctypes.data, channels,
-                       ctypes.byref(cut), err, len(err)):
+    warning = ctypes.create_string_buffer(256)
+    if lib.jpeg_decode(data, len(data), out.ctypes.data, channels, warning,
+                       len(warning), err, len(err)):
         _fail(name, err)
-    if cut.value:
-        print(f"jpeg: {name}: Premature end of JPEG file", file=sys.stderr)
+    if warning.value:
+        print(f"jpeg: {name}: {warning.value.decode()}", file=sys.stderr)
     return apply_orientation(out, exif_orientation(data))
 
 

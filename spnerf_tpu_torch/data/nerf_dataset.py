@@ -11,8 +11,8 @@ any NerfStudio-compatible exporter):
 The host loads a frame, its partner frame 7-15% of the sequence away and
 their cameras; the partner's keypoints are reprojected on the device
 (``train/pipeline.prepare_nerf_batch``). Images are read by
-``data/imread.read_gray`` (PNG, PGM / PPM or JPEG by suffix, byte-equal
-to ``cv2.imread(..., IMREAD_GRAYSCALE)``);
+``data/imread.read_gray`` (PNG, PBM / PGM / PPM or JPEG by signature,
+byte-equal to ``cv2.imread(..., IMREAD_GRAYSCALE)``);
 the draws come from the same seeded numpy streams as the reference's, so
 its samples and the port's are equal.
 """

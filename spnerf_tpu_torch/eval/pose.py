@@ -9,8 +9,11 @@ float32, cuDNN's TF32 off, descriptors sampled at the keypoints). The
 geometry stays on the host in numpy, with the port's own counterparts of
 ``cv2.findEssentialMat`` and ``cv2.recoverPose`` (``eval/essential.py``),
 which draw OpenCV's RANSAC samples, so a run repeats the reference's
-numbers. Images are read by the port's PNG, PNM and gray JPEG readers
-(``data/imread.py``); other formats raise (ROADMAP Queue 1 item 7).
+numbers. Images are read as ``cv2.imread`` reads them, the decoder
+chosen by the file's signature (``data/imread.py``: JPEG, PNG, PBM / PGM
+/ PPM); a pair whose image cv2 would return None for is skipped as the
+reference skips it, and a format only cv2 decodes raises (ROADMAP Queue
+1 item 7).
 
     python -m spnerf_tpu_torch.eval.pose --config-path \\
         spnerf_tpu_torch/configs/pose_estimation_indoor.yaml \\
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from spnerf_tpu_torch import settings
-from spnerf_tpu_torch.data.imread import gray_reader
+from spnerf_tpu_torch.data.imread import Unreadable, read_gray
 from spnerf_tpu_torch.data.resize import resize_linear, resize_linear_float
 from spnerf_tpu_torch.eval.descriptor import mutual_nn_match
 from spnerf_tpu_torch.eval.essential import find_essential_mat, recover_pose
@@ -56,16 +59,16 @@ def resize_dims(w: int, h: int, spec) -> tuple[int, int]:
 def load_gray(path, spec, rotation: int = 0, resize_float: bool = False):
     """Grayscale image, resized per ``spec`` and rotated by ``rotation``
     quarter-turns CCW. Returns (image float32, (sx, sy) original/new
-    pixel scale, post-rotation), or (None, None) for a missing file, as
-    ``cv2.imread`` does. A format the port does not decode (it reads
-    8-bit PNG, binary PGM / PPM and JPEG) raises, whether
-    or not the file exists, so that a pair list is never skipped through
-    silently."""
-    path = Path(path)
-    reader = gray_reader(path)
-    if not path.is_file():
+    pixel scale, post-rotation), or (None, None) where ``cv2.imread``
+    returns None: a file that is missing or cannot be read, one no image
+    decoder claims, or one its decoder stops at (``imread.Unreadable``).
+    A format cv2 decodes and the port does not
+    raises ``imread.NotPorted``, so that a pair list is never skipped
+    through where the reference reads it."""
+    try:
+        img = read_gray(Path(path))
+    except (OSError, Unreadable):
         return None, None
-    img = reader(path)
     h, w = img.shape
     nw, nh = resize_dims(w, h, spec)
     if resize_float:

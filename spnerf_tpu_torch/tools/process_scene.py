@@ -10,7 +10,7 @@
   layout the NeRF dataset reads.
 
 Frames are read as ``cv2.imread`` reads them (``data/imread.read_rgb``:
-PNG, PGM / PPM and JPEG) and resized as ``cv2.resize`` does
+PNG, PBM / PGM / PPM and JPEG, by signature) and resized as ``cv2.resize`` does
 (``data/resize.resize_linear``).
 
     python -m spnerf_tpu_torch.tools.process_scene --data-path scene_dir \\

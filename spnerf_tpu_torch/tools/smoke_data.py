@@ -3,13 +3,16 @@ bootstrap from its own data through ``cli.main`` on the card, with the
 JPEG reads it rests on. ``chip_smoke.py`` runs ``phase_bootstrap`` after
 ``[quant]``; the phases, in order:
 
-- ``[jpeg]``: every committed fixture of ``tests/data/jpeg`` (baseline,
-  progressive, 4:2:0 to 4:1:1, gray, CMYK, YCCK, cut, EXIF-rotated) read
-  by ``data/jpeg.py`` (the port's C++ decoder, built by g++ at first use)
-  gray and colour, to the shape and sha256 of cv2's reads when the
-  fixtures were made (``digests.json``); ms per 480 x 640 image on the
-  host clock for a baseline gray and colour read and a progressive gray
-  and colour read;
+- ``[jpeg]``: every committed fixture of ``tests/data/jpeg``, ``png`` and
+  ``pnm`` (baseline, progressive, 4:2:0 to 4:1:1, gray, CMYK, YCCK, cut,
+  EXIF-rotated, arithmetic-coded, RGB-coded, block-smoothed, resynced,
+  lossless; PNG at every depth and colour type, Adam7, misnamed files;
+  P1-P6) read by ``data/imread.py``, which picks the decoder by the
+  file's signature, gray and colour, to the shape and sha256 of cv2's
+  reads when the fixtures were made (``digests.json``; a null colour
+  digest, cv2's None, must raise ``Unreadable``); ms per 480 x 640 image
+  on the host clock for each kind timed (``JPEG_TIMED``), gray and
+  colour, beside the card's name and power limit;
 - ``[process-scene-jpeg]``: ``tools.process_scene.main`` at the tiny
   preset over a scene whose frames are the colour JPEG fixtures, with
   orbit poses; the frames read as the colour digests say, the written
@@ -17,14 +20,18 @@ JPEG reads it rests on. ``chip_smoke.py`` runs ``phase_bootstrap`` after
 - ``[syn-gen]``: magicpoint_syn.yaml's Synthetic Shapes at its widths
   (960 x 1280, blur 21, resize 120 x 160, nine primitives, its truncate),
   ``split_sizes`` cut to 12 / 4 / 0: ms per sample by primitive, counts,
-  points, and a second pass into a fresh directory byte-identical;
+  points, and a second pass into a fresh directory byte-identical (the
+  primitives' seeds depend on ``PYTHONHASHSEED``, which ``chip_smoke.py``
+  fixes to 0, so the samples and their point counts repeat run to run);
 - ``[syn-train]``: 20 steps of it (batch 32, photometric and homographic
   augmentation on the card), 2 validation batches and a checkpoint, the
   loss falling;
 - ``[coco-export]``: ``export_pseudo_labels`` on
   magicpoint_coco_export.yaml (240 x 320, batch 8, 100 views in chunks of
-  10) from that checkpoint over 32 + 8 COCO-layout copies of every
-  fixture, the training split again with ``export.serving=int8``: labels
+  10) from that checkpoint over 56 + 8 COCO-layout copies of the
+  fixtures of all three folders (every one in the training split, a PNG
+  named ``.jpg`` among them), the training split again with
+  ``export.serving=int8``: labels
   checked, the warp twice a chunk and the int8 kernels once a forward
   per batch, images/s;
 - ``[label-iou]`` and ``[ha-rate]``: ``demo.label_iou`` of the int8
@@ -59,7 +66,7 @@ import numpy as np
 import torch
 
 from spnerf_tpu_torch import cli, settings
-from spnerf_tpu_torch.data import coco, imread, jpeg, photometric
+from spnerf_tpu_torch.data import coco, imread, jpeg, photometric, png
 from spnerf_tpu_torch.data import synthetic_shapes
 from spnerf_tpu_torch.data.loader import DataLoader
 from spnerf_tpu_torch.data.nerf_dataset import NeRFDataset
@@ -75,8 +82,23 @@ ROOT = Path(__file__).resolve().parents[2]
 # the configurations, read by the port's own YAML reader from its copies
 CONFIGS = ROOT / "spnerf_tpu_torch" / "configs"
 JPEG_DIR = ROOT / "tests" / "data" / "jpeg"
+# the committed fixtures of every format the port reads
+IMAGE_DIRS = tuple(ROOT / "tests" / "data" / f for f in ("jpeg", "png", "pnm"))
 COLOUR = "colour"  # the colour digests' key in digests.json
-JPEG_TIMED = {"baseline": "q95_420.jpg", "progressive": "prog_420.jpg"}
+# the 480 x 640 fixture timed for each kind: (folder, name)
+JPEG_TIMED = {"baseline": ("jpeg", "q95_420.jpg"),
+              "progressive": ("jpeg", "prog_420.jpg"),
+              "arithmetic": ("jpeg", "arith_420.jpg"),
+              "arithmetic progressive": ("jpeg", "arith_prog_420.jpg"),
+              "RGB-coded": ("jpeg", "rgb_444.jpg"),
+              "block-smoothed": ("jpeg", "prog_smooth_cut.jpg"),
+              "resynced": ("jpeg", "rst_missing.jpg"),
+              "lossless": ("jpeg", "lossless_gray.jpg"),
+              "PNG 16-bit": ("png", "rgb16.png"),
+              "PNG palette": ("png", "palette.png")}
+DECODERS = {"jpeg": (jpeg.decode_gray, jpeg.decode_bgr),
+            "png": (png.decode_gray,
+                    lambda data: png.decode_rgb(data)[..., ::-1])}
 JPEG_REPS = 20
 SEED = 0
 HA_SHAPE = (240, 320)  # magicpoint_coco_export.yaml's resize
@@ -98,7 +120,7 @@ BOOT_TRAIN_CUTS = {"train.num_iters": BOOT_STEPS,
 SYN_MIN_POINTS = {"draw_lines": 2, "draw_ellipses": 0, "gaussian_noise": 0,
                   "draw_stripes": 0}
 SYN_MEDIAN_POINTS = {"draw_stripes": 3}
-COCO_IMAGES = {"training": 32, "validation": 8}
+COCO_IMAGES = {"training": 56, "validation": 8}
 COCO_EXPORT = CONFIGS / "magicpoint_coco_export.yaml"
 COCO_INT8_EXPER = "coco_export_int8"
 PHOTO_REPS = 20
@@ -170,11 +192,22 @@ def digest(img: np.ndarray) -> dict:
             .hexdigest()}
 
 
-def jpeg_digests():
-    """(gray digests, colour digests) by fixture name."""
-    digests = json.loads((JPEG_DIR / "digests.json").read_text())
+def jpeg_digests(folder: Path = JPEG_DIR):
+    """(gray digests, colour digests) by fixture name; a colour digest is
+    None where cv2's colour read returned None."""
+    digests = json.loads((folder / "digests.json").read_text())
     colour = digests.pop(COLOUR)
     return digests, colour
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
 
 
 def median_ms(fn, *args, reps: int = JPEG_REPS):
@@ -187,35 +220,55 @@ def median_ms(fn, *args, reps: int = JPEG_REPS):
 
 
 def phase_jpeg() -> None:
-    """[jpeg]: every committed fixture read gray and colour by
-    ``data/jpeg.py`` to the shape and sha256 cv2 gave when the fixtures
-    were made; ms per 480 x 640 image, baseline and progressive, gray and
-    colour."""
-    gray, colour = jpeg_digests()
+    """[jpeg]: every committed fixture of the three folders read gray and
+    colour through ``data/imread.py`` (the decoder picked by the file's
+    signature: misnamed files go through it) to the shape and sha256 cv2
+    gave when the fixtures were made, or to ``Unreadable`` where cv2's
+    colour read was None; ms per 480 x 640 image of each timed kind, gray
+    and colour, with the card's name and power limit."""
     t0 = time.perf_counter()
-    jpeg.read_gray(JPEG_DIR / JPEG_TIMED["baseline"])  # builds the library
+    jpeg.read_gray(JPEG_DIR / "q95_420.jpg")  # builds the library
     build_s = time.perf_counter() - t0
-    for name in sorted(gray):
-        for want, got in ((gray[name], jpeg.read_gray(JPEG_DIR / name)),
-                          (colour[name],
-                           jpeg.read_rgb(JPEG_DIR / name)[..., ::-1])):
-            if digest(got) != want:
-                raise AssertionError(f"[jpeg] {name}: {digest(got)} against "
-                                     f"cv2's {want}")
+    names = []
+    for folder in IMAGE_DIRS:
+        gray, colour = jpeg_digests(folder)
+        for name in sorted(gray):
+            path = folder / name
+            got = digest(imread.read_gray(path))
+            if got != gray[name]:
+                raise AssertionError(f"[jpeg] {folder.name}/{name} gray: "
+                                     f"{got} against cv2's {gray[name]}")
+            if colour[name] is None:
+                try:
+                    imread.read_rgb(path)
+                except imread.Unreadable:
+                    pass
+                else:
+                    raise AssertionError(f"[jpeg] {folder.name}/{name}: a "
+                                         "colour read cv2 refuses decoded")
+            else:
+                got = digest(imread.read_rgb(path)[..., ::-1])
+                if got != colour[name]:
+                    raise AssertionError(
+                        f"[jpeg] {folder.name}/{name} colour: {got} against "
+                        f"cv2's {colour[name]}")
+            names.append(f"{folder.name}/{name}")
     times = []
-    for kind, name in JPEG_TIMED.items():
-        data = (JPEG_DIR / name).read_bytes()
-        for mode, decode in (("gray", jpeg.decode_gray),
-                             ("colour", jpeg.decode_bgr)):
+    for kind, (folder, name) in JPEG_TIMED.items():
+        data = (ROOT / "tests" / "data" / folder / name).read_bytes()
+        gray_fn, colour_fn = DECODERS[folder]
+        for mode, decode in (("gray", gray_fn), ("colour", colour_fn)):
+            if mode == "colour" and kind == "lossless":
+                continue  # cv2 reads lossless files gray alone
             img = decode(data)
             med, least = median_ms(decode, data)
             times.append(f"{kind} {mode} {name} ({img.shape[0]}x"
                          f"{img.shape[1]}, {len(data) / 1e3:.1f} kB) "
                          f"{med:.4f} ms (min {least:.4f})")
-    log(f"[jpeg] {len(gray)} fixtures ({', '.join(sorted(gray))}) read to "
-        f"cv2.imread's shape and sha256, gray and colour; ms per image "
-        f"(median of {JPEG_REPS}, host clock): {'; '.join(times)}; g++ "
-        f"build + first decode {build_s:.3f} s")
+    log(f"[jpeg] {len(names)} fixtures ({', '.join(names)}) read through "
+        f"imread to cv2.imread's shape and sha256, gray and colour; ms per "
+        f"image (median of {JPEG_REPS}, host clock; card {card_line()}): "
+        f"{'; '.join(times)}; g++ build + first decode {build_s:.3f} s")
 
 
 def phase_process_scene_jpeg(root: Path) -> None:
@@ -227,7 +280,8 @@ def phase_process_scene_jpeg(root: Path) -> None:
     _, colour = jpeg_digests()
     scene_dir = root / "process_scene_jpeg"
     (scene_dir / "images").mkdir(parents=True)
-    names = sorted(colour)
+    # not the lossless file: cv2 reads it gray alone
+    names = sorted(n for n, d in colour.items() if d is not None)
     poses = pose_orbit(len(names))
     flip = np.diag([1.0, -1.0, -1.0, 1.0])
     frames = []
@@ -419,15 +473,24 @@ def phase_syn_train() -> str:
 
 
 def coco_layout(root: Path) -> None:
-    """DATA_PATH/COCO/images/{training,validation}: the JPEG fixtures in
-    turn under distinct names."""
-    fixtures = sorted(JPEG_DIR.glob("*.jpg"))
+    """DATA_PATH/COCO/images/{training,validation}: the fixtures of the
+    three folders in turn under distinct names, each keeping its suffix
+    (``png_as.jpg`` is a PNG), and one PNG more named ``.jpg``; the
+    training split holds every one of them."""
+    fixtures = [p for folder in IMAGE_DIRS for p in sorted(folder.iterdir())
+                if p.name != "digests.json"]
+    fixtures.append(IMAGE_DIRS[1] / "palette.png")
+    if len(fixtures) > COCO_IMAGES["training"]:
+        raise AssertionError(f"[coco-export] {len(fixtures)} fixtures for "
+                             f"{COCO_IMAGES['training']} training images")
     for split, n in COCO_IMAGES.items():
         out = root / "COCO" / "images" / split
         out.mkdir(parents=True)
         for i in range(n):
-            src = fixtures[(i + (split == "validation")) % len(fixtures)]
-            shutil.copy(src, out / f"{i:06d}_{src.stem}.jpg")
+            j = (i + (split == "validation")) % len(fixtures)
+            src = fixtures[j]
+            suffix = ".jpg" if j == len(fixtures) - 1 else src.suffix
+            shutil.copy(src, out / f"{i:06d}_{src.stem}{suffix}")
 
 
 def ha_expected(config: dict, n_images: int) -> dict:
@@ -488,7 +551,8 @@ def phase_coco_export(pretrained: str) -> dict:
             training_dirs["int8" if serving else "bf16"] = Path(out_dir)
         log(f"[coco-export] cli.main --task export_pseudo_labels --split "
             f"{split} ({COCO_EXPORT.name}, cuts {json.dumps(cuts)}): {n} "
-            f"JPEGs of the layout at {HA_SHAPE[0]}x{HA_SHAPE[1]}, batch "
+            f"images of the layout (JPEG, PNG, PNM) at {HA_SHAPE[0]}x"
+            f"{HA_SHAPE[1]}, batch "
             f"{config['data']['batch_size']}, "
             f"{config['homography_adaptation']['num']} views in chunks of "
             f"{config['homography_adaptation']['chunk']}: {secs:.4f} s, "

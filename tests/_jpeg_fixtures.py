@@ -11,10 +11,22 @@ the progressive 4:2:0 file, 240 x 320 for the others), encoded by
 orientation 6; progressive colour and gray from cv2 and an optimized
 progressive file with restart intervals from PIL; Adobe CMYK from PIL
 and the same file marked YCCK (Adobe transform 2); a baseline file cut
-at 60% of its bytes. ``digests.json`` holds the shape and sha256 of
+at 60% of its bytes. Then the kinds libjpeg reads that no encoder on the
+host writes, or that come of damage (one 480 x 640 file of each for
+timing, the rest 240 x 320 or smaller): arithmetic-coded files
+transcoded from baseline ones by ``_jpeg_writers.py`` (sequential,
+progressive, with DAC conditioning and restart intervals, one cut short);
+RGB-coded files from PIL's ``keep_rgb`` (with the Adobe marker, and with
+only the component ids 'R' 'G' 'B'); progressive files block-smoothed by
+libjpeg (cut inside a scan, or stopped at a scan boundary); a lossless
+gray file (``_jpeg_writers.lossless_gray``, predictor 4); a missing,
+a renumbered and an earlier restart marker (libjpeg's resync); stray
+bytes before markers; and a PNG file named ``.jpg``, read through the
+signature dispatch. ``digests.json`` holds the shape and sha256 of
 ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` of each file at its top level
-and of ``cv2.imread(path)`` (B, G, R) under ``COLOUR``, so that a
-machine without cv2 can hold a decoder to both.
+and of ``cv2.imread(path)`` (B, G, R) under ``COLOUR`` (null where cv2
+returns None: a colour read of the lossless file), so that a machine
+without cv2 can hold a decoder to both.
 """
 
 from __future__ import annotations
@@ -90,6 +102,11 @@ def fixtures() -> dict:
 
     bgr = colour_image()
     small = colour_image(SMALL, seed=3)
+    return {**_first_fixtures(enc, pil, sampling, bgr, small),
+            **_damaged_and_rare(enc, pil, sampling, bgr, small)}
+
+
+def _first_fixtures(enc, pil, sampling, bgr, small) -> dict:
     cmyk = pil(np.concatenate([small, small[::-1, ::-1, :1]], axis=-1),
                "CMYK", quality=85)
     adobe = cmyk.index(b"Adobe") + 11  # the transform byte: 0, CMYK
@@ -115,7 +132,80 @@ def fixtures() -> dict:
     }
 
 
-def digest(gray: np.ndarray) -> dict:
+def _markers(data: bytes, codes) -> list:
+    """Offsets of the markers FF xx with xx in ``codes``."""
+    return [i for i in range(len(data) - 1)
+            if data[i] == 0xFF and data[i + 1] in codes]
+
+
+def _damaged_and_rare(enc, pil, sampling, bgr, small) -> dict:
+    import cv2
+
+    from _jpeg_writers import arithmetic, baseline_coefficients, lossless_gray
+
+    rst = range(0xD0, 0xD8)
+    big = enc(bgr, quality=75)
+    small_444 = enc(small, quality=85, sampling_factor=sampling("444"))
+    small_gray = enc(small[..., 1], quality=85)
+    prog_big = enc(bgr, quality=75, progressive=1)
+    prog_small = enc(small, quality=85, progressive=1)
+    scans = _markers(prog_small, (0xDA,))
+    rgb_prog = pil(small[..., ::-1], "RGB", quality=85, keep_rgb=True,
+                   progressive=True)
+    adobe = rgb_prog.index(b"\xff\xee")
+    adobe_len = struct.unpack(">H", rgb_prog[adobe + 2:adobe + 4])[0]
+    with_rst = enc(bgr, quality=75, rst_interval=4)
+    small_rst = enc(small, quality=85, rst_interval=2)
+    big_rsts, small_rsts = _markers(with_rst, rst), _markers(small_rst, rst)
+    cut_rst, earlier = small_rsts[len(small_rsts) // 2], \
+        small_rsts[len(small_rsts) // 3]
+    dqt = small_gray.index(b"\xff\xdb")
+    sos = small_gray.index(b"\xff\xda")
+    ok, png = cv2.imencode(".png", small[::2, ::2])
+    assert ok
+    arith_prog_small = arithmetic(baseline_coefficients(small_444),
+                                  progressive=True, restart=9)
+    return {
+        "arith_420.jpg": arithmetic(baseline_coefficients(big)),
+        "arith_prog_420.jpg": arithmetic(baseline_coefficients(big),
+                                         progressive=True),
+        "arith_gray_dac_rst.jpg": arithmetic(
+            baseline_coefficients(small_gray), restart=7,
+            dac={"L": [2], "U": [4], "K": [9]}),
+        "arith_prog_444_rst.jpg": arith_prog_small,
+        "arith_prog_cut.jpg": arith_prog_small[:int(0.55 * len(
+            arith_prog_small))],
+        "rgb_444.jpg": pil(bgr[..., ::-1], "RGB", quality=75, keep_rgb=True),
+        "rgb_ids_prog.jpg": rgb_prog[:adobe] + rgb_prog[adobe + 2
+                                                        + adobe_len:],
+        "prog_smooth_cut.jpg": prog_big[:int(0.45 * len(prog_big))],
+        "prog_smooth_script.jpg": prog_small[:scans[4]] + b"\xff\xd9",
+        "prog_smooth_dc_cut.jpg": prog_small[:(scans[0] + scans[1]) // 2],
+        "rst_missing.jpg": with_rst[:big_rsts[len(big_rsts) // 2]]
+        + with_rst[big_rsts[len(big_rsts) // 2] + 2:],
+        "rst_renumbered.jpg": small_rst[:cut_rst + 1]
+        + bytes([0xD0 + (small_rst[cut_rst + 1] - 0xCF) % 8])
+        + small_rst[cut_rst + 2:],
+        "rst_earlier.jpg": small_rst[:earlier + 1]
+        + bytes([0xD0 + (small_rst[earlier + 1] - 0xD1) % 8])
+        + small_rst[earlier + 2:],
+        "stray_bytes.jpg": small_gray[:dqt] + b"\x00\x11\xff\x00"
+        + small_gray[dqt:sos] + b"\x22" + small_gray[sos:-2] + b"\x33\x44"
+        + small_gray[-2:],
+        "png_as.jpg": png.tobytes(),
+        # the luma plane at a quarter of the size blown up 4 x 4, so that
+        # the lossless file stays small
+        "lossless_gray.jpg": lossless_gray(np.repeat(np.repeat(
+            bgr[::4, ::4, 1], 4, axis=0), 4, axis=1), predictor=4,
+            restart=640 * 60),
+    }
+
+
+def digest(gray: np.ndarray) -> dict | None:
+    """Shape and sha256 of an image; None where cv2 returned None (a
+    colour read of a lossless file)."""
+    if gray is None:
+        return None
     return {"shape": list(gray.shape),
             "sha256": hashlib.sha256(np.ascontiguousarray(gray).tobytes())
             .hexdigest()}

@@ -162,9 +162,11 @@ def test_reads_png_and_pnm_too(roots, tmp_path):
                                     ".bmp", ".tif"])
 def test_one_gray_reader_for_coco_hpatches_and_pose(tmp_path, suffix):
     """COCO, HPatches and the pose evaluation read through one dispatch
-    (``data/imread.py``): the formats the port decodes as cv2 reads them,
-    any other raising the same NotImplementedError naming ROADMAP Queue 1
-    item 7, whether or not the file exists."""
+    (``data/imread.py``, by the file's signature): the formats the port
+    decodes as cv2 reads them, any other cv2 reads raising the same
+    NotImplementedError naming ROADMAP Queue 1 item 7; a missing file
+    raises in the loaders and is (None, None) in the pose loader, as
+    cv2.imread's None is in the reference."""
     import cv2
 
     from spnerf_tpu_torch.data import hpatches as thp
@@ -179,15 +181,18 @@ def test_one_gray_reader_for_coco_hpatches_and_pose(tmp_path, suffix):
     readers = (tcoco.read_gray, thp.read_gray,
                lambda p: tpose.load_gray(p, [-1])[0])
     assert tcoco.read_gray is thp.read_gray is imread.read_gray
-    if suffix.lower() in imread.READERS:
+    missing = tmp_path / f"missing{suffix}"
+    assert tpose.load_gray(missing, [-1]) == (None, None)
+    for read in readers[:2]:
+        with pytest.raises(FileNotFoundError):
+            read(missing)
+    if suffix.lower() not in (".bmp", ".tif"):
         want = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
         for read in readers:
             np.testing.assert_array_equal(read(path), want)
         return
     for read in readers:
-        for p in (path, tmp_path / f"missing{suffix}"):
-            with pytest.raises(NotImplementedError,
-                               match=f"im{suffix}|missing{suffix}"):
-                read(p)
-            with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-                read(p)
+        with pytest.raises(NotImplementedError, match=f"im{suffix}"):
+            read(path)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+            read(path)

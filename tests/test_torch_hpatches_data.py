@@ -50,17 +50,25 @@ def test_pnm_every_rgb_triple_of_a_lattice_as_cv2(tmp_path):
 
 
 def test_pnm_header_comments_and_refusals(tmp_path):
+    """Comments in the header; what now reads as cv2 reads it (ASCII
+    samples, 16-bit samples); what cv2 refuses too, beside its None: an
+    ASCII file ending on a digit, a cut binary file, a cut header."""
     img = np.arange(12, dtype=np.uint8).reshape(3, 4)
     path = tmp_path / "c.pgm"
     path.write_bytes(b"P5\n# a comment\n4 # width\n3\n255\n" + img.tobytes())
     np.testing.assert_array_equal(pnm.read_gray(path), img)
     np.testing.assert_array_equal(
         cv2.imread(str(path), cv2.IMREAD_GRAYSCALE), img)
-    for bad, what in ((b"P2\n4 3\n255\n0 1 2", "P5 / P6"),
-                      (b"P5\n4 3\n65535\n" + bytes(24), "maxval"),
+    for good in (b"P2\n4 3\n255\n" + b" ".join(b"%d" % v for v in range(12))
+                 + b"\n", b"P5\n4 3\n65535\n" + bytes(range(24))):
+        path.write_bytes(good)
+        np.testing.assert_array_equal(
+            pnm.read_gray(path), cv2.imread(str(path), cv2.IMREAD_GRAYSCALE))
+    for bad, what in ((b"P2\n4 3\n255\n0 1 2", "ends"),
                       (b"P5\n4 3\n255\n" + bytes(5), "truncated"),
                       (b"P5\n4", "header")):
         path.write_bytes(bad)
+        assert cv2.imread(str(path), cv2.IMREAD_GRAYSCALE) is None
         with pytest.raises(ValueError, match=what):
             pnm.read_gray(path)
 

@@ -237,8 +237,8 @@ def test_load_gray_equals_jax(images, rotation, resize_float):
 
 def test_load_gray_missing_and_jpeg(tmp_path):
     """A missing file is (None, None) in both; a JPEG reads as the JAX
-    package reads it through cv2; a format the port does not decode
-    raises, present or not."""
+    package reads it through cv2; a format cv2 reads and the port does not
+    decode raises, and is (None, None) when missing."""
     assert tpose.load_gray(tmp_path / "none.png", [64]) == (None, None)
     assert jpose.load_gray(tmp_path / "none.png", [64]) == (None, None)
     assert tpose.load_gray(tmp_path / "none.jpg", [64]) == (None, None)
@@ -253,9 +253,10 @@ def test_load_gray_missing_and_jpeg(tmp_path):
         assert got_scale == want_scale
     bmp = tmp_path / "a.bmp"
     cv2.imwrite(str(bmp), np.zeros((8, 8), np.uint8))
-    for path in (bmp, tmp_path / "missing.bmp"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            tpose.load_gray(path, [64])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        tpose.load_gray(bmp, [64])
+    assert tpose.load_gray(tmp_path / "missing.bmp", [64]) == (None, None)
+    assert jpose.load_gray(tmp_path / "missing.bmp", [64]) == (None, None)
 
 
 def test_build_infer_fn_needs_a_card_unless_asked():

@@ -51,9 +51,11 @@ def test_write_rgb_reads_back_through_cv2(tmp_path):
 
 
 def test_read_rgb_names_the_missing_decoder(tmp_path):
+    """The PNG reader given a JPEG names what the file is not; the
+    signature dispatch (``data/imread.py``) is what reads it."""
     path = tmp_path / "im.jpg"
     assert cv2.imwrite(str(path), np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(ValueError, match="only PNG"):
+    with pytest.raises(ValueError, match="not a PNG file"):
         read_rgb(path)
 
 
