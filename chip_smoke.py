@@ -200,9 +200,9 @@ Phases, each of which raises on failure (nothing is caught):
    int32 sums equal to the CPU's, the heads within 1 bf16 ulp;
 11e. README's bootstrap from its own data, every task through
    ``cli.main --device cuda``, by ``spnerf_tpu_torch/tools/smoke_data.py``
-   (its docstring lists the phases): ``[jpeg]`` every committed JPEG
-   fixture read gray and colour to cv2's digests and ms per 480 x 640
-   image, baseline and progressive; ``[process-scene-jpeg]``
+   (its docstring lists the phases): ``[jpeg]`` every committed image
+   fixture of the nine formats read gray and colour to cv2's digests and
+   ms per 480 x 640 image of each timed kind; ``[process-scene-jpeg]``
    ``tools.process_scene`` over the colour fixtures as frames;
    ``[syn-gen]`` / ``[syn-train]`` magicpoint_syn.yaml's Synthetic Shapes
    and 20 steps on them; ``[coco-export]`` HA labels over COCO-layout

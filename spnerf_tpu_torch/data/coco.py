@@ -6,7 +6,8 @@ photometric-augments; keypoint heatmaps, valid masks and the warped pair
 are built on the device in the training step. Images are read as
 ``cv2.imread(..., IMREAD_GRAYSCALE)`` reads them (``data/imread.py``,
 the decoder by the file's signature: JPEG by the port's own decoder, PNG,
-PBM / PGM / PPM), then
+PBM / PGM / PPM, and BMP, Sun raster, PAM, PFM, Radiance HDR and GIF as
+OpenCV's own decoders read them), then
 ``ratio_preserving_resize``.
 
 Three modes, as the reference:

@@ -18,8 +18,8 @@ header, as OpenCV reads them:
   brought to 8 bits by ``>> 8``.
 
 Colour goes to gray as OpenCV's image codecs convert it, in 14-bit fixed
-point with rounding: (4899 R + 9617 G + 1868 B + 8192) >> 14 (0.299,
-0.587, 0.114; not libpng's weights, which ``data/png.py`` uses). A file
+point with rounding (``cv_codec.gray``: 0.299, 0.587, 0.114; not
+libpng's weights, which ``data/png.py`` uses). A file
 cut short or with a bad header raises ``signature.Unreadable``, a
 ``ValueError``: ``cv2.imread`` returns None for it too. ``write`` writes
 (H, W) uint8 images as P5 and (H, W, 3) RGB ones as P6, with the header
@@ -32,9 +32,9 @@ from pathlib import Path
 
 import numpy as np
 
+from spnerf_tpu_torch.data import cv_codec
 from spnerf_tpu_torch.data.signature import Unreadable
 
-_RGB_TO_GRAY = (4899, 9617, 1868)  # OpenCV's cR, cG, cB at SCALE 14
 _WHITESPACE = b" \t\n\v\f\r"
 
 
@@ -127,11 +127,7 @@ def _decode(data: bytes, name: str) -> np.ndarray:
 def _gray(pixels: np.ndarray) -> np.ndarray:
     if pixels.shape[2] == 1:
         return pixels[..., 0].copy()
-    rgb = pixels.astype(np.int32)
-    cr, cg, cb = _RGB_TO_GRAY
-    gray = (rgb[..., 0] * cr + rgb[..., 1] * cg + rgb[..., 2] * cb
-            + (1 << 13)) >> 14
-    return gray.astype(np.uint8)
+    return cv_codec.gray(pixels[..., ::-1])
 
 
 def _rgb(pixels: np.ndarray) -> np.ndarray:

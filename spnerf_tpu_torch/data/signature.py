@@ -6,10 +6,12 @@ OpenCV 5.0's build (JPEG, PNG, the PNM family, BMP, TIFF, WebP, JPEG
 2000, AVIF, GIF, HDR, PFM, PAM, Sun raster), or None where no codec
 claims the bytes, for which ``cv2.imread`` returns None.
 
-``Unreadable`` is the ``ValueError`` the port's readers raise for a file
-``cv2.imread`` returns None for too; ``NotPorted`` the
-``NotImplementedError`` for a format cv2 decodes and the port does not
-(ROADMAP Queue 1 item 7).
+``PORTED`` names the formats the port decodes (``data/imread.py``): all
+of them but TIFF, WebP, JPEG 2000 and AVIF, which cv2 reads through
+libraries of their own. ``Unreadable`` is the ``ValueError`` the port's
+readers raise for a file ``cv2.imread`` returns None for too;
+``NotPorted`` the ``NotImplementedError`` for a format cv2 decodes and
+the port does not (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from __future__ import annotations
 # the longest signature read (OpenCV reads as many bytes as its longest
 # one; WebP's check is the longest of these)
 HEAD = 32
-PORTED = ("jpeg", "png", "pnm")
+PORTED = ("jpeg", "png", "pnm", "bmp", "sunras", "pam", "pfm", "hdr", "gif")
 _WHITESPACE = b" \t\n\v\f\r"
 
 

@@ -11,9 +11,10 @@ geometry stays on the host in numpy, with the port's own counterparts of
 which draw OpenCV's RANSAC samples, so a run repeats the reference's
 numbers. Images are read as ``cv2.imread`` reads them, the decoder
 chosen by the file's signature (``data/imread.py``: JPEG, PNG, PBM / PGM
-/ PPM); a pair whose image cv2 would return None for is skipped as the
-reference skips it, and a format only cv2 decodes raises (ROADMAP Queue
-1 item 7).
+/ PPM, BMP, Sun raster, PAM, PFM, Radiance HDR, GIF); a pair whose image
+cv2 would return None for is skipped as the reference skips it, and a
+format cv2 decodes through a library of its own (TIFF, WebP, JPEG 2000,
+AVIF) raises (ROADMAP Queue 1 item 7).
 
     python -m spnerf_tpu_torch.eval.pose --config-path \\
         spnerf_tpu_torch/configs/pose_estimation_indoor.yaml \\

@@ -3,16 +3,20 @@ bootstrap from its own data through ``cli.main`` on the card, with the
 JPEG reads it rests on. ``chip_smoke.py`` runs ``phase_bootstrap`` after
 ``[quant]``; the phases, in order:
 
-- ``[jpeg]``: every committed fixture of ``tests/data/jpeg``, ``png`` and
+- ``[jpeg]``: every committed fixture of ``tests/data/jpeg``, ``png``,
   ``pnm`` (baseline, progressive, 4:2:0 to 4:1:1, gray, CMYK, YCCK, cut,
   EXIF-rotated, arithmetic-coded, RGB-coded, block-smoothed, resynced,
   lossless; PNG at every depth and colour type, Adam7, misnamed files;
-  P1-P6) read by ``data/imread.py``, which picks the decoder by the
-  file's signature, gray and colour, to the shape and sha256 of cv2's
-  reads when the fixtures were made (``digests.json``; a null colour
-  digest, cv2's None, must raise ``Unreadable``); ms per 480 x 640 image
-  on the host clock for each kind timed (``JPEG_TIMED``), gray and
-  colour, beside the card's name and power limit;
+  P1-P6) and of OpenCV's own six decoders' folders, ``bmp``, ``sunras``,
+  ``pam``, ``pfm``, ``hdr``, ``gif``, read by ``data/imread.py``, which
+  picks the decoder by the file's signature, gray and colour, to the
+  shape and sha256 of cv2's reads when the fixtures were made
+  (``digests.json``; a null digest, cv2's None, must raise
+  ``Unreadable``); the uncompressed 480 x 640 timing files (BMP, Sun
+  raster, PAM, PFM) written here from a decoded fixture and read back
+  to it; ms per 480 x 640 image on the host clock for each kind timed
+  (``JPEG_TIMED``), gray and colour, beside the card's name and power
+  limit;
 - ``[process-scene-jpeg]``: ``tools.process_scene.main`` at the tiny
   preset over a scene whose frames are the colour JPEG fixtures, with
   orbit poses; the frames read as the colour digests say, the written
@@ -28,9 +32,9 @@ JPEG reads it rests on. ``chip_smoke.py`` runs ``phase_bootstrap`` after
   loss falling;
 - ``[coco-export]``: ``export_pseudo_labels`` on
   magicpoint_coco_export.yaml (240 x 320, batch 8, 100 views in chunks of
-  10) from that checkpoint over 56 + 8 COCO-layout copies of the
-  fixtures of all three folders (every one in the training split, a PNG
-  named ``.jpg`` among them), the training split again with
+  10) from that checkpoint over 96 + 8 COCO-layout copies of the
+  fixtures of all nine folders (every one cv2 reads gray in the training
+  split, a PNG named ``.jpg`` among them), the training split again with
   ``export.serving=int8``: labels
   checked, the warp twice a chunk and the int8 kernels once a forward
   per batch, images/s;
@@ -59,6 +63,7 @@ import hashlib
 import json
 import shutil
 import statistics
+import struct
 import time
 from pathlib import Path
 
@@ -66,8 +71,9 @@ import numpy as np
 import torch
 
 from spnerf_tpu_torch import cli, settings
-from spnerf_tpu_torch.data import coco, imread, jpeg, photometric, png
-from spnerf_tpu_torch.data import synthetic_shapes
+from spnerf_tpu_torch.data import (bmp, coco, cv_codec, gif, hdr, imread,
+                                   jpeg, pam, pfm, photometric, png, pnm,
+                                   sunras, synthetic_shapes)
 from spnerf_tpu_torch.data.loader import DataLoader
 from spnerf_tpu_torch.data.nerf_dataset import NeRFDataset
 from spnerf_tpu_torch.demo import ha_rate, label_iou
@@ -83,9 +89,12 @@ ROOT = Path(__file__).resolve().parents[2]
 CONFIGS = ROOT / "spnerf_tpu_torch" / "configs"
 JPEG_DIR = ROOT / "tests" / "data" / "jpeg"
 # the committed fixtures of every format the port reads
-IMAGE_DIRS = tuple(ROOT / "tests" / "data" / f for f in ("jpeg", "png", "pnm"))
+IMAGE_DIRS = tuple(ROOT / "tests" / "data" / f for f in (
+    "jpeg", "png", "pnm", "bmp", "sunras", "pam", "pfm", "hdr", "gif"))
 COLOUR = "colour"  # the colour digests' key in digests.json
-# the 480 x 640 fixture timed for each kind: (folder, name)
+# the 480 x 640 file timed for each kind: (folder, name); folder WRITTEN
+# for the uncompressed files phase_jpeg writes (write_timed)
+WRITTEN = "written"
 JPEG_TIMED = {"baseline": ("jpeg", "q95_420.jpg"),
               "progressive": ("jpeg", "prog_420.jpg"),
               "arithmetic": ("jpeg", "arith_420.jpg"),
@@ -95,10 +104,21 @@ JPEG_TIMED = {"baseline": ("jpeg", "q95_420.jpg"),
               "resynced": ("jpeg", "rst_missing.jpg"),
               "lossless": ("jpeg", "lossless_gray.jpg"),
               "PNG 16-bit": ("png", "rgb16.png"),
-              "PNG palette": ("png", "palette.png")}
-DECODERS = {"jpeg": (jpeg.decode_gray, jpeg.decode_bgr),
-            "png": (png.decode_gray,
-                    lambda data: png.decode_rgb(data)[..., ::-1])}
+              "PNG palette": ("png", "palette.png"),
+              "BMP 24-bit": (WRITTEN, "rgb24.bmp"),
+              "Sun raster 24-bit": (WRITTEN, "bgr24.ras"),
+              "PAM RGB": (WRITTEN, "rgb.pam"),
+              "PFM gray": (WRITTEN, "gray.pfm"),
+              "PFM colour": (WRITTEN, "rgb.pfm"),
+              "HDR run-length": ("hdr", "rle_480x640.hdr"),
+              "GIF": ("gif", "colour_480x640.gif")}
+# the reads cv2 refuses of a timed kind (None: cv2.imread returns None)
+NOT_READ = {"lossless": "colour", "PFM gray": "colour", "PFM colour": "gray"}
+# (gray, colour) decoder of each format, by imread.format_of
+DECODERS = {"jpeg": (jpeg.decode_gray, jpeg.decode_bgr)}
+DECODERS.update({module.__name__.rsplit(".", 1)[1]: (
+    module.decode_gray, module.decode_rgb) for module in (
+        png, pnm, bmp, sunras, pam, pfm, hdr, gif)})
 JPEG_REPS = 20
 SEED = 0
 HA_SHAPE = (240, 320)  # magicpoint_coco_export.yaml's resize
@@ -120,7 +140,9 @@ BOOT_TRAIN_CUTS = {"train.num_iters": BOOT_STEPS,
 SYN_MIN_POINTS = {"draw_lines": 2, "draw_ellipses": 0, "gaussian_noise": 0,
                   "draw_stripes": 0}
 SYN_MEDIAN_POINTS = {"draw_stripes": 3}
-COCO_IMAGES = {"training": 56, "validation": 8}
+# training: the smallest multiple of 8 (the export's batch) that holds
+# every fixture cv2 reads gray, and one PNG more named .jpg
+COCO_IMAGES = {"training": 96, "validation": 8}
 COCO_EXPORT = CONFIGS / "magicpoint_coco_export.yaml"
 COCO_INT8_EXPER = "coco_export_int8"
 PHOTO_REPS = 20
@@ -219,13 +241,52 @@ def median_ms(fn, *args, reps: int = JPEG_REPS):
     return statistics.median(times), min(times)
 
 
-def phase_jpeg() -> None:
-    """[jpeg]: every committed fixture of the three folders read gray and
+def write_timed(folder: Path, rgb: np.ndarray) -> dict:
+    """The uncompressed 480 x 640 timing files (``JPEG_TIMED``'s WRITTEN
+    ones) written into ``folder`` from (H, W, 3) uint8 R, G, B: as
+    ``cv2.imencode`` writes them (BMP and Sun raster rows of B, G, R, the
+    BMP's bottom-up and padded to 4 bytes; PAM bytes as cv2 stores a B,
+    G, R image; PFM float32 rows bottom-up, little-endian). Returns {name:
+    (gray read, colour read)} each must decode to, the PFM files one read
+    each."""
+    h, w = rgb.shape[:2]
+    bgr = np.ascontiguousarray(rgb[..., ::-1])
+    gray = rgb[..., 1]
+    row = w * 3 + (-w * 3) % 4
+    rows = np.zeros((h, row), np.uint8)
+    rows[:, :w * 3] = bgr[::-1].reshape(h, -1)
+    files = {
+        "rgb24.bmp": b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54)
+        + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 0, 0,
+                      0, 0) + rows.tobytes(),
+        "bgr24.ras": struct.pack(">8I", 0x59A66A95, w, h, 24, bgr.size, 1,
+                                 0, 0) + bgr.tobytes(),
+        "rgb.pam": f"P7\nWIDTH {w}\nHEIGHT {h}\nDEPTH 3\nMAXVAL 255\n"
+        f"TUPLTYPE RGB\nENDHDR\n".encode() + bgr.tobytes(),
+        "gray.pfm": f"Pf\n{w} {h}\n-1\n".encode()
+        + gray[::-1].astype("<f4").tobytes(),
+        "rgb.pfm": f"PF\n{w} {h}\n-1\n".encode()
+        + rgb[::-1].astype("<f4").tobytes(),
+    }
+    folder.mkdir(parents=True, exist_ok=True)
+    for name, data in files.items():
+        (folder / name).write_bytes(data)
+    codec_gray = cv_codec.gray(bgr)  # OpenCV's codecs' colour-to-gray
+    # a PAM gray read takes the first byte of a pixel for red
+    return {"rgb24.bmp": (codec_gray, rgb), "bgr24.ras": (codec_gray, rgb),
+            "rgb.pam": (cv_codec.gray(rgb), rgb), "gray.pfm": (gray, None),
+            "rgb.pfm": (None, rgb)}
+
+
+def phase_jpeg(root: Path) -> None:
+    """[jpeg]: every committed fixture of the nine folders read gray and
     colour through ``data/imread.py`` (the decoder picked by the file's
     signature: misnamed files go through it) to the shape and sha256 cv2
     gave when the fixtures were made, or to ``Unreadable`` where cv2's
-    colour read was None; ms per 480 x 640 image of each timed kind, gray
-    and colour, with the card's name and power limit."""
+    read was None; the uncompressed timing files written under ``root``
+    (``write_timed``) read back to the image they were written from; ms
+    per 480 x 640 image of each timed kind, gray and colour, with the
+    card's name and power limit."""
     t0 = time.perf_counter()
     jpeg.read_gray(JPEG_DIR / "q95_420.jpg")  # builds the library
     build_s = time.perf_counter() - t0
@@ -234,41 +295,54 @@ def phase_jpeg() -> None:
         gray, colour = jpeg_digests(folder)
         for name in sorted(gray):
             path = folder / name
-            got = digest(imread.read_gray(path))
-            if got != gray[name]:
-                raise AssertionError(f"[jpeg] {folder.name}/{name} gray: "
-                                     f"{got} against cv2's {gray[name]}")
-            if colour[name] is None:
-                try:
-                    imread.read_rgb(path)
-                except imread.Unreadable:
-                    pass
-                else:
+            for mode, want, read in (
+                    ("gray", gray[name], imread.read_gray),
+                    ("colour", colour[name],
+                     lambda p: imread.read_rgb(p)[..., ::-1])):
+                if want is None:
+                    try:
+                        read(path)
+                    except imread.Unreadable:
+                        continue
                     raise AssertionError(f"[jpeg] {folder.name}/{name}: a "
-                                         "colour read cv2 refuses decoded")
-            else:
-                got = digest(imread.read_rgb(path)[..., ::-1])
-                if got != colour[name]:
+                                         f"{mode} read cv2 refuses decoded")
+                got = digest(read(path))
+                if got != want:
                     raise AssertionError(
-                        f"[jpeg] {folder.name}/{name} colour: {got} against "
-                        f"cv2's {colour[name]}")
+                        f"[jpeg] {folder.name}/{name} {mode}: {got} against "
+                        f"cv2's {want}")
             names.append(f"{folder.name}/{name}")
+    written = root / WRITTEN
+    t0 = time.perf_counter()
+    wants = write_timed(written, imread.read_rgb(JPEG_DIR / "q95_420.jpg"))
+    for name, (want_gray, want_rgb) in wants.items():
+        for want, read in ((want_gray, imread.read_gray),
+                           (want_rgb, imread.read_rgb)):
+            if want is not None and not np.array_equal(read(written / name),
+                                                       want):
+                raise AssertionError(f"[jpeg] {name} does not read back to "
+                                     "the image it was written from")
+    write_s = time.perf_counter() - t0
     times = []
     for kind, (folder, name) in JPEG_TIMED.items():
-        data = (ROOT / "tests" / "data" / folder / name).read_bytes()
-        gray_fn, colour_fn = DECODERS[folder]
+        path = (written if folder == WRITTEN else
+                ROOT / "tests" / "data" / folder) / name
+        data = path.read_bytes()
+        gray_fn, colour_fn = DECODERS[imread.format_of(data)]
         for mode, decode in (("gray", gray_fn), ("colour", colour_fn)):
-            if mode == "colour" and kind == "lossless":
-                continue  # cv2 reads lossless files gray alone
+            if NOT_READ.get(kind) == mode:
+                continue  # cv2.imread returns None for this read
             img = decode(data)
             med, least = median_ms(decode, data)
             times.append(f"{kind} {mode} {name} ({img.shape[0]}x"
                          f"{img.shape[1]}, {len(data) / 1e3:.1f} kB) "
                          f"{med:.4f} ms (min {least:.4f})")
     log(f"[jpeg] {len(names)} fixtures ({', '.join(names)}) read through "
-        f"imread to cv2.imread's shape and sha256, gray and colour; ms per "
-        f"image (median of {JPEG_REPS}, host clock; card {card_line()}): "
-        f"{'; '.join(times)}; g++ build + first decode {build_s:.3f} s")
+        f"imread to cv2.imread's shape and sha256, gray and colour; "
+        f"{len(wants)} timing files written and read back in "
+        f"{write_s:.3f} s; ms per image (median of {JPEG_REPS}, host "
+        f"clock; card {card_line()}): {'; '.join(times)}; g++ build + "
+        f"first decode {build_s:.3f} s")
 
 
 def phase_process_scene_jpeg(root: Path) -> None:
@@ -474,11 +548,13 @@ def phase_syn_train() -> str:
 
 def coco_layout(root: Path) -> None:
     """DATA_PATH/COCO/images/{training,validation}: the fixtures of the
-    three folders in turn under distinct names, each keeping its suffix
-    (``png_as.jpg`` is a PNG), and one PNG more named ``.jpg``; the
-    training split holds every one of them."""
-    fixtures = [p for folder in IMAGE_DIRS for p in sorted(folder.iterdir())
-                if p.name != "digests.json"]
+    nine folders that cv2 reads gray (not a colour PFM: the COCO reader
+    reads gray, and cv2's gray read of it is None), in turn under distinct
+    names, each keeping its suffix (``png_as.jpg`` is a PNG), and one PNG
+    more named ``.jpg``; the training split holds every one of them."""
+    fixtures = [folder / name for folder in IMAGE_DIRS
+                for name, want in sorted(jpeg_digests(folder)[0].items())
+                if want is not None]
     fixtures.append(IMAGE_DIRS[1] / "palette.png")
     if len(fixtures) > COCO_IMAGES["training"]:
         raise AssertionError(f"[coco-export] {len(fixtures)} fixtures for "
@@ -551,7 +627,7 @@ def phase_coco_export(pretrained: str) -> dict:
             training_dirs["int8" if serving else "bf16"] = Path(out_dir)
         log(f"[coco-export] cli.main --task export_pseudo_labels --split "
             f"{split} ({COCO_EXPORT.name}, cuts {json.dumps(cuts)}): {n} "
-            f"images of the layout (JPEG, PNG, PNM) at {HA_SHAPE[0]}x"
+            f"images of the layout (the nine formats) at {HA_SHAPE[0]}x"
             f"{HA_SHAPE[1]}, batch "
             f"{config['data']['batch_size']}, "
             f"{config['homography_adaptation']['num']} views in chunks of "
@@ -715,7 +791,7 @@ def phase_bootstrap(root: Path):
     settings.CKPT_PATH = root / "ckpt"
     settings.EXPER_PATH = export.EXPER_PATH = root / "exper"
     try:
-        phase_jpeg()
+        phase_jpeg(root)
         phase_process_scene_jpeg(root)
         phase_syn_gen(root / "syn")
         pretrained = phase_syn_train()

@@ -46,12 +46,18 @@ def test_read_rgb_matches_cv2(tmp_path, name):
 
 
 def test_read_rgb_other_suffix_raises(tmp_path):
-    """The decoder follows the file's signature, not its suffix: a BMP and
-    a TIFF (whatever they are called) raise naming ROADMAP Queue 1 item 7,
-    a missing file ``FileNotFoundError`` (cv2 returns None for it)."""
+    """The decoder follows the file's signature, not its suffix: a TIFF and
+    a WebP file (whatever they are called) raise naming ROADMAP Queue 1
+    item 7, a missing file ``FileNotFoundError`` (cv2 returns None for
+    it); a BMP named ``.tif`` reads as cv2 reads it."""
     img = _image(5)
-    for name, ext in (("a.bmp", ".bmp"), ("b.tif", ".tif"),
-                      ("c.jpg", ".bmp")):
+    ok, buf = cv2.imencode(".bmp", img)
+    (tmp_path / "d.tif").write_bytes(buf.tobytes())
+    np.testing.assert_array_equal(
+        imread.read_rgb(tmp_path / "d.tif"),
+        cv2.imread(str(tmp_path / "d.tif"))[..., ::-1])
+    for name, ext in (("a.webp", ".webp"), ("b.tif", ".tif"),
+                      ("c.jpg", ".tif")):
         ok, buf = cv2.imencode(ext, img)
         (tmp_path / name).write_bytes(buf.tobytes())
         with pytest.raises(NotImplementedError, match="Queue 1 item 7"):

@@ -2,10 +2,13 @@
 byte, gray and colour, through the port's signature dispatch
 (``spnerf_tpu_torch/data/imread.py``):
 
-- the committed fixtures of ``tests/data/{jpeg,png,pnm}`` against their
-  digests (and cv2 against them on this host);
+- the committed fixtures of ``tests/data/{jpeg,png,pnm}`` and of OpenCV's
+  own six decoders, ``tests/data/{bmp,sunras,pam,pfm,hdr,gif}``, against
+  their digests (and the test process's cv2 against them; the six are
+  tested further in ``test_torch_imread_codecs.py``);
 - the decoder chosen by the file's first bytes, not its name (a PNG named
-  ``.jpg``, a JPEG named ``.png``); the formats only cv2 decodes raise
+  ``.jpg``, a JPEG named ``.png``); the formats cv2 decodes through
+  libraries of their own (TIFF, WebP, JPEG 2000, AVIF) raise
   ``NotPorted`` naming ROADMAP Queue 1 item 7; bytes no decoder claims
   raise ``Unreadable`` beside cv2's None;
 - JPEG: block-smoothed progressive files (cut inside and between scans,
@@ -19,7 +22,8 @@ byte, gray and colour, through the port's signature dispatch
   ``sRGB`` in gray reads, ``eXIf`` orientations;
 - PNM: P1-P6, maxvals, 16-bit samples, comments, cut files;
 - the loaders of both packages (COCO, ``NeRFDataset``,
-  ``eval/pose.load_gray``) over one folder of mixed, misnamed files.
+  ``eval/pose.load_gray``) over one folder of mixed, misnamed files, one
+  of each of the nine formats.
 """
 
 import io
@@ -34,6 +38,7 @@ import pytest
 
 from _image_fixtures import adam7, exif_orientation, with_chunk
 from _jpeg_fixtures import COLOUR, digest
+import _image_writers as writers
 from _jpeg_writers import (arithmetic, baseline_coefficients, lossless,
                            lossless_gray)
 from spnerf_tpu_torch.data import imread, jpeg, signature
@@ -94,11 +99,14 @@ def _markers(data: bytes, codes) -> list:
 # ---------------------------------------------------------------- fixtures
 
 
-@pytest.mark.parametrize("folder", ["jpeg", "png", "pnm"])
+@pytest.mark.parametrize("folder", ["jpeg", "png", "pnm", "bmp", "sunras",
+                                    "pam", "pfm", "hdr", "gif"])
 def test_fixtures_equal_their_digests(folder):
     """Every committed fixture through ``imread`` (so misnamed files go
     through the signature dispatch) to the digests cv2 gave, gray and
-    colour; cv2 on this host gives them too."""
+    colour; the test process's cv2 gives them too. A null digest is
+    cv2's None (a colour read of a lossless JPEG, a gray read of a colour
+    PFM), for which the port raises ``Unreadable``."""
     digests = json.loads((DATA / folder / "digests.json").read_text())
     colour = digests.pop(COLOUR)
     files = sorted(p.name for p in (DATA / folder).iterdir()
@@ -106,16 +114,17 @@ def test_fixtures_equal_their_digests(folder):
     assert files == sorted(digests) == sorted(colour)
     for name in files:
         path = DATA / folder / name
-        assert digest(imread.read_gray(path)) == digests[name], name
-        assert digest(cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)) == \
-            digests[name], name
-        if colour[name] is None:  # cv2's colour read is None
-            assert cv2.imread(str(path)) is None, name
-            with pytest.raises(signature.Unreadable):
-                imread.read_rgb(path)
-            continue
-        assert digest(imread.read_rgb(path)[..., ::-1]) == colour[name], name
-        assert digest(cv2.imread(str(path))) == colour[name], name
+        for want, flag, read in (
+                (digests[name], cv2.IMREAD_GRAYSCALE, imread.read_gray),
+                (colour[name], cv2.IMREAD_COLOR,
+                 lambda p: imread.read_rgb(p)[..., ::-1])):
+            if want is None:  # cv2's read is None
+                assert cv2.imread(str(path), flag) is None, name
+                with pytest.raises(signature.Unreadable):
+                    read(path)
+                continue
+            assert digest(read(path)) == want, name
+            assert digest(cv2.imread(str(path), flag)) == want, name
 
 
 # --------------------------------------------------------------- dispatch
@@ -134,14 +143,13 @@ def test_the_signature_chooses_the_decoder(tmp_path, kind, name):
     _same_as_cv2(path)
 
 
-@pytest.mark.parametrize("ext", [".bmp", ".tif", ".webp", ".gif", ".ras",
-                                 ".hdr", ".pam", ".avif"])
+@pytest.mark.parametrize("ext", [".tif", ".webp", ".avif", ".jp2"])
 def test_formats_only_cv2_decodes_raise_not_ported(tmp_path, ext):
-    """cv2 reads the file; the port names ROADMAP Queue 1 item 7, whatever
-    the file is called."""
-    img = _noise(3, (20, 30))
-    ok, buf = cv2.imencode(ext, img.astype(np.float32) if ext == ".hdr"
-                           else img)
+    """cv2 reads the file through a library of its own; the port names
+    ROADMAP Queue 1 item 7, whatever the file is called (64 x 96: OpenJPEG
+    writes no smaller file at its default resolutions)."""
+    img = _noise(3, (64, 96))
+    ok, buf = cv2.imencode(ext, img)
     assert ok
     path = _write(tmp_path, "named.jpg", buf.tobytes())
     assert cv2.imread(str(path)) is not None
@@ -733,6 +741,16 @@ def _mixed_folder(folder: Path) -> list:
         "i_ascii.pgm": b"P2 64 48 100\n" + " ".join(
             str(v % 101) for v in range(48 * 64)).encode() + b"\n",
         "j_ppm_named.png": cv2.imencode(".ppm", img)[1].tobytes(),
+        "p_bmp_rle8.bmp": writers.bmp(64, 48, 8, writers.rle(
+            np.arange(48 * 64).reshape(48, 64) % 37, 8,
+            np.random.default_rng(5)), 1, writers.palette(
+                _noise(21, (1, 256))[0])),
+        "q_ras.ras": cv2.imencode(".ras", img)[1].tobytes(),
+        "r_pam_named.jpg": cv2.imencode(".pam", img)[1].tobytes(),
+        "s_pfm.pfm": writers.pfm(img[..., 0].astype(np.float32) * 0.9),
+        "t_hdr.hdr": cv2.imencode(".hdr", img.astype(np.float32) / 300)[1]
+        .tobytes(),
+        "u_gif.gif": cv2.imencode(".gif", img)[1].tobytes(),
     }
     for name, data in files.items():
         (folder / name).write_bytes(data)

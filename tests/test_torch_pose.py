@@ -236,9 +236,9 @@ def test_load_gray_equals_jax(images, rotation, resize_float):
 
 
 def test_load_gray_missing_and_jpeg(tmp_path):
-    """A missing file is (None, None) in both; a JPEG reads as the JAX
-    package reads it through cv2; a format cv2 reads and the port does not
-    decode raises, and is (None, None) when missing."""
+    """A missing file is (None, None) in both; a JPEG and a BMP read as the
+    JAX package reads them through cv2; a format cv2 reads and the port
+    does not decode (TIFF) raises, and is (None, None) when missing."""
     assert tpose.load_gray(tmp_path / "none.png", [64]) == (None, None)
     assert jpose.load_gray(tmp_path / "none.png", [64]) == (None, None)
     assert tpose.load_gray(tmp_path / "none.jpg", [64]) == (None, None)
@@ -251,10 +251,16 @@ def test_load_gray_missing_and_jpeg(tmp_path):
         want, want_scale = jpose.load_gray(jpg, spec)
         np.testing.assert_array_equal(got, want)
         assert got_scale == want_scale
-    bmp = tmp_path / "a.bmp"
-    cv2.imwrite(str(bmp), np.zeros((8, 8), np.uint8))
+    tif = tmp_path / "a.tif"
+    cv2.imwrite(str(tif), np.zeros((8, 8), np.uint8))
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tpose.load_gray(bmp, [64])
+        tpose.load_gray(tif, [64])
+    bmp = tmp_path / "a.bmp"
+    cv2.imwrite(str(bmp), cv2.imread(str(jpg)))
+    got, got_scale = tpose.load_gray(bmp, [64])
+    want, want_scale = jpose.load_gray(bmp, [64])
+    np.testing.assert_array_equal(got, want)
+    assert got_scale == want_scale
     assert tpose.load_gray(tmp_path / "missing.bmp", [64]) == (None, None)
     assert jpose.load_gray(tmp_path / "missing.bmp", [64]) == (None, None)
 
